@@ -1,0 +1,4 @@
+from .convert import state_dict_from_jax_params
+from .prediction import Blocking, predict_with_halo, predict_with_padding
+
+__all__ = ["Blocking", "predict_with_halo", "predict_with_padding", "state_dict_from_jax_params"]
