@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
@@ -56,6 +57,8 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
     """Without a CUDA device, or without the rest of the repository, the smoke run
     exits nonzero and prints no result line."""
     script = REPO / "chip_smoke.py"
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs in full here")
     if where == "alone":
         (tmp_path / "chip_smoke.py").write_text(script.read_text())
         script = tmp_path / "chip_smoke.py"
