@@ -1,4 +1,4 @@
-"""The port's instance norm against the JAX package's Pallas kernel and plain path.
+"""The port's instance norm against the JAX package's Pallas kernels and plain path.
 
 Inputs come from ``np.random.default_rng(seed)`` and go through both sides
 as numpy arrays. The JAX side is channels-last (N, *spatial, C), the port
@@ -13,8 +13,20 @@ Tolerances:
   is a rounding flip from another summation order; ``_norm_core`` also
   rounds its mean, scale and product to bf16, which adds up to about two
   more steps.
+
+Gradients (dx of the norm for an output gradient g uniform in [-1, 1); dx
+stays below about 2.5 in magnitude):
+- float32: atol 1e-5, as for the outputs.
+- bfloat16 against the Pallas backward and against torch autograd of the
+  plain forward: one rounding step of the output, ``2**-7 * |dx| + 1e-5``;
+  all three compute in f32 and round dx once.
+- bfloat16 against ``_norm_core``'s VJP: four rounding steps at the largest
+  |dx|, ``4 * 2**-7 * max|dx|``. It computes in bf16 from the bf16 output
+  and bf16 means: the product y * mean(g * y), g - mean(g), their
+  difference and the product with the scale each round once more.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,9 +35,13 @@ import torch
 from torch_em_tpu.models.unet import _norm_core
 from torch_em_tpu.ops.pallas.norm import instance_norm_pallas, supports_pallas_norm
 from torch_em_tpu_torch.models import AnisotropicUNet, resolve_device
-from torch_em_tpu_torch.ops.instance_norm import instance_norm_reference
+from torch_em_tpu_torch.ops.instance_norm import (
+    instance_norm, instance_norm_backward_reference, instance_norm_forward_reference,
+    instance_norm_reference,
+)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BF16_STEP = 2.0 ** -7
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -80,3 +96,77 @@ def test_cuda_device_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AnisotropicUNet(1, 1, [[1, 2, 2]], initial_features=2, device="cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _grad_inputs(shape_cl, dtype, seed):
+    """x and g, channels-last for JAX and channel-first for the port."""
+    x_jax, x_torch = _inputs(shape_cl, dtype, seed)
+    g_jax, g_torch = _inputs(shape_cl, dtype, seed + 100)
+    return x_jax, g_jax, x_torch, g_torch
+
+
+def _jax_dx(fn, x_jax, g_jax):
+    dx = jax.grad(lambda x: jnp.sum(fn(x).astype(jnp.float32) * g_jax.astype(jnp.float32)))(x_jax)
+    return _channels_first(np.asarray(dx.astype(jnp.float32)))
+
+
+def _port_dx(x_torch, g_torch):
+    x = x_torch.clone().requires_grad_()
+    instance_norm(x).backward(g_torch)
+    assert x.grad.dtype == x_torch.dtype
+    return x.grad.float().numpy()
+
+
+def _assert_one_rounding_step(got, ref):
+    assert np.all(np.abs(got - ref) <= BF16_STEP * np.abs(ref) + 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PALLAS_SHAPES)
+def test_gradient_matches_pallas_backward(shape, dtype):
+    """The Function's CPU backward against the Pallas _norm_bwd kernel, in interpret mode."""
+    x_jax, g_jax, x_torch, g_torch = _grad_inputs(shape, dtype, seed=2)
+    assert supports_pallas_norm(x_jax.shape, x_jax.dtype)
+    ref = _jax_dx(lambda x: instance_norm_pallas(x, interpret=True), x_jax, g_jax)
+    got = _port_dx(x_torch, g_torch)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=TOL[dtype])
+    else:
+        _assert_one_rounding_step(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CORE_SHAPES)
+def test_gradient_matches_norm_core_vjp(shape, dtype):
+    x_jax, g_jax, x_torch, g_torch = _grad_inputs(shape, dtype, seed=3)
+    ref = _jax_dx(lambda x: _norm_core(x, 1, None, 1e-5), x_jax, g_jax)
+    got = _port_dx(x_torch, g_torch)
+    atol = TOL[dtype] if dtype == "float32" else 4 * BF16_STEP * np.abs(ref).max()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 3, 5, 7, 11), (1, 1, 9, 9), (3, 4, 16)])
+def test_backward_reference_matches_autograd(shape, dtype):
+    """The plain backward against torch autograd through the plain forward."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(2.0, 0.5, size=shape).astype(np.float32)).to(TORCH_DTYPE[dtype])
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(TORCH_DTYPE[dtype])
+    xr = x.clone().requires_grad_()
+    instance_norm_reference(xr).backward(g)
+    _, mean, rstd = instance_norm_forward_reference(x)
+    assert mean.shape == rstd.shape == shape[:2] and mean.dtype == rstd.dtype == torch.float32
+    got = instance_norm_backward_reference(x, g, mean, rstd)
+    assert got.dtype == x.dtype
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), xr.grad.numpy(), rtol=0, atol=TOL[dtype])
+    else:
+        _assert_one_rounding_step(got.float().numpy(), xr.grad.float().numpy())
+
+
+def test_forward_reference_statistics():
+    x = torch.from_numpy(np.random.default_rng(5).normal(3.0, 2.0, size=(2, 3, 40)).astype(np.float32))
+    y, mean, rstd = instance_norm_forward_reference(x)
+    assert torch.equal(y, instance_norm_reference(x))
+    np.testing.assert_allclose(mean.numpy(), x.numpy().mean(axis=-1), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(x.numpy().var(axis=-1) + 1e-5), rtol=1e-5)

@@ -10,7 +10,10 @@ packing, phase convs, the norm fold, the 2.5D mode) computes the same math
 and has no counterpart here.
 
 ``dtype`` is the compute type, as flax's ``dtype``: parameters stay float32
-and are cast to it at each use; the output is float32. Parameter names
+and are cast to it at each use; the output is float32. A trainer with
+``mixed_precision`` sets it to bfloat16 for its steps. The factories record
+their arguments in ``model.init_kwargs`` and their import path in
+``model.factory``, so a trainer checkpoint can rebuild the model. Parameter names
 follow torch-em's state-dict layout (``encoder.blocks.<i>.block.{1,4}``,
 ``base.block.{1,4}``, ``decoder.samplers.<i>.conv``, ``out_conv``), so
 torch-em checkpoints load, and ``utils.convert`` carries JAX weights over.
@@ -75,7 +78,10 @@ def _to_tuple(v, dim):
 
 
 class InstanceNorm(nn.Module):
-    """Parameter-free instance norm over the spatial axes (torch InstanceNorm*d default)."""
+    """Parameter-free instance norm over the spatial axes (torch InstanceNorm*d default).
+
+    Differentiable through ``InstanceNormFunction``: the hand-written forward
+    and backward kernels on the card, their plain versions on the CPU."""
 
     def forward(self, x):
         return instance_norm(x)
@@ -280,14 +286,18 @@ class UNetModule(nn.Module):
         return out
 
 
-def _build_unet(dim, in_channels, out_channels, scale_factors, initial_features, gain,
-                device, seed, **kwargs) -> UNetModule:
+def _build_unet(factory, init_kwargs, dim, in_channels, out_channels, scale_factors,
+                initial_features, gain, device, seed, **kwargs) -> UNetModule:
+    """Build, initialise and place a U-Net; ``factory`` and ``init_kwargs`` (the
+    factory's own arguments) let a trainer checkpoint rebuild it."""
     feats = [initial_features * gain ** i for i in range(len(scale_factors))]
     model = UNetModule(dim, feats, scale_factors, in_channels, out_channels, gain=gain, **kwargs)
     generator = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, _Conv):
             m.reset_parameters(generator)
+    model.factory = f"{factory.__module__}.{factory.__qualname__}"
+    model.init_kwargs = {**init_kwargs, "device": str(device), "seed": seed}
     return model.to(resolve_device(device)).eval()
 
 
@@ -306,9 +316,14 @@ def UNet2d(
     **conv_block_kwargs,
 ) -> UNetModule:
     """2D U-Net with 2x pooling at every level."""
+    init_kwargs = dict(
+        in_channels=in_channels, out_channels=out_channels, depth=depth,
+        initial_features=initial_features, gain=gain, final_activation=final_activation,
+        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+    )
     return _build_unet(
-        2, in_channels, out_channels, [2] * depth, initial_features, gain, device, seed,
-        final_activation=final_activation, postprocessing=postprocessing,
+        UNet2d, init_kwargs, 2, in_channels, out_channels, [2] * depth, initial_features, gain,
+        device, seed, final_activation=final_activation, postprocessing=postprocessing,
         check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )
 
@@ -329,11 +344,17 @@ def AnisotropicUNet(
     **conv_block_kwargs,
 ) -> UNetModule:
     """3D U-Net with per-level (possibly anisotropic) scale factors."""
+    init_kwargs = dict(
+        in_channels=in_channels, out_channels=out_channels, scale_factors=scale_factors,
+        initial_features=initial_features, gain=gain, final_activation=final_activation,
+        anisotropic_kernel=anisotropic_kernel, postprocessing=postprocessing,
+        check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+    )
     return _build_unet(
-        3, in_channels, out_channels, scale_factors, initial_features, gain, device, seed,
-        final_activation=final_activation, anisotropic_kernel=anisotropic_kernel,
-        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype,
-        **conv_block_kwargs,
+        AnisotropicUNet, init_kwargs, 3, in_channels, out_channels, scale_factors,
+        initial_features, gain, device, seed, final_activation=final_activation,
+        anisotropic_kernel=anisotropic_kernel, postprocessing=postprocessing,
+        check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )
 
 
@@ -352,8 +373,13 @@ def UNet3d(
     **conv_block_kwargs,
 ) -> UNetModule:
     """3D U-Net with isotropic 2x pooling at every level."""
+    init_kwargs = dict(
+        in_channels=in_channels, out_channels=out_channels, depth=depth,
+        initial_features=initial_features, gain=gain, final_activation=final_activation,
+        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+    )
     return _build_unet(
-        3, in_channels, out_channels, [2] * depth, initial_features, gain, device, seed,
-        final_activation=final_activation, postprocessing=postprocessing,
+        UNet3d, init_kwargs, 3, in_channels, out_channels, [2] * depth, initial_features, gain,
+        device, seed, final_activation=final_activation, postprocessing=postprocessing,
         check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )

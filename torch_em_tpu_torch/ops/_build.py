@@ -5,7 +5,8 @@ Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) with a plain
 are included, so a build takes seconds. The output goes to
 ``torch_em_tpu_torch/_build/<name>-<hash>/``, where the hash covers the
 sources and the compiler flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+unchanged one is loaded as it is. The headers in ``csrc/`` (``*.cuh``) count
+as sources of every library.
 """
 
 import ctypes
@@ -47,7 +48,7 @@ def load_library(name: str, *sources: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` files into ``lib<name>.so`` (once per content hash) and load it."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.read_bytes())
     out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
     lib_path = out_dir / f"lib{name}.so"

@@ -1,10 +1,12 @@
 // Parameter-free instance norm over the spatial axes of a channel-first
-// (N, C, *spatial) tensor, for Hopper (sm_90a).
+// (N, C, *spatial) tensor, for Hopper (sm_90a): the forward.
 //
 // Replaces the Pallas TPU kernel torch_em_tpu/ops/pallas/norm.py:_fwd_kernel
 // (driven by _norm_fwd). Same math: per (sample, channel) row of length L,
 // f32 sum and sum of squares in one read, mean = sum / L,
-// rstd = rsqrt(E[x^2] - mean^2 + eps), y = (x - mean) * rstd in x's type.
+// rstd = rsqrt(E[x^2] - mean^2 + eps), y = (x - mean) * rstd in x's type,
+// and the row's f32 mean and rstd, which the backward (instance_norm_bwd.cu)
+// reads.
 //
 // In the channel-first layout each (n, c) row is contiguous, so a row is a
 // flat range of L elements. Rows at the main path's widths hold up to 13 M
@@ -12,71 +14,30 @@
 //   pass 1: grid of rows x splits; each block reduces one chunk of its row
 //           to an f32 (sum, sumsq) partial in a scratch buffer;
 //   pass 2: same grid; each block folds its row's partials into mean and
-//           rstd, then normalises its chunk and writes it.
+//           rstd, then normalises its chunk and writes it; the block of
+//           chunk 0 also writes the row's mean and rstd.
 // The work is bound by memory traffic (x read twice, y written once). A
 // one-read design (a row resident across a cluster) is left for later.
 //
-// Plain C interface, loaded with ctypes. The caller allocates y and the
-// scratch buffer, and passes PyTorch's current stream. The function returns
-// cudaGetLastError() after each launch; the caller raises on nonzero.
+// Plain C interface, loaded with ctypes. The caller allocates y, mean, rstd
+// and the scratch buffer, and passes PyTorch's current stream. The function
+// returns cudaGetLastError() after each launch; the caller raises on nonzero.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace tem;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-// VEC consecutive elements moved as one load or store (16 bytes for VEC > 1).
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-// Sum of (a, b) over the block; the result is valid in thread 0.
-__device__ __forceinline__ float2 block_sum(float a, float b) {
-  __shared__ float2 warp_sums[kThreads / 32];
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) warp_sums[warp] = make_float2(a, b);
-  __syncthreads();
-  if (warp == 0) {
-    float2 s = lane < kThreads / 32 ? warp_sums[lane] : make_float2(0.f, 0.f);
-    for (int off = 16; off > 0; off >>= 1) {
-      s.x += __shfl_down_sync(0xffffffffu, s.x, off);
-      s.y += __shfl_down_sync(0xffffffffu, s.y, off);
-    }
-    a = s.x;
-    b = s.y;
-  }
-  return make_float2(a, b);
-}
-
-// Block b handles row b / splits, elements [chunk * (b % splits), +chunk) of
-// it, clipped to the row's length. chunk and L are multiples of VEC.
+// chunk and L are multiples of VEC.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 row_partials(const T* __restrict__ x, float2* __restrict__ partial, int64_t L,
              int64_t chunk, int splits) {
-  const int64_t row = blockIdx.x / splits;
-  const int64_t begin = chunk * (blockIdx.x % splits);
-  const int64_t end = begin + chunk < L ? begin + chunk : L;
-  const T* xr = x + row * L;
+  const Chunk c = block_chunk(L, chunk, splits);
+  const T* xr = x + c.row * L;
   float s = 0.f, q = 0.f;
-  for (int64_t i = begin + (int64_t)threadIdx.x * VEC; i < end; i += (int64_t)kThreads * VEC) {
+  for (int64_t i = c.begin + (int64_t)threadIdx.x * VEC; i < c.end; i += (int64_t)kThreads * VEC) {
     const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xr + i);
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
@@ -92,12 +53,11 @@ row_partials(const T* __restrict__ x, float2* __restrict__ partial, int64_t L,
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 row_normalize(const T* __restrict__ x, const float2* __restrict__ partial,
-              T* __restrict__ y, int64_t L, int64_t chunk, int splits, float eps) {
+              T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+              int64_t L, int64_t chunk, int splits, float eps) {
   __shared__ float mean_rstd[2];
-  const int64_t row = blockIdx.x / splits;
-  const int64_t begin = chunk * (blockIdx.x % splits);
-  const int64_t end = begin + chunk < L ? begin + chunk : L;
-  const float2* pr = partial + row * splits;
+  const Chunk c = block_chunk(L, chunk, splits);
+  const float2* pr = partial + c.row * splits;
   float s = 0.f, q = 0.f;
   for (int i = threadIdx.x; i < splits; i += kThreads) {
     s += pr[i].x;
@@ -106,14 +66,19 @@ row_normalize(const T* __restrict__ x, const float2* __restrict__ partial,
   const float2 t = block_sum(s, q);
   if (threadIdx.x == 0) {
     const float mean = t.x / (float)L;
+    const float rstd = rsqrtf(t.y / (float)L - mean * mean + eps);
     mean_rstd[0] = mean;
-    mean_rstd[1] = rsqrtf(t.y / (float)L - mean * mean + eps);
+    mean_rstd[1] = rstd;
+    if (c.begin == 0) {
+      mean_out[c.row] = mean;
+      rstd_out[c.row] = rstd;
+    }
   }
   __syncthreads();
   const float mean = mean_rstd[0], rstd = mean_rstd[1];
-  const T* xr = x + row * L;
-  T* yr = y + row * L;
-  for (int64_t i = begin + (int64_t)threadIdx.x * VEC; i < end; i += (int64_t)kThreads * VEC) {
+  const T* xr = x + c.row * L;
+  T* yr = y + c.row * L;
+  for (int64_t i = c.begin + (int64_t)threadIdx.x * VEC; i < c.end; i += (int64_t)kThreads * VEC) {
     const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xr + i);
     Pack<T, VEC> o;
 #pragma unroll
@@ -123,16 +88,16 @@ row_normalize(const T* __restrict__ x, const float2* __restrict__ partial,
 }
 
 template <typename T, int VEC>
-int launch(const void* x, void* y, void* partial, int64_t rows, int64_t L, int64_t chunk,
-           int splits, float eps, cudaStream_t stream) {
+int launch(const void* x, void* y, void* mean, void* rstd, void* partial, int64_t rows,
+           int64_t L, int64_t chunk, int splits, float eps, cudaStream_t stream) {
   const int64_t blocks = rows * splits;
   row_partials<T, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<float2*>(partial), L, chunk, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   row_normalize<T, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float2*>(partial), static_cast<T*>(y), L,
-      chunk, splits, eps);
+      static_cast<const T*>(x), static_cast<const float2*>(partial), static_cast<T*>(y),
+      static_cast<float*>(mean), static_cast<float*>(rstd), L, chunk, splits, eps);
   return (int)cudaGetLastError();
 }
 
@@ -141,16 +106,19 @@ int launch(const void* x, void* y, void* partial, int64_t rows, int64_t L, int64
 // dtype: 0 = float32, 1 = bfloat16. vec: elements per load, 1 or 16 bytes'
 // worth (4 for float32, 8 for bfloat16); the caller picks 16 bytes only when
 // x and y are 16-byte aligned and L is a multiple of it. chunk is a multiple
-// of vec, splits = ceil(L / chunk), and partial holds rows * splits float2.
-extern "C" int tem_instance_norm_fwd(const void* x, void* y, void* partial, int64_t rows,
-                                     int64_t L, int64_t chunk, int splits, int dtype, int vec,
-                                     float eps, void* stream) {
+// of vec, splits = ceil(L / chunk), partial holds rows * splits float2, and
+// mean and rstd hold rows floats each.
+extern "C" int tem_instance_norm_fwd(const void* x, void* y, void* mean, void* rstd,
+                                     void* partial, int64_t rows, int64_t L, int64_t chunk,
+                                     int splits, int dtype, int vec, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && vec == 4) return launch<float, 4>(x, y, partial, rows, L, chunk, splits, eps, s);
-  if (dtype == 0 && vec == 1) return launch<float, 1>(x, y, partial, rows, L, chunk, splits, eps, s);
+  if (dtype == 0 && vec == 4)
+    return launch<float, 4>(x, y, mean, rstd, partial, rows, L, chunk, splits, eps, s);
+  if (dtype == 0 && vec == 1)
+    return launch<float, 1>(x, y, mean, rstd, partial, rows, L, chunk, splits, eps, s);
   if (dtype == 1 && vec == 8)
-    return launch<__nv_bfloat16, 8>(x, y, partial, rows, L, chunk, splits, eps, s);
+    return launch<__nv_bfloat16, 8>(x, y, mean, rstd, partial, rows, L, chunk, splits, eps, s);
   if (dtype == 1 && vec == 1)
-    return launch<__nv_bfloat16, 1>(x, y, partial, rows, L, chunk, splits, eps, s);
+    return launch<__nv_bfloat16, 1>(x, y, mean, rstd, partial, rows, L, chunk, splits, eps, s);
   return (int)cudaErrorInvalidValue;
 }
