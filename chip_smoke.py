@@ -9,28 +9,29 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
 2. build the port's kernels with nvcc for sm_90a, one nvcc per source, all
    started together;
 3. hold the forward instance-norm kernel against its plain PyTorch version
-   on the card, in float32 and bfloat16, at every shape the serving path
-   gives it plus ragged and misaligned shapes, and time kernel, plain
-   version and the PyTorch library call at the serving path's shapes;
+   on the card, in float32, bfloat16 and float16, at every shape the
+   serving and training paths give it, plus ragged, misaligned, strided and
+   channels-last inputs and a bitwise repeat on each kernel path (A, B, C:
+   ``ops/instance_norm.py:plan``); time kernel (as called, and device-only
+   from a CUDA graph of 20 calls), plain version and the PyTorch library
+   call at the serving path's shapes;
 4. the serving path: the tracked CREMI AnisotropicUNet at full width, bf16
    compute, through ``predict_with_halo`` on a seeded 64x512x512 volume
    with block (32, 512, 512) and halo (4, 32, 32); checks the output, the
    kernel's launch count, and one block against the same model with the
-   plain instance norm;
-5. hold the backward instance-norm kernel against its plain version in
-   float32 and bfloat16 at every shape the training path gives it plus
-   ragged, odd-length, misaligned and non-contiguous-gradient cases, and
-   time both kernels, their plain versions and the library calls at the
-   training path's shapes;
+   plain instance norm; a profiler breakdown of one block's forward;
+5. the same for the backward instance-norm kernel (plus a non-contiguous
+   gradient), and time both kernels, their plain versions and the library
+   calls at the training path's shapes;
 6. the training path: ``default_segmentation_trainer`` on the tracked model
    at full width, bf16 compute, AdamW at lr 1e-4, 32x256x256 patches,
    batch 1, over ``SegmentationDataset``s of a seeded volume written as
    ``.npy`` files to a temporary directory; fits 32 iterations over 2
    epochs, rebuilds the trainer with ``DefaultTrainer.from_checkpoint`` and
    resumes for 8 more; checks iteration counts, a finite and falling loss,
-   both kernels' launch counts and the checkpoints; then holds one float32
-   training step's gradients with the kernels against the plain versions
-   and times the step.
+   both kernels' launch counts and the checkpoints; times the step and
+   breaks one down with the profiler; then holds one float32 training
+   step's gradients with the kernels against the plain versions.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -39,6 +40,7 @@ device, or when any phase fails, it exits nonzero and prints no result line.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -61,18 +63,25 @@ BLOCK_SHAPE = (32, 512, 512)
 HALO = (4, 32, 32)
 NORMS_PER_FORWARD = 18  # 9 ConvBlocks x 2 instance norms
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # kernel against plain version: float32 sums in another order; bfloat16 may
-# differ by one rounding step of the output (2**-7 of its magnitude)
+# differ by one rounding step of the output (2**-7 of its magnitude); float16
+# by one step (2**-10 of its magnitude) beside 1e-5 of the largest value
 F32_ATOL = 1e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
+F16_RTOL, F16_RTOL_OF_MAX = 2.0 ** -10, 1e-5
 # one halo block through the model, kernel against plain norm: float32 with
 # TF32 off; bf16 rounding flips of single norm outputs spread through convs
 MODEL_F32_ATOL = 1e-4
 MODEL_BF16_MAX, MODEL_BF16_MEAN = 2e-2, 1e-3
 # backward kernel against plain version: float32 within 1e-4 of the largest
-# |dx|; bfloat16 one rounding step of the output beside 1e-5 of the largest
+# |dx|; bfloat16 and float16 one rounding step of the output beside 1e-5 of
+# the largest
 BWD_F32_RTOL_OF_MAX = 1e-4
 BWD_BF16_RTOL, BWD_BF16_RTOL_OF_MAX = 2.0 ** -7, 1e-5
+BWD_F16_RTOL = 2.0 ** -10
+# device-only time: calls captured in one CUDA graph
+GRAPH_CALLS = 20
 # the training path
 TRAIN_VOLUME = (48, 384, 384)
 TRAIN_PATCH = (32, 256, 256)
@@ -91,6 +100,9 @@ LEARNING_RATE = 1e-4
 # rounding noise). A wrongly wired or wrong backward moves a gradient by its
 # own size, far beyond this.
 GRAD_L2_FACTOR, GRAD_ATOL_OF_MODEL = 4.0, 1e-5
+# device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
+NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
+CONV_KERNELS = re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|fprop|nchw|nhwc", re.I)
 
 
 def log(msg):
@@ -119,17 +131,97 @@ def norm_shapes(block, scale_factors, initial_features, in_channels=1, gain=2):
     return shapes
 
 
-def time_ms(fn, *args, iters=5):
-    """Mean device time of ``fn(*args)`` over ``iters`` calls, after one warm-up call."""
+def path_of(inorm, shape, dtype, direction):
+    """The kernel path (A, B or C) of a (channels, spatial) norm of batch 1."""
+    c, sp = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return inorm.plan(c, int(np.prod(sp)), itemsize, direction, sms).path
+
+
+def path_counts(inorm, shapes, dtype, direction):
+    counts = {"A": 0, "B": 0, "C": 0}
+    for shape in shapes:
+        counts[path_of(inorm, shape, dtype, direction)] += 1
+    return counts
+
+
+def time_ms(fn, *args, iters=5, repeats=5):
+    """Time of ``fn(*args)`` as called: the median over ``repeats`` runs of the mean of
+    ``iters`` back-to-back calls between CUDA events, after one warm-up call. At small
+    shapes the host's launch rate sets it, and the host is noisy."""
     fn(*args)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop) / iters)
+    return float(np.median(runs))
+
+
+def profiled_kernels(fn, steps):
+    """{kernel name: device ms per step} of ``steps`` calls of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        # kernels and copies; not the annotations that span them (e.g. "Optimizer.step")
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3 / steps
+    return out
+
+
+def device_ms(fn, *args):
+    """Device time of one call of ``fn(*args)``, host excluded: one replay of a CUDA graph
+    that captured GRAPH_CALLS calls, over GRAPH_CALLS."""
+    fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn(*args)
+    graph.replay()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn(*args)
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return start.elapsed_time(stop) / GRAPH_CALLS
+
+
+def device_breakdown(label, fn, steps=3, top=8):
+    """Log the top device kernels of ``fn`` by time, and the norms' and convs' shares."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / steps * 1e3
+    kernels = profiled_kernels(fn, steps)
+    total = sum(kernels.values())
+    if total == 0:
+        raise AssertionError(f"{label}: the profiler shows no device time")
+    norms = sum(ms for k, ms in kernels.items() if NORM_KERNELS.search(k))
+    convs = sum(ms for k, ms in kernels.items() if CONV_KERNELS.search(k) and not NORM_KERNELS.search(k))
+    log(f"{label}: {total:.3f} ms of device kernels per call under the profiler, {wall:.3f} ms "
+        f"wall per call without it (device idle {max(0.0, 1 - total / wall):.1%}); norms {norms:.3f} ms "
+        f"({norms / total:.1%}), convs (cuDNN) {convs:.3f} ms ({convs / total:.1%}), other "
+        f"{total - norms - convs:.3f} ms ({(total - norms - convs) / total:.1%})")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {ms:8.3f} ms {ms / total:6.1%}  {name[:110]}")
+    return {"device_ms": total, "norm_ms": norms, "conv_ms": convs}
 
 
 def card_rand(gen, shape, dtype, offset=0):
@@ -139,64 +231,94 @@ def card_rand(gen, shape, dtype, offset=0):
     return buf[offset:].view(shape)
 
 
+def output_tol(ref, dtype):
+    if dtype == torch.float32:
+        return torch.full_like(ref, F32_ATOL)
+    if dtype == torch.bfloat16:
+        return BF16_RTOL * ref.abs() + BF16_ATOL
+    return F16_RTOL * ref.abs() + F16_RTOL_OF_MAX * ref.abs().max()
+
+
 def check_kernel(kernel, plain, x):
     """Max abs error of kernel against plain version; raises past the tolerance."""
     y = kernel(x).float()
     ref = plain(x).float()
     torch.cuda.synchronize()
-    if x.dtype == torch.float32:
-        tol = torch.full_like(ref, F32_ATOL)
-    else:
-        tol = BF16_RTOL * ref.abs() + BF16_ATOL
     err = (y - ref).abs()
-    if not bool(torch.isfinite(y).all()) or bool((err > tol).any()):
+    if not bool(torch.isfinite(y).all()) or bool((err > output_tol(ref, x.dtype)).any()):
         raise AssertionError(f"kernel disagrees at {tuple(x.shape)} {x.dtype}: "
                              f"max abs err {float(err.max())}")
     return float(err.max())
 
 
-def phase_norm_kernel(inorm, shapes):
-    """Check and time the instance-norm kernel; returns its entry of the kernels line."""
+def layout_cases(rand, dtype):
+    """Inputs beside the main path's: ragged, odd-length, misaligned, strided, channels-last."""
+    cases = [rand(s, dtype) for s in ((2, 3, 5, 7, 11), (1, 1, 3 * 16384 + 5), (1, 2, 40, 577, 577),
+                                      (3, 4, 16))]
+    for shape in ((1, 2, 1000), (1, 2, 65536)):  # base addresses off the 16-byte grid
+        cases.append(rand(shape, dtype, offset=1))
+        assert cases[-1].data_ptr() % 16 != 0
+    cases.append(rand((1, 64, 8, 64, 64), dtype)[:, ::2])
+    cases.append(rand((1, 32, 16, 64, 64), dtype).to(memory_format=torch.channels_last_3d))
+    assert not cases[-1].is_contiguous() and not cases[-2].is_contiguous()
+    return cases
+
+
+def repeat_shapes(inorm, shapes, direction):
+    """One main-path shape per kernel path (bf16), for the bitwise-repeat check."""
+    found = {}
+    for shape in shapes:
+        found.setdefault(path_of(inorm, shape, torch.bfloat16, direction), shape)
+    assert sorted(found) == ["A", "B", "C"], found
+    return found
+
+
+def phase_norm_kernel(inorm, shapes, train_shapes):
+    """Check the forward kernel at every main-path shape and time it at the serving
+    path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
         return card_rand(g, shape, dtype, offset)
 
     max_err = 0.0
-    ragged = [(2, 3, 5, 7, 11), (1, 1, inorm.CHUNK * 3 + 5), (1, 2, 40, 577, 577), (3, 4, 16)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for c, sp in sorted(set(shapes)):
+    for dtype in DTYPES:
+        hit = set()
+        for c, sp in sorted(set(shapes) | set(train_shapes)):
             err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
                                rand((1, c) + sp, dtype))
             max_err = max(max_err, err)
-            log(f"  norm {dtype} C={c} {sp}: max abs err {err:.3g}")
-        for shape in ragged:
-            max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
-                                                 rand(shape, dtype)))
-        # a base address off the 16-byte grid takes the scalar path
-        x = rand((1, 2, 1000), dtype, offset=1)
-        assert x.data_ptr() % 16 != 0
-        max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference, x))
-        log(f"  norm {dtype}: ragged and misaligned shapes agree")
+            hit.add(path_of(inorm, (c, sp), dtype, "forward"))
+            log(f"  norm {dtype} C={c} {sp} path {path_of(inorm, (c, sp), dtype, 'forward')}: "
+                f"max abs err {err:.3g}")
+        assert hit == {"A", "B", "C"}, hit
+        for x in layout_cases(rand, dtype):
+            max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference, x))
+        log(f"  norm {dtype}: ragged, odd-length, misaligned, strided and channels-last inputs agree")
+    for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items():
+        x = rand((1, c) + sp, torch.bfloat16)
+        first, second = inorm.instance_norm_forward(x), inorm.instance_norm_forward(x)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"forward kernel path {path} is not bitwise repeatable")
     log(f"kernel agrees with instance_norm_reference: max abs err {max_err:.3g} "
-        f"(f32 atol {F32_ATOL}; bf16 {BF16_RTOL:.3g}*|ref| + {BF16_ATOL})")
+        f"(f32 atol {F32_ATOL}; bf16 {BF16_RTOL:.3g}*|ref| + {BF16_ATOL}; f16 {F16_RTOL:.3g}*|ref| "
+        f"+ {F16_RTOL_OF_MAX}*max|ref|); two calls bitwise equal on paths A, B and C")
 
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+              "library_device_ms": 0.0}
     for c, sp in sorted(set(shapes)):
         x = rand((1, c) + sp, torch.bfloat16)
         count = shapes.count((c, sp))
-        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
-        ms = time_ms(inorm.instance_norm, x)
-        plain = time_ms(inorm.instance_norm_reference, x)
-        lib = time_ms(torch.nn.functional.instance_norm, x)
-        log(f"  time bf16 C={c} {sp} x{count}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"F.instance_norm {lib:.4f} ms, bound {bound:.4f} ms")
-        for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound), ("library_ms", lib)):
-            totals[key] += count * v
+        t = time_norm(inorm, x, f"C={c} {sp} x{count}")
+        for key in totals:
+            totals[key] += count * t[key]
         del x
+    for c, sp in sorted(repeat_shapes(inorm, shapes, "forward").values()):
+        time_norm(inorm, rand((1, c) + sp, torch.float16), f"C={c} {sp}")
     torch.cuda.empty_cache()
-    log(f"per forward ({len(shapes)} norms, bf16): kernel {totals['ms']:.3f} ms, "
-        f"plain {totals['plain_ms']:.3f} ms, F.instance_norm {totals['library_ms']:.3f} ms, "
+    log(f"per serving forward ({len(shapes)} norms, bf16): kernel {totals['ms']:.3f} ms as called, "
+        f"{totals['device_ms']:.3f} ms device; plain {totals['plain_ms']:.3f} ms, F.instance_norm "
+        f"{totals['library_ms']:.3f} ms as called, {totals['library_device_ms']:.3f} ms device; "
         f"bound {totals['bound_ms']:.3f} ms")
     return {
         "name": "instance_norm",
@@ -206,11 +328,32 @@ def phase_norm_kernel(inorm, shapes):
         "launches": None,
         "max_abs_err": max_err,
         "ms": totals["ms"],
+        "device_ms": totals["device_ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": "bytes",
         "library_ms": totals["library_ms"],
+        "paths": {"serving": path_counts(inorm, shapes, torch.bfloat16, "forward"),
+                  "training": path_counts(inorm, train_shapes, torch.bfloat16, "forward")},
     }
+
+
+def time_norm(inorm, x, label):
+    """Forward times at one shape: kernel as called and device-only, plain version,
+    F.instance_norm as called and device-only, and the byte bound."""
+    t = {"ms": time_ms(inorm.instance_norm, x), "device_ms": device_ms(inorm.instance_norm, x),
+         "plain_ms": time_ms(inorm.instance_norm_reference, x),
+         "library_ms": time_ms(torch.nn.functional.instance_norm, x),
+         "library_device_ms": device_ms(torch.nn.functional.instance_norm, x),
+         "bound_ms": 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3}
+    y = torch.empty_like(x)
+    copy_ms = device_ms(y.copy_, x)  # the same bytes moved by a plain copy: a practical bound
+    path = path_of(inorm, (x.shape[1], tuple(x.shape[2:])), x.dtype, "forward")
+    log(f"  time {x.dtype} {label} path {path}: kernel {t['ms']:.4f} ms as called, "
+        f"{t['device_ms']:.4f} ms device; plain {t['plain_ms']:.4f} ms; F.instance_norm "
+        f"{t['library_ms']:.4f} ms as called, {t['library_device_ms']:.4f} ms device; "
+        f"bound {t['bound_ms']:.4f} ms, copy_ {copy_ms:.4f} ms device")
+    return t
 
 
 def phase_main_path(port, inorm, unet_module, n_expected_blocks):
@@ -249,7 +392,7 @@ def phase_main_path(port, inorm, unet_module, n_expected_blocks):
     host_ms = (time.perf_counter() - t) * 1e3
     x = torch.from_numpy(inp[None, None]).cuda()
     with torch.inference_mode():
-        fwd_ms = time_ms(model, x, iters=3)
+        fwd_ms = time_ms(model, x, iters=3, repeats=1)
         torch.cuda.reset_peak_memory_stats()
         y_kernel = model(x)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -257,6 +400,8 @@ def phase_main_path(port, inorm, unet_module, n_expected_blocks):
             y_plain = model(x)
     log(f"one halo block {tuple(x.shape)}: host load + standardize {host_ms:.1f} ms, "
         f"model forward {fwd_ms:.2f} ms on the device, peak memory {peak:.2f} GiB")
+    with torch.inference_mode():
+        device_breakdown("serving forward of one halo block (bf16)", lambda: model(x))
     diff = (y_kernel - y_plain).abs()
     log(f"bf16 block, kernel vs plain norm: max abs diff {float(diff.max()):.3g}, "
         f"mean {float(diff.mean()):.3g} (limits {MODEL_BF16_MAX}, {MODEL_BF16_MEAN})")
@@ -292,7 +437,8 @@ def check_backward(inorm, x, g):
     if x.dtype == torch.float32:
         tol = torch.full_like(ref, BWD_F32_RTOL_OF_MAX * scale)
     else:
-        tol = BWD_BF16_RTOL * ref.abs() + BWD_BF16_RTOL_OF_MAX * scale
+        step = BWD_BF16_RTOL if x.dtype == torch.bfloat16 else BWD_F16_RTOL
+        tol = step * ref.abs() + BWD_BF16_RTOL_OF_MAX * scale
     err = (dx - ref).abs()
     if not bool(torch.isfinite(dx).all()) or bool((err > tol).any()):
         raise AssertionError(f"backward kernel disagrees at {tuple(x.shape)} {x.dtype}: "
@@ -300,73 +446,66 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes):
-    """Check the backward kernel and time both kernels at the training path's shapes.
+def phase_backward_kernel(inorm, shapes, serving_shapes):
+    """Check the backward kernel at every main-path shape and time both kernels at the
+    training path's shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
     whose input is the raw patch, which needs no gradient."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    F = torch.nn.functional
+
+    def rand(shape, dtype, offset=0):
+        return card_rand(gen, shape, dtype, offset)
+
     max_err = 0.0
-    ragged = [(2, 3, 5, 7, 11), (1, 1, inorm.CHUNK * 3 + 5), (1, 2, 33, 257, 257), (3, 4, 16)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for c, sp in sorted(set(shapes)):
+    for dtype in DTYPES:
+        hit = set()
+        for c, sp in sorted(set(shapes) | set(serving_shapes)):
             shape = (1, c) + sp
-            err = check_backward(inorm, card_rand(gen, shape, dtype), card_rand(gen, shape, dtype))
+            err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
             max_err = max(max_err, err)
-            log(f"  backward {dtype} C={c} {sp}: max abs err {err:.3g}")
-        for shape in ragged:
-            max_err = max(max_err, check_backward(inorm, card_rand(gen, shape, dtype),
-                                                  card_rand(gen, shape, dtype)))
-        # base addresses off the 16-byte grid take the scalar path
-        x, g = card_rand(gen, (1, 2, 1000), dtype, offset=1), card_rand(gen, (1, 2, 1000), dtype, offset=3)
-        assert x.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
-        max_err = max(max_err, check_backward(inorm, x, g))
+            path = path_of(inorm, (c, sp), dtype, "backward")
+            hit.add(path)
+            log(f"  backward {dtype} C={c} {sp} path {path}: max abs err {err:.3g}")
+        assert hit == {"A", "B", "C"}, hit
+        for x in layout_cases(rand, dtype):
+            max_err = max(max_err, check_backward(inorm, x, rand(x.shape, dtype)))
         # autograd may hand over a non-contiguous gradient; the wrapper copies it
-        g = card_rand(gen, (1, 64, 8, 64, 64), dtype)[:, ::2]
+        g = rand((1, 64, 8, 64, 64), dtype)[:, ::2]
         assert not g.is_contiguous()
-        max_err = max(max_err, check_backward(inorm, card_rand(gen, g.shape, dtype), g))
-        log(f"  backward {dtype}: ragged, odd-length, misaligned and non-contiguous cases agree")
+        max_err = max(max_err, check_backward(inorm, rand(g.shape, dtype), g))
+        log(f"  backward {dtype}: ragged, odd-length, misaligned, strided, channels-last and "
+            f"non-contiguous-gradient cases agree")
+    for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items():
+        x, g = rand((1, c) + sp, torch.bfloat16), rand((1, c) + sp, torch.bfloat16)
+        _, mean, rstd = inorm.instance_norm_forward_reference(x)
+        if not torch.equal(inorm.instance_norm_backward(x, g, mean, rstd),
+                           inorm.instance_norm_backward(x, g, mean, rstd)):
+            raise AssertionError(f"backward kernel path {path} is not bitwise repeatable")
     log(f"backward kernel agrees with instance_norm_backward_reference: max abs err {max_err:.3g} "
         f"(f32 {BWD_F32_RTOL_OF_MAX}*max|dx|; bf16 {BWD_BF16_RTOL:.3g}*|ref| + "
-        f"{BWD_BF16_RTOL_OF_MAX}*max|dx|)")
+        f"{BWD_BF16_RTOL_OF_MAX}*max|dx|; f16 {BWD_F16_RTOL:.3g}*|ref| + "
+        f"{BWD_BF16_RTOL_OF_MAX}*max|dx|); two calls bitwise equal on paths A, B and C")
 
     step_shapes = shapes[1:]
-    fwd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    bwd = dict(fwd)
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     for c, sp in sorted(set(shapes)):
-        x = card_rand(gen, (1, c) + sp, torch.bfloat16)
-        g = card_rand(gen, (1, c) + sp, torch.bfloat16)
-        size = x.numel() * x.element_size()
-        _, mean, rstd = inorm.instance_norm_forward_reference(x)
-        f_ms = time_ms(inorm.instance_norm_forward, x)
-        f_plain = time_ms(inorm.instance_norm_forward_reference, x)
-        f_lib = time_ms(F.instance_norm, x)
-        f_bound = 2 * size / HBM_BYTES_PER_S * 1e3
-        b_ms = time_ms(inorm.instance_norm_backward, x, g, mean, rstd)
-        b_plain = time_ms(inorm.instance_norm_backward_reference, x, g, mean, rstd)
-        xr = x.detach().requires_grad_()
-        yr = F.instance_norm(xr)
-        b_lib = time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True))
-        b_bound = 3 * size / HBM_BYTES_PER_S * 1e3
+        f, b = time_step_norm(inorm, rand((1, c) + sp, torch.bfloat16),
+                              rand((1, c) + sp, torch.bfloat16), f"C={c} {sp}")
         n_fwd, n_bwd = shapes.count((c, sp)), step_shapes.count((c, sp))
-        log(f"  time bf16 C={c} {sp} fwd x{n_fwd}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, "
-            f"F.instance_norm {f_lib:.4f} ms, bound {f_bound:.4f} ms; bwd x{n_bwd}: kernel "
-            f"{b_ms:.4f} ms, plain {b_plain:.4f} ms, F.instance_norm backward {b_lib:.4f} ms, "
-            f"bound {b_bound:.4f} ms")
-        for key, v in (("ms", f_ms), ("plain_ms", f_plain), ("bound_ms", f_bound), ("library_ms", f_lib)):
-            fwd[key] += n_fwd * v
-        for key, v in (("ms", b_ms), ("plain_ms", b_plain), ("bound_ms", b_bound), ("library_ms", b_lib)):
-            bwd[key] += n_bwd * v
-        del x, g, xr, yr
+        for key in keys:
+            fwd[key] += n_fwd * f[key]
+            bwd[key] += n_bwd * b[key]
+    for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
+        time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
+                       f"C={c} {sp}")
     torch.cuda.empty_cache()
-    log(f"per training step, forward ({len(shapes)} norms, bf16): kernel {fwd['ms']:.3f} ms, "
-        f"plain {fwd['plain_ms']:.3f} ms, F.instance_norm {fwd['library_ms']:.3f} ms, "
-        f"bound {fwd['bound_ms']:.3f} ms")
-    log(f"per training step, backward ({len(step_shapes)} norms, bf16): kernel {bwd['ms']:.3f} ms, "
-        f"plain {bwd['plain_ms']:.3f} ms, F.instance_norm backward {bwd['library_ms']:.3f} ms, "
-        f"bound {bwd['bound_ms']:.3f} ms")
+    for name, t, n in (("forward", fwd, len(shapes)), ("backward", bwd, len(step_shapes))):
+        log(f"per training step, {name} ({n} norms, bf16): kernel {t['ms']:.3f} ms as called, "
+            f"{t['device_ms']:.3f} ms device; plain {t['plain_ms']:.3f} ms, F.instance_norm "
+            f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms")
     return {
         "name": "instance_norm_backward",
         "route": "cuda",
@@ -375,11 +514,39 @@ def phase_backward_kernel(inorm, shapes):
         "launches": None,
         "max_abs_err": max_err,
         "ms": bwd["ms"],
+        "device_ms": bwd["device_ms"],
         "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": bwd["library_ms"],
+        "paths": {"training": path_counts(inorm, step_shapes, torch.bfloat16, "backward")},
     }
+
+
+def time_step_norm(inorm, x, g, label):
+    """Training-step times at one shape, forward (with its statistics) and backward:
+    kernel as called and device-only, plain version, library call, byte bound."""
+    F = torch.nn.functional
+    size = x.numel() * x.element_size()
+    _, mean, rstd = inorm.instance_norm_forward_reference(x)
+    xr = x.detach().requires_grad_()
+    yr = F.instance_norm(xr)
+    f = {"ms": time_ms(inorm.instance_norm_forward, x),
+         "device_ms": device_ms(inorm.instance_norm_forward, x),
+         "plain_ms": time_ms(inorm.instance_norm_forward_reference, x),
+         "library_ms": time_ms(F.instance_norm, x), "bound_ms": 2 * size / HBM_BYTES_PER_S * 1e3}
+    b = {"ms": time_ms(inorm.instance_norm_backward, x, g, mean, rstd),
+         "device_ms": device_ms(inorm.instance_norm_backward, x, g, mean, rstd),
+         "plain_ms": time_ms(inorm.instance_norm_backward_reference, x, g, mean, rstd),
+         "library_ms": time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True)),
+         "bound_ms": 3 * size / HBM_BYTES_PER_S * 1e3}
+    paths = [path_of(inorm, (x.shape[1], tuple(x.shape[2:])), x.dtype, d) for d in ("forward", "backward")]
+    log(f"  time {x.dtype} {label} fwd path {paths[0]}: kernel {f['ms']:.4f} ms as called, "
+        f"{f['device_ms']:.4f} ms device; plain {f['plain_ms']:.4f} ms; F.instance_norm "
+        f"{f['library_ms']:.4f} ms; bound {f['bound_ms']:.4f} ms | bwd path {paths[1]}: kernel "
+        f"{b['ms']:.4f} ms as called, {b['device_ms']:.4f} ms device; plain {b['plain_ms']:.4f} "
+        f"ms; F.instance_norm backward {b['library_ms']:.4f} ms; bound {b['bound_ms']:.4f} ms")
+    return f, b
 
 
 def training_volume(seed=0):
@@ -471,7 +638,7 @@ def phase_training(port, inorm):
         # one training step on a device-resident batch
         x, y = (v.cuda() for v in next(iter(resumed.train_loader)))
         torch.cuda.reset_peak_memory_stats()
-        step_ms = time_ms(resumed._train_step, x, y, iters=10)
+        step_ms = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
         t = time.perf_counter()
         for _ in range(10):
             resumed._train_step(x, y)
@@ -481,6 +648,8 @@ def phase_training(port, inorm):
         log(f"training step {tuple(x.shape)} bf16: {step_ms:.2f} ms device (CUDA events), "
             f"{wall_ms:.2f} ms wall, {1e3 / wall_ms:.2f} patches/s, peak memory {peak:.2f} GiB; "
             f"{nvidia_smi()}")
+        device_breakdown("training step (bf16 forward, backward, AdamW)",
+                         lambda: resumed._train_step(x, y))
         del trainer, resumed, model
     torch.cuda.empty_cache()
     check_training_gradients(port, inorm, x, y)
@@ -497,15 +666,18 @@ def check_training_gradients(port, inorm, x, y):
         port.DiceLoss()(net(xb), yb).backward()
         return {n: p.grad.clone() for n, p in net.named_parameters()}
 
-    plain_norm = (unittest.mock.patch.object(inorm, "instance_norm_forward",
-                                             inorm.instance_norm_forward_reference),
-                  unittest.mock.patch.object(inorm, "instance_norm_backward",
-                                             inorm.instance_norm_backward_reference))
+    def plain_forward(x, eps, stats=True):  # the entry of inputs that need no gradient
+        return inorm.instance_norm_forward_reference(x, eps)
+
+    plain_norm = [unittest.mock.patch.object(inorm, name, fn) for name, fn in (
+        ("instance_norm_forward", inorm.instance_norm_forward_reference),
+        ("instance_norm_backward", inorm.instance_norm_backward_reference),
+        ("_instance_norm_cuda", plain_forward))]
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         kernel = grads(model, x, y)
-        with plain_norm[0], plain_norm[1]:
+        with plain_norm[0], plain_norm[1], plain_norm[2]:
             plain = grads(model, x, y)
             model.double()
             model.dtype = torch.float64
@@ -559,19 +731,19 @@ def main():
                 build.result()
         log(f"built instance_norm.cu and instance_norm_bwd.cu in {time.perf_counter() - t:.1f} s")
 
-        log("phase 3: forward kernel against its plain version, serving shapes")
+        log("phase 3: forward kernel against its plain version, serving and training shapes")
         block = tuple(b + 2 * h for b, h in zip(BLOCK_SHAPE, HALO))
         shapes = norm_shapes(block, TRACKED["scale_factors"], TRACKED["initial_features"])
-        assert len(shapes) == NORMS_PER_FORWARD
-        forward = phase_norm_kernel(inorm, shapes)
+        train_shapes = norm_shapes(TRAIN_PATCH, TRACKED["scale_factors"], TRACKED["initial_features"])
+        assert len(shapes) == len(train_shapes) == NORMS_PER_FORWARD
+        forward = phase_norm_kernel(inorm, shapes, train_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         n_blocks = int(np.prod([-(-v // b) for v, b in zip(VOLUME_SHAPE, BLOCK_SHAPE)]))
         serving_launches = phase_main_path(port, inorm, unet_module, n_blocks)
 
-        log("phase 5: backward kernel against its plain version, training shapes")
-        train_shapes = norm_shapes(TRAIN_PATCH, TRACKED["scale_factors"], TRACKED["initial_features"])
-        backward = phase_backward_kernel(inorm, train_shapes)
+        log("phase 5: backward kernel against its plain version, training and serving shapes")
+        backward = phase_backward_kernel(inorm, train_shapes, shapes)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm)

@@ -170,3 +170,39 @@ def test_forward_reference_statistics():
     assert torch.equal(y, instance_norm_reference(x))
     np.testing.assert_allclose(mean.numpy(), x.numpy().mean(axis=-1), rtol=0, atol=1e-5)
     np.testing.assert_allclose(rstd.numpy(), 1 / np.sqrt(x.numpy().var(axis=-1) + 1e-5), rtol=1e-5)
+
+
+def _torch_second_derivative(fn, x0, g, v):
+    """d/dx of <dx(x), v>, where dx is the gradient of <fn(x), g>."""
+    x = x0.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(fn(x), x, g, create_graph=True)
+    return torch.autograd.grad(dx, x, v)[0]
+
+
+def test_second_derivative_matches_reference_and_norm_core():
+    """Grad of grad through the Function (create_graph=True) in float64.
+
+    Against autograd of the plain forward: 1e-10 (float64 rounding of O(1)
+    values is far below that). Against jax.grad twice of _norm_core under x64:
+    _norm_core takes its statistics in float32 for any input type
+    (``_pc_stats``), so float32 rounding of mean and rstd sets the difference;
+    1e-4 of the largest value, as for a float32 comparison."""
+    rng = np.random.default_rng(6)
+    shape_cl = (1, 4, 5, 2)
+    x_cl, g_cl, v_cl = (rng.normal(size=shape_cl) for _ in range(3))
+    x, g, v = (torch.from_numpy(np.ascontiguousarray(_channels_first(a))) for a in (x_cl, g_cl, v_cl))
+    got = _torch_second_derivative(instance_norm, x, g, v).numpy()
+    ref = _torch_second_derivative(instance_norm_reference, x, g, v).numpy()
+    assert np.abs(ref).max() > 0.1  # not trivially zero
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-10)
+
+    with jax.enable_x64(True):
+        xj, gj, vj = jnp.asarray(x_cl), jnp.asarray(g_cl), jnp.asarray(v_cl)
+        assert xj.dtype == jnp.float64
+
+        def dx(x):
+            return jax.grad(lambda x: jnp.sum(_norm_core(x, 1, None, 1e-5) * gj))(x)
+
+        ddx = jax.grad(lambda x: jnp.sum(dx(x) * vj))(xj)
+        ddx = _channels_first(np.asarray(ddx))
+    np.testing.assert_allclose(got, ddx, rtol=0, atol=1e-4 * np.abs(ddx).max())

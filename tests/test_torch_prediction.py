@@ -109,3 +109,38 @@ def test_predict_with_halo_checks_arguments():
     with pytest.raises(ValueError, match="entries"):
         prediction.predict_with_halo(np.zeros((8, 32, 32), np.float32), torch_model,
                                      block_shape=(8, 32), halo=(2, 8, 8))
+
+
+def test_predict_with_halo_takes_the_reference_argument_order():
+    """A positional call in the JAX package's (and torch-em's) order:
+    (input_, model, gpu_ids, block_shape, halo, output, preprocess, postprocess,
+    with_channels)."""
+    jax_model, torch_model = _models(1)
+    vol = np.random.default_rng(5).random((13, 50, 70), dtype=np.float32)
+    args = (None, (8, 32, 32), (2, 8, 8), None, standardize, None, False)
+    expected = jax_prediction.predict_with_halo(vol, jax_model, *args[:4], jax_standardize,
+                                                *args[5:], disable_tqdm=True)
+    got = prediction.predict_with_halo(vol, torch_model, *args)
+    assert got.shape == expected.shape == (2, 13, 50, 70)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=ATOL)
+    on_cpu = prediction.predict_with_halo(vol, torch_model, ["cpu"], (8, 32, 32), (2, 8, 8))
+    np.testing.assert_array_equal(on_cpu, got)
+
+
+@pytest.mark.parametrize("option", ["output", "postprocess", "skip_block", "mask",
+                                    "prediction_function", "roi", "iter_list", "grid_shift",
+                                    "devices", "n_threads"])
+def test_predict_with_halo_refuses_unported_options(option):
+    _, torch_model = _models(1)
+    with pytest.raises(NotImplementedError, match=option):
+        prediction.predict_with_halo(np.zeros((8, 32, 32), np.float32), torch_model,
+                                     block_shape=(8, 32, 32), halo=(2, 8, 8), **{option: 1})
+
+
+def test_predict_with_halo_checks_gpu_ids():
+    _, torch_model = _models(1)
+    vol = np.zeros((8, 32, 32), np.float32)
+    with pytest.raises(ValueError, match="model lies on cpu"):
+        prediction.predict_with_halo(vol, torch_model, [0], (8, 32, 32), (2, 8, 8))
+    with pytest.raises(NotImplementedError, match="several devices"):
+        prediction.predict_with_halo(vol, torch_model, ["cpu", "cpu"], (8, 32, 32), (2, 8, 8))

@@ -108,31 +108,85 @@ def _load_block(input_, offset, block_shape, halo, padding_mode="reflect", with_
     return data, bb
 
 
+def _check_gpu_ids(gpu_ids, model_device: torch.device):
+    """``gpu_ids`` must name one device ("cpu", an index, or "cuda:<i>"), the model's:
+    the port runs the model where its parameters lie."""
+    if len(gpu_ids) != 1:
+        raise NotImplementedError("predict_with_halo on several devices is not ported yet; "
+                                  "pass one entry in gpu_ids or None")
+    gpu = gpu_ids[0]
+    if gpu == "cpu":
+        device = torch.device("cpu")
+    elif isinstance(gpu, int) or (isinstance(gpu, str) and gpu.isdigit()):
+        device = torch.device("cuda", int(gpu))
+    else:
+        device = torch.device(gpu)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    if device != model_device:
+        raise ValueError(f"gpu_ids names {device}, but the model lies on {model_device}; "
+                         f"move the model there first")
+
+
+# options of the reference's predict_with_halo that the port does not take yet
+_NOT_PORTED = ("output", "postprocess", "skip_block", "mask", "prediction_function", "roi",
+               "iter_list", "grid_shift", "devices", "n_threads")
+
+
 def predict_with_halo(
     input_: np.ndarray,
     model,
-    block_shape: Tuple[int, ...],
-    halo: Tuple[int, ...],
+    gpu_ids: Optional[Sequence] = None,
+    block_shape: Optional[Tuple[int, ...]] = None,
+    halo: Optional[Tuple[int, ...]] = None,
+    output=None,
     preprocess: Optional[Callable] = standardize,
+    postprocess: Optional[Callable] = None,
     with_channels: bool = False,
+    skip_block: Optional[Callable] = None,
+    mask=None,
+    disable_tqdm: bool = False,
+    tqdm_desc: str = "predict with halo",
+    prediction_function: Optional[Callable] = None,
+    roi=None,
+    iter_list=None,
+    grid_shift=None,
     batch_size: int = 1,
+    devices=None,
+    n_threads: Optional[int] = None,
     output_dtype=None,
 ) -> np.ndarray:
     """Block-wise prediction with a halo around each block.
 
-    ``input_`` is (*spatial) or, ``with_channels``, (C, *spatial). Each block
-    of ``block_shape`` is loaded with ``halo`` voxels on every side, run
-    through ``preprocess`` on the host and through ``model`` on its device in
-    batches of ``batch_size``; the halo is cropped on the device, and the
-    inner block is cast to ``output_dtype`` (a numpy dtype, e.g. "float16")
-    there before it is copied back. Returns a float32 (C_out, *spatial) array.
+    The reference's signature and argument order. ``input_`` is (*spatial)
+    or, ``with_channels``, (C, *spatial). Each block of ``block_shape`` is
+    loaded with ``halo`` voxels on every side, run through ``preprocess`` on
+    the host and through ``model`` on its device in batches of
+    ``batch_size``; the halo is cropped on the device, and the inner block is
+    cast to ``output_dtype`` (a numpy dtype, e.g. "float16") there before it
+    is copied back. Returns a float32 (C_out, *spatial) array.
+
+    ``gpu_ids`` may name the model's one device (None: wherever the model
+    lies). The port shows no progress bar, so ``disable_tqdm`` and
+    ``tqdm_desc`` change nothing. ``output``, ``postprocess``,
+    ``skip_block``, ``mask``, ``prediction_function``, ``roi``,
+    ``iter_list``, ``grid_shift``, ``devices`` and ``n_threads`` are not
+    ported yet and raise ``NotImplementedError`` when given.
     """
+    given = locals()
+    for name in _NOT_PORTED:
+        if given[name] is not None:
+            raise NotImplementedError(f"predict_with_halo's {name!r} is not ported yet")
+    if block_shape is None or halo is None:
+        raise ValueError("predict_with_halo needs block_shape and halo")
+    device = _model_device(model)
+    if gpu_ids is not None:
+        _check_gpu_ids(gpu_ids, device)
     spatial = tuple(input_.shape[1:] if with_channels else input_.shape)
     ndim = len(spatial)
     block_shape, halo = tuple(block_shape), tuple(halo)
     if not len(block_shape) == len(halo) == ndim:
         raise ValueError(f"block_shape {block_shape} and halo {halo} need {ndim} entries")
-    device = _model_device(model)
     out_dtype = None if output_dtype is None else getattr(torch, np.dtype(output_dtype).name)
     blocking = Blocking([0] * ndim, spatial, block_shape)
     output = np.zeros((model.out_channels or 1,) + spatial, dtype="float32")
