@@ -16,22 +16,33 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    from a CUDA graph of 20 calls), plain version and the PyTorch library
    call at the serving path's shapes;
 4. the serving path: the tracked CREMI AnisotropicUNet at full width, bf16
-   compute, through ``predict_with_halo`` on a seeded 64x512x512 volume
-   with block (32, 512, 512) and halo (4, 32, 32); checks the output, the
-   kernel's launch count, and one block against the same model with the
-   plain instance norm; a profiler breakdown of one block's forward;
+   compute, through ``predict_with_halo`` with block (32, 512, 512) and halo
+   (4, 32, 32) on two seeded volumes, the tracked 64x512x512 (2 blocks) and
+   128x1024x1024 (16 blocks), each through the pipelined host path (a numpy
+   volume) and the device-resident path (a tensor on the card); after a
+   warm-up call, times each call (Mvox/s, ms per block, the forwards' device
+   time by CUDA events and the device's idle share over the call) and checks
+   the norm kernel's launches, the outputs' shape and range, the two paths
+   against each other and the host path against a plain serial block loop
+   with host ``standardize``; then one block against the same model with the
+   plain instance norm, and a profiler breakdown of one block's forward;
 5. the same for the backward instance-norm kernel (plus a non-contiguous
    gradient), and time both kernels, their plain versions and the library
    calls at the training path's shapes;
 6. the training path: ``default_segmentation_trainer`` on the tracked model
    at full width, bf16 compute, AdamW at lr 1e-4, 32x256x256 patches,
-   batch 1, over ``SegmentationDataset``s of a seeded volume written as
-   ``.npy`` files to a temporary directory; fits 32 iterations over 2
-   epochs, rebuilds the trainer with ``DefaultTrainer.from_checkpoint`` and
-   resumes for 8 more; checks iteration counts, a finite and falling loss,
-   both kernels' launch counts and the checkpoints; times the step and
-   breaks one down with the profiler; then holds one float32 training
-   step's gradients with the kernels against the plain versions.
+   batch 1, over ``SegmentationDataset``s of a seeded raw volume and its
+   instance labels (connected components of a threshold) written as
+   ``.npy`` files to a temporary directory, with the affinity target of
+   ``DeviceAffinityTransform`` computed inside the step; fits 32 iterations
+   over 2 epochs, rebuilds the trainer with ``DefaultTrainer.from_checkpoint``
+   (the transform included) and resumes for 8 more; checks iteration
+   counts, a finite and falling loss, both kernels' launch counts and the
+   checkpoints; holds the device affinity and boundary transforms against
+   the host ones on label patches; times the loader with the host
+   ``AffinityTransform`` and with the device transform in the step, the
+   bare step, and breaks one down with the profiler; then holds one float32
+   training step's gradients with the kernels against the plain versions.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -59,6 +70,8 @@ TRACKED = dict(
     initial_features=32, final_activation="Sigmoid", anisotropic_kernel=True,
 )
 VOLUME_SHAPE = (64, 512, 512)
+# the tracked volume, and one of 16 blocks (512 MiB of float32) for the pipeline to overlap
+SERVING_VOLUMES = (VOLUME_SHAPE, (128, 1024, 1024))
 BLOCK_SHAPE = (32, 512, 512)
 HALO = (4, 32, 32)
 NORMS_PER_FORWARD = 18  # 9 ConvBlocks x 2 instance norms
@@ -88,6 +101,9 @@ TRAIN_PATCH = (32, 256, 256)
 TRAIN_SAMPLES, VAL_SAMPLES = 16, 2
 FIT_ITERATIONS, RESUME_ITERATIONS = 32, 8
 LEARNING_RATE = 1e-4
+# the tracked benchmark's affinity offset (one output channel)
+OFFSETS = [[-1, 0, 0]]
+LOADER_THREADS, LOADER_STEPS = 4, 8
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
 # gradients of this model are themselves inexact in the deep levels on either
@@ -356,35 +372,115 @@ def time_norm(inorm, x, label):
     return t
 
 
-def phase_main_path(port, inorm, unet_module, n_expected_blocks):
-    """Full-width tiled inference; returns the kernel launches of the checked run."""
-    model = port.AnisotropicUNet(**TRACKED, dtype=torch.bfloat16, device="cuda", seed=0)
-    volume = np.random.default_rng(0).random(VOLUME_SHAPE, dtype=np.float32)
-    n_blocks = port.Blocking([0, 0, 0], VOLUME_SHAPE, BLOCK_SHAPE).n_blocks
-    assert n_blocks == n_expected_blocks
-    runs = []
-    for run in range(2):  # the first run also pays for cuDNN's first calls
-        inorm.instance_norm.launches = 0
+class TimedModel(torch.nn.Module):
+    """The model, with a pair of CUDA events around each forward."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+        self.out_channels = model.out_channels
+        self.events = []
+
+    def forward(self, x):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.model(x)
+        stop.record()
+        self.events.append((start, stop))
+        return out
+
+    def device_ms(self):
         torch.cuda.synchronize()
+        return sum(start.elapsed_time(stop) for start, stop in self.events)
+
+
+def serve(port, inorm, model, volume, path, runs=2):
+    """``predict_with_halo`` on ``volume`` through the host path (``path`` "host": the numpy
+    volume) or the device-resident one ("device": a copy on the card, made before the
+    call); the last of ``runs`` calls is timed, the first pays for cuDNN's first calls.
+
+    Returns the output as a float32 numpy array and the timed call's numbers: wall time,
+    Mvox/s, ms per block, the forwards' device time (CUDA events around each), the
+    device's idle share (the wall time outside the forwards) and the norm kernel's
+    launches, counted from 0 just before the call."""
+    timed = TimedModel(model)
+    x = volume if path == "host" else torch.from_numpy(volume).cuda()
+    n_blocks = port.Blocking([0] * volume.ndim, volume.shape, BLOCK_SHAPE).n_blocks
+    for _ in range(runs):
+        timed.events.clear()
+        torch.cuda.synchronize()
+        inorm.instance_norm.launches = 0
         t = time.perf_counter()
-        out = port.predict_with_halo(volume, model, block_shape=BLOCK_SHAPE, halo=HALO,
-                                     output_dtype="float16")
+        out = port.predict_with_halo(x, timed, block_shape=BLOCK_SHAPE, halo=HALO, output_dtype="float16")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = inorm.instance_norm.launches
-        runs.append((seconds, launches))
-        if out.shape != (1,) + VOLUME_SHAPE:
-            raise AssertionError(f"output shape {out.shape}")
-        if not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
-            raise AssertionError("output is not finite or leaves [0, 1]")
-        if launches != NORMS_PER_FORWARD * n_blocks:
-            raise AssertionError(f"{launches} kernel launches, expected "
-                                 f"{NORMS_PER_FORWARD} x {n_blocks} blocks")
-        log(f"run {run}: {seconds:.3f} s, {launches} kernel launches for {n_blocks} blocks, "
-            f"output {out.shape} in [{out.min():.4f}, {out.max():.4f}]")
-    seconds = runs[1][0]
-    log(f"tiled inference: {np.prod(VOLUME_SHAPE) / seconds / 1e6:.2f} Mvox/s, "
-        f"{seconds / n_blocks * 1e3:.1f} ms per block (host load + standardize + device + copy)")
+    forward_ms = timed.device_ms()
+    if path == "device":
+        if not (isinstance(out, torch.Tensor) and out.device == x.device and out.dtype == torch.float16):
+            raise AssertionError(f"the device-resident path returned {type(out)}")
+        out = out.float().cpu().numpy()
+    del x
+    stats = {"path": path, "volume": list(volume.shape), "blocks": n_blocks, "seconds": seconds,
+             "mvox_per_s": volume.size / seconds / 1e6, "ms_per_block": seconds / n_blocks * 1e3,
+             "forward_device_ms": forward_ms, "device_idle": max(0.0, 1 - forward_ms / (seconds * 1e3)),
+             "launches": launches}
+    log(f"{path} path {volume.shape}: {stats['mvox_per_s']:.2f} Mvox/s, {stats['ms_per_block']:.1f} ms "
+        f"per block ({seconds:.3f} s for {n_blocks} blocks); forwards {forward_ms:.1f} ms device "
+        f"({forward_ms / n_blocks:.2f} ms per block), device idle {stats['device_idle']:.1%} of the call; "
+        f"{launches} norm launches")
+    if out.shape != (1,) + volume.shape:
+        raise AssertionError(f"output shape {out.shape}")
+    if not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
+        raise AssertionError("output is not finite or leaves [0, 1]")
+    if launches != NORMS_PER_FORWARD * n_blocks:
+        raise AssertionError(f"{launches} kernel launches, expected {NORMS_PER_FORWARD} x {n_blocks} blocks")
+    return out, stats
+
+
+def serial_predict(port, model, volume):
+    """A plain serial block loop: each block loaded and standardized on the host, then
+    predicted alone and cast to float16 on the card."""
+    blocking = port.Blocking([0] * volume.ndim, volume.shape, BLOCK_SHAPE)
+    out = np.zeros((1,) + volume.shape, dtype=np.float32)
+    inner = tuple(slice(h, h + b) for h, b in zip(HALO, BLOCK_SHAPE))
+    with torch.inference_mode():
+        for block_id in range(blocking.n_blocks):
+            begin, end = blocking.get_block(block_id)
+            inp, _ = port.utils.prediction._load_block(volume, begin, BLOCK_SHAPE, HALO)
+            x = torch.from_numpy(port.standardize(inp)[None, None]).cuda()
+            pred = model(x)[(0, slice(None)) + inner].half().float().cpu().numpy()
+            actual = tuple(slice(0, e - b) for b, e in zip(begin, end))
+            out[(slice(None),) + tuple(slice(b, e) for b, e in zip(begin, end))] = pred[(slice(None),) + actual]
+    return out
+
+
+def check_close(label, got, expected):
+    diff = np.abs(got - expected)
+    log(f"{label}: max abs diff {float(diff.max()):.3g}, mean {float(diff.mean()):.3g} "
+        f"(limits {MODEL_BF16_MAX}, {MODEL_BF16_MEAN})")
+    if float(diff.max()) > MODEL_BF16_MAX or float(diff.mean()) > MODEL_BF16_MEAN:
+        raise AssertionError(f"{label} disagree")
+
+
+def phase_main_path(port, inorm, unet_module):
+    """Full-width tiled inference through both paths on both volumes; returns the norm
+    kernel's launches summed over the timed calls, and their numbers."""
+    model = port.AnisotropicUNet(**TRACKED, dtype=torch.bfloat16, device="cuda", seed=0)
+    launches, results = 0, []
+    for shape in SERVING_VOLUMES:
+        volume = np.random.default_rng(0).random(shape, dtype=np.float32)
+        host, host_stats = serve(port, inorm, model, volume, "host")
+        device, device_stats = serve(port, inorm, model, volume, "device")
+        check_close(f"{shape}: device-resident path vs host path", device, host)
+        if shape == VOLUME_SHAPE:
+            check_close(f"{shape}: host path vs a serial loop with host standardize", host,
+                        serial_predict(port, model, volume))
+        del host, device
+        launches += host_stats["launches"] + device_stats["launches"]
+        results += [host_stats, device_stats]
+    log(f"serving: {json.dumps(results)}")
+    volume = np.random.default_rng(0).random(VOLUME_SHAPE, dtype=np.float32)
 
     t = time.perf_counter()
     inp, _ = port.utils.prediction._load_block(volume, (0, 0, 0), BLOCK_SHAPE, HALO)
@@ -424,7 +520,7 @@ def phase_main_path(port, inorm, unet_module, n_expected_blocks):
         f"(limit {MODEL_F32_ATOL})")
     if err > MODEL_F32_ATOL:
         raise AssertionError("f32 model with the kernel disagrees with the plain norm")
-    return runs[0][1]
+    return launches
 
 
 def check_backward(inorm, x, g):
@@ -549,15 +645,15 @@ def time_step_norm(inorm, x, g, label):
     return f, b
 
 
-def training_volume(seed=0):
-    """A seeded raw volume and a learnable target derived from it: raw is smoothed
-    noise, the target a threshold of raw smoothed once more."""
+def training_volume(port, seed=0):
+    """A seeded raw volume and instance labels derived from it: raw is smoothed noise,
+    the labels the connected components of a threshold of raw smoothed once more."""
     from scipy import ndimage
 
     noise = np.random.default_rng(seed).normal(size=TRAIN_VOLUME).astype(np.float32)
     raw = ndimage.gaussian_filter(noise, 1.0)
     raw = (raw - raw.mean()) / raw.std()
-    labels = (ndimage.gaussian_filter(raw, 2.0) > 0).astype(np.float32)
+    labels = port.transforms.connected_components(ndimage.gaussian_filter(raw, 2.0) > 0)
     return raw, labels
 
 
@@ -574,26 +670,28 @@ class LossLog:
         self.metrics.append(metric)
 
 
-def phase_training(port, inorm):
+def phase_training(port, inorm, device_ops):
     """The training path; returns the forward and backward kernel launches of its run."""
-    raw, labels = training_volume()
+    raw, labels = training_volume(port)
+    log(f"training volume {raw.shape}: {int(labels.max())} instances")
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "raw.npy"), raw)
         np.save(os.path.join(tmp, "labels.npy"), labels)
         del raw, labels
 
-        def loader(n_samples, shuffle):
+        def loader(n_samples, shuffle, label_transform=None):
             ds = port.SegmentationDataset(
                 os.path.join(tmp, "raw.npy"), None, os.path.join(tmp, "labels.npy"), None,
-                patch_shape=TRAIN_PATCH, n_samples=n_samples, raw_transform=port.standardize)
-            return port.DataLoader(ds, batch_size=1, shuffle=shuffle, num_workers=4)
+                patch_shape=TRAIN_PATCH, n_samples=n_samples, raw_transform=port.standardize,
+                label_transform=label_transform)
+            return port.DataLoader(ds, batch_size=1, shuffle=shuffle, num_workers=LOADER_THREADS)
 
         np.random.seed(0)
         model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
         trainer = port.default_segmentation_trainer(
             "smoke", model, loader(TRAIN_SAMPLES, True), loader(VAL_SAMPLES, False),
             learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog,
-            save_root=tmp)
+            save_root=tmp, device_label_transform=device_ops.DeviceAffinityTransform(offsets=OFFSETS))
         folder = trainer.checkpoint_folder
 
         inorm.instance_norm.launches = 0
@@ -606,6 +704,10 @@ def phase_training(port, inorm):
         resumed = port.DefaultTrainer.from_checkpoint(folder, "latest")
         if resumed.iteration != FIT_ITERATIONS:
             raise AssertionError(f"from_checkpoint restored iteration {resumed.iteration}")
+        restored = resumed.device_label_transform
+        if not (isinstance(restored, device_ops.DeviceAffinityTransform)
+                and restored.init_kwargs == trainer.device_label_transform.init_kwargs):
+            raise AssertionError(f"from_checkpoint restored the label transform {restored!r}")
         resumed.fit(iterations=RESUME_ITERATIONS)
         torch.cuda.synchronize()
         launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
@@ -635,6 +737,9 @@ def phase_training(port, inorm):
             f"ms per iteration with data loading, 2 validations and checkpoints, "
             f"{FIT_ITERATIONS / fit_s:.2f} patches/s); checkpoints {saved}")
 
+        check_label_transforms(port, device_ops, resumed.train_loader.dataset)
+        time_loaders(port, resumed, loader)
+
         # one training step on a device-resident batch
         x, y = (v.cuda() for v in next(iter(resumed.train_loader)))
         torch.cuda.reset_peak_memory_stats()
@@ -652,8 +757,47 @@ def phase_training(port, inorm):
                          lambda: resumed._train_step(x, y))
         del trainer, resumed, model
     torch.cuda.empty_cache()
-    check_training_gradients(port, inorm, x, y)
+    check_training_gradients(port, inorm, x, device_ops.DeviceAffinityTransform(offsets=OFFSETS)(y))
     return launches
+
+
+def check_label_transforms(port, device_ops, dataset, n=4):
+    """The device affinity and boundary transforms on the card against the host ones,
+    on ``n`` label patches of the training set: equal."""
+    labels = torch.stack([torch.from_numpy(dataset[i][1]) for i in range(n)])  # (n, 1, *patch) float32
+    cases = ((device_ops.DeviceAffinityTransform(offsets=OFFSETS), port.transforms.AffinityTransform(OFFSETS)),
+             (device_ops.DeviceBoundaryTransform(), port.transforms.BoundaryTransform()))
+    for on_card, on_host in cases:
+        got = on_card(labels.cuda()).cpu().numpy()
+        expected = np.stack([on_host(sample[0]).astype(np.float32) for sample in labels.numpy()])
+        if got.shape != expected.shape or not np.array_equal(got, expected):
+            raise AssertionError(f"{type(on_card).__name__} on the card differs from "
+                                 f"{type(on_host).__name__} on the host")
+        log(f"{type(on_card).__name__} on the card equals {type(on_host).__name__} on the host on {n} "
+            f"label patches {tuple(labels.shape[2:])} ({float(got.mean()):.4f} of the target set)")
+
+
+def time_loaders(port, trainer, loader):
+    """Patches/s of the loader (LOADER_THREADS threads) feeding training steps, as the
+    tracked benchmark times it: the host ``AffinityTransform`` in the loader, then raw
+    labels with ``DeviceAffinityTransform`` inside the step."""
+    device_transform = trainer.device_label_transform
+    for mode, label_transform, step_transform in (
+            ("host AffinityTransform", port.transforms.AffinityTransform(OFFSETS), None),
+            ("DeviceAffinityTransform in the step", None, device_transform)):
+        trainer.device_label_transform = step_transform
+        it = iter(loader(2 + LOADER_STEPS, True, label_transform))
+        for k in range(2 + LOADER_STEPS):
+            if k == 2:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+            x, y = next(it)
+            trainer._train_step(x.cuda(non_blocking=True), y.cuda(non_blocking=True))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        log(f"loader with {mode}, {LOADER_THREADS} threads, with the step: "
+            f"{LOADER_STEPS / seconds:.2f} patches/s ({seconds / LOADER_STEPS * 1e3:.1f} ms per patch)")
+    trainer.device_label_transform = device_transform
 
 
 def check_training_gradients(port, inorm, x, y):
@@ -715,6 +859,7 @@ def main():
     try:
         import torch_em_tpu_torch as port
         import torch_em_tpu_torch.models.unet as unet_module
+        import torch_em_tpu_torch.ops.device as device_ops
         import torch_em_tpu_torch.ops.instance_norm as inorm
 
         log("phase 1: device")
@@ -739,14 +884,13 @@ def main():
         forward = phase_norm_kernel(inorm, shapes, train_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
-        n_blocks = int(np.prod([-(-v // b) for v, b in zip(VOLUME_SHAPE, BLOCK_SHAPE)]))
-        serving_launches = phase_main_path(port, inorm, unet_module, n_blocks)
+        serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
         backward = phase_backward_kernel(inorm, train_shapes, shapes)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
-        train_fwd, train_bwd = phase_training(port, inorm)
+        train_fwd, train_bwd = phase_training(port, inorm, device_ops)
         forward["launches"] = serving_launches + train_fwd
         backward["launches"] = train_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training; "

@@ -101,10 +101,63 @@ def test_npy_files_are_memory_mapped(tmp_path):
     assert port_ds.init_kwargs["raw_path"] == str(tmp_path / "raw.npy")
 
 
-@pytest.mark.parametrize("path", ["data.h5", "data.zarr", "image.tif"])
+@pytest.mark.parametrize("path", ["data.zarr", "image.tif"])
 def test_unported_formats_raise(path, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         io.load_data(str(tmp_path / path), "raw")
+
+
+def _h5(tmp_path, raw, labels):
+    path = str(tmp_path / "data.h5")
+    io.write_data(path, "raw", raw)
+    io.write_data(path, "raw_b", raw * 2)
+    jax_io.write_data(path, "labels", labels)
+    return path
+
+
+def test_hdf5_reads_match(tmp_path):
+    """The port's writes read back through the JAX package, and its writes through the port."""
+    raw, labels = _volumes(6)
+    path = _h5(tmp_path, raw, labels)
+    for key, expected in (("raw", raw), ("labels", labels)):
+        ours, theirs = io.load_data(path, key), jax_io.load_data(path, key)
+        assert ours.shape == theirs.shape == expected.shape and ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours[2:5, 3:30], theirs[2:5, 3:30])
+        np.testing.assert_array_equal(ours[:], expected)
+        assert io.get_dataset_shape(path, key) == jax_io.get_dataset_shape(path, key)
+    with io.open_container(path) as f:
+        assert sorted(f.keys()) == ["labels", "raw", "raw_b"]
+    other = str(tmp_path / "other.hdf5")
+    io.write_data(other, "raw", raw)
+    io.write_data(other, "raw", raw + 1)  # replaces the dataset
+    np.testing.assert_array_equal(jax_io.load_data(other, "raw")[:], raw + 1)
+    with pytest.raises(ValueError, match="key is required"):
+        io.load_data(path)
+
+
+def test_hdf5_keys_stack_as_channels(tmp_path):
+    raw, labels = _volumes(7)
+    path = _h5(tmp_path, raw, labels)
+    ours, theirs = io.load_data(path, ["raw", "raw_b"]), jax_io.load_data(path, ["raw", "raw_b"])
+    assert ours.shape == theirs.shape == (2,) + VOLUME and ours.ndim == 4
+    for index in [(slice(None), slice(1, 4)), (1, slice(2, 6), 5), (slice(0, 1), 3), ([1, 0], 2)]:
+        np.testing.assert_array_equal(ours[index], theirs[index])
+
+
+@pytest.mark.parametrize("case", ["3d", "channels"])
+def test_segmentation_dataset_reads_hdf5(case, tmp_path):
+    raw, labels = _volumes(8, with_channels=case == "channels")
+    path = _h5(tmp_path, raw, labels)
+    raw_key = ["raw", "raw_b"] if case == "channels" else "raw"
+    if case == "channels":
+        raw = np.stack([raw[0], raw[0] * 2]) if raw.ndim == 4 else raw
+        io.write_data(path, "raw", raw[0])
+        io.write_data(path, "raw_b", raw[1])
+    kwargs = dict(CASES[case])
+    jax_ds = JaxSegmentationDataset(path, raw_key, path, "labels", **kwargs)
+    port_ds = SegmentationDataset(path, raw_key, path, "labels", **kwargs)
+    _assert_same_samples(jax_ds, port_ds, seed=15)
+    assert port_ds.init_kwargs["raw_path"] == path and port_ds.init_kwargs["raw_key"] == raw_key
 
 
 def test_roi_wrapper_matches():

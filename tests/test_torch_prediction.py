@@ -10,6 +10,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 from flax.traverse_util import flatten_dict
 
 from torch_em_tpu.models.unet import AnisotropicUNet as JaxAnisotropicUNet
@@ -95,6 +96,37 @@ def test_predict_with_halo_output_dtype_and_batching():
     assert np.array_equal(half, half.astype(np.float16).astype(np.float32))
 
 
+@pytest.mark.parametrize("shape,block_shape", [
+    ((16, 64, 64), (8, 32, 32)),
+    ((17, 60, 70), (8, 32, 32)),
+    ((5, 9), (2, 4)),
+])
+def test_blocking_nifty_names_match_jax(shape, block_shape):
+    ours = prediction.Blocking([0] * len(shape), shape, block_shape)
+    theirs = jax_prediction.Blocking([0] * len(shape), shape, block_shape)
+    assert ours.numberOfBlocks == theirs.numberOfBlocks == ours.n_blocks
+    for i in range(ours.numberOfBlocks):
+        a, b = ours.getBlock(i), theirs.getBlock(i)
+        assert (a.begin, a.end, a.shape) == (b.begin, b.end, b.shape)
+
+
+@pytest.mark.parametrize("with_channels", [False, True])
+def test_predict_with_padding_takes_the_reference_argument_order(with_channels):
+    """(model, input_, min_divisible, device, with_channels, prediction_function), positionally."""
+    in_channels = 2 if with_channels else 1
+    jax_model, torch_model = _models(in_channels)
+    vol = np.random.default_rng(7).random(((2,) if with_channels else ()) + (15, 30, 30),
+                                          dtype=np.float32)
+    expected = jax_prediction.predict_with_padding(jax_model, vol, (2, 4, 4), "cpu", with_channels,
+                                                   lambda m, x: m(x) * 0.5)
+    got = prediction.predict_with_padding(torch_model, vol, (2, 4, 4), "cpu", with_channels,
+                                          lambda m, x: m(x) * 0.5)
+    assert got.shape == np.asarray(expected).shape == (1, 2, 15, 30, 30)
+    np.testing.assert_allclose(got, np.asarray(expected), rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="model lies on cpu"):
+        prediction.predict_with_padding(torch_model, vol, (2, 4, 4), "cuda", with_channels)
+
+
 def test_predict_with_padding_matches_jax():
     jax_model, torch_model = _models(1)
     vol = np.random.default_rng(4).random((15, 30, 30), dtype=np.float32)
@@ -127,14 +159,18 @@ def test_predict_with_halo_takes_the_reference_argument_order():
     np.testing.assert_array_equal(on_cpu, got)
 
 
-@pytest.mark.parametrize("option", ["output", "postprocess", "skip_block", "mask",
-                                    "prediction_function", "roi", "iter_list", "grid_shift",
-                                    "devices", "n_threads"])
+@pytest.mark.parametrize("option", ["devices"])
 def test_predict_with_halo_refuses_unported_options(option):
+    """Only several devices stay unported (they come with parallel/)."""
     _, torch_model = _models(1)
-    with pytest.raises(NotImplementedError, match=option):
+    with pytest.raises(NotImplementedError, match="several devices"):
         prediction.predict_with_halo(np.zeros((8, 32, 32), np.float32), torch_model,
-                                     block_shape=(8, 32, 32), halo=(2, 8, 8), **{option: 1})
+                                     block_shape=(8, 32, 32), halo=(2, 8, 8), **{option: ["cpu", "cpu"]})
+    vol = np.random.default_rng(6).random((8, 32, 32), dtype=np.float32)
+    one = prediction.predict_with_halo(vol, torch_model, block_shape=(8, 32, 32), halo=(2, 8, 8),
+                                       **{option: [torch.device("cpu")]})
+    np.testing.assert_array_equal(one, prediction.predict_with_halo(vol, torch_model, block_shape=(8, 32, 32),
+                                                                    halo=(2, 8, 8)))
 
 
 def test_predict_with_halo_checks_gpu_ids():

@@ -15,6 +15,8 @@ from torch_em_tpu_torch import (
     AnisotropicUNet, DataLoader, DefaultTrainer, SegmentationDataset, default_segmentation_trainer,
 )
 from torch_em_tpu_torch.loss import DiceLoss
+from torch_em_tpu_torch.ops.device import DeviceAffinityTransform
+from torch_em_tpu_torch.transforms import AffinityTransform, connected_components
 from torch_em_tpu_torch.trainer import OptimizerSpec, TorchEmLogger
 
 MODEL = dict(in_channels=1, out_channels=1, scale_factors=[[1, 2, 2], [2, 2, 2]],
@@ -179,6 +181,36 @@ def test_logger_and_device_label_transform(data, tmp_path):
     # the loss sees the transformed labels, whose mean is 1 - the raw labels' mean
     raw_mean = np.load(data[1]).mean()
     assert 0 < np.mean(seen) and abs(np.mean(seen) - (1 - raw_mean)) < 0.2
+
+
+def test_device_affinity_transform_survives_a_checkpoint(tmp_path):
+    """Instance labels (connected components of a threshold) through
+    DeviceAffinityTransform inside the step; from_checkpoint rebuilds the transform
+    and the host AffinityTransform gives the same targets."""
+    rng = np.random.default_rng(1)
+    raw = rng.normal(size=(8, 32, 32)).astype(np.float32)
+    np.save(tmp_path / "raw.npy", raw)
+    np.save(tmp_path / "labels.npy", connected_components(raw > 0.3))
+    data = str(tmp_path / "raw.npy"), str(tmp_path / "labels.npy")
+    offsets = [[-1, 0, 0], [0, -1, 0]]
+    model = AnisotropicUNet(**dict(MODEL, out_channels=2), device="cpu", seed=0)
+    train, val = _loaders(data)
+    trainer = default_segmentation_trainer(
+        "affinities", model, train, val, save_root=str(tmp_path), learning_rate=1e-3,
+        mixed_precision=False, device="cpu", device_label_transform=DeviceAffinityTransform(offsets))
+    trainer.fit(iterations=3)
+    restored = DefaultTrainer.from_checkpoint(str(tmp_path / "checkpoints" / "affinities"), "latest",
+                                              device="cpu")
+    assert isinstance(restored.device_label_transform, DeviceAffinityTransform)
+    assert restored.device_label_transform.init_kwargs == {
+        "offsets": offsets, "ignore_label": None, "add_binary_target": False, "add_mask": False}
+    _assert_same_params(_params(restored), _params(trainer))
+    _, y = next(iter(restored.train_loader))
+    targets = restored.device_label_transform(y)
+    expected = np.stack([AffinityTransform(offsets)(sample[0]) for sample in y.numpy()])
+    np.testing.assert_array_equal(targets.numpy(), expected)
+    restored.fit(iterations=2)
+    assert restored.iteration == 5
 
 
 def test_trainer_rejects_bad_arguments(data, tmp_path):
