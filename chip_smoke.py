@@ -42,7 +42,30 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    the host ones on label patches; times the loader with the host
    ``AffinityTransform`` and with the device transform in the step, the
    bare step, and breaks one down with the profiler; then holds one float32
-   training step's gradients with the kernels against the plain versions.
+   training step's gradients with the kernels against the plain versions;
+7. the 3-D recipe through the factory: ``default_segmentation_loader`` over
+   two seeded ``.npy`` volumes (a ``ConcatDataset`` with the default
+   anisotropic flips and ``standardize``) trains the tracked model with
+   ``DeviceAffinityTransform`` in the step for 16 iterations, then 4 more
+   after ``from_checkpoint``; times the loader feeding steps with no
+   transform, with the default flips and with flips and
+   ``RandomElasticDeformation3D`` on the host;
+8. ``AugmentationPipeline.apply_batched``: every registry entry's apply on
+   the card and on the CPU with the same parameters, at batch 1 and 4 of
+   32x256x256 patches (the 2-D entries take the 32 planes as channels):
+   floats within 1e-5 of the input's range, labels equal but near rounding
+   ties; times each entry per batch on the card and per sample on the host;
+9. the DSB recipe: ``default_segmentation_loader`` over 16 seeded 2-D
+   ``.npy`` images of 200-360 pixels a side (the file list and the
+   folder-glob form give equal samples), ``BoundaryTransform`` targets,
+   ``UNet2d(1, 2, initial_features=64, Sigmoid)`` in bf16 at batch 8 of
+   256x256, 16 iterations and 4 more after ``from_checkpoint``; times the
+   loader and the bare step; then ``train_2d_unet`` and
+   ``predict_with_tiling`` in subprocesses.
+
+Phases 3 and 5 also hold both kernels at the DSB step's shapes (batch 8,
+rows 8 x C from 8 x 1 to 8 x 1024, 65536 down to 256 elements), and phase 5
+times them there.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -104,6 +127,18 @@ LEARNING_RATE = 1e-4
 # the tracked benchmark's affinity offset (one output channel)
 OFFSETS = [[-1, 0, 0]]
 LOADER_THREADS, LOADER_STEPS = 4, 8
+# the 3-D recipe through the factory (phase 7): two volumes, 16 iterations, 4 more after the resume
+RECIPE_FIT, RECIPE_RESUME = 16, 4
+FLIPS_3D = ["RandomHorizontalFlip3D", "RandomVerticalFlip3D", "RandomDepthicalFlip3D"]
+# apply_batched on the card against the CPU (phase 8): float outputs within 1e-5 of the
+# input's range; labels equal but where a coordinate lies within 1e-4 of a rounding tie,
+# at most 1e-4 of the voxels
+AUG_SHAPE, AUG_BATCHES = (32, 256, 256), (1, 4)
+AUG_FLOAT_TOL, AUG_TIE, AUG_TIE_SHARE = 1e-5, 1e-4, 1e-4
+# the DSB recipe (phase 9): experiments/dsb/train_dsb.py
+DSB_MODEL = dict(in_channels=1, out_channels=2, initial_features=64, final_activation="Sigmoid")
+DSB_DEPTH, DSB_BATCH, DSB_PATCH = 4, 8, (1, 256, 256)
+DSB_IMAGES, DSB_FIT, DSB_RESUME, DSB_CLI_ITERATIONS = 16, 16, 4, 4
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
 # gradients of this model are themselves inexact in the deep levels on either
@@ -240,6 +275,10 @@ def device_breakdown(label, fn, steps=3, top=8):
     return {"device_ms": total, "norm_ms": norms, "conv_ms": convs}
 
 
+def card_generator(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
 def card_rand(gen, shape, dtype, offset=0):
     """Seeded normal(0.5, 2) values on the card; ``offset`` elements shift the base address."""
     n = int(np.prod(shape))
@@ -289,9 +328,17 @@ def repeat_shapes(inorm, shapes, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes):
-    """Check the forward kernel at every main-path shape and time it at the serving
-    path's; returns its entry of the kernels line."""
+def dsb_paths(inorm, dsb_shapes, dtype, direction):
+    """{path: (channels, spatial)} of the DSB step's norms (batch DSB_BATCH), first shape per path."""
+    found = {}
+    for c, sp in dsb_shapes:
+        found.setdefault(path_of(inorm, (DSB_BATCH * c, sp), dtype, direction), (c, sp))
+    return found
+
+
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes):
+    """Check the forward kernel at every main-path shape (the DSB step's at batch
+    DSB_BATCH) and time it at the serving path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -311,14 +358,22 @@ def phase_norm_kernel(inorm, shapes, train_shapes):
         for x in layout_cases(rand, dtype):
             max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference, x))
         log(f"  norm {dtype}: ragged, odd-length, misaligned, strided and channels-last inputs agree")
-    for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items():
-        x = rand((1, c) + sp, torch.bfloat16)
+        for c, sp in sorted(set(dsb_shapes)):
+            err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference, rand((DSB_BATCH, c) + sp, dtype))
+            max_err = max(max_err, err)
+            log(f"  norm {dtype} DSB ({DSB_BATCH}, {c}) {sp} path "
+                f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+    repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
+    repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
+                for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "forward").items()]
+    for shape, path in repeats:
+        x = rand(shape, torch.bfloat16)
         first, second = inorm.instance_norm_forward(x), inorm.instance_norm_forward(x)
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"forward kernel path {path} is not bitwise repeatable")
     log(f"kernel agrees with instance_norm_reference: max abs err {max_err:.3g} "
         f"(f32 atol {F32_ATOL}; bf16 {BF16_RTOL:.3g}*|ref| + {BF16_ATOL}; f16 {F16_RTOL:.3g}*|ref| "
-        f"+ {F16_RTOL_OF_MAX}*max|ref|); two calls bitwise equal on paths A, B and C")
+        f"+ {F16_RTOL_OF_MAX}*max|ref|); two calls bitwise equal on paths {[p for _, p in repeats]}")
 
     totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
               "library_device_ms": 0.0}
@@ -350,7 +405,9 @@ def phase_norm_kernel(inorm, shapes, train_shapes):
         "bound_by": "bytes",
         "library_ms": totals["library_ms"],
         "paths": {"serving": path_counts(inorm, shapes, torch.bfloat16, "forward"),
-                  "training": path_counts(inorm, train_shapes, torch.bfloat16, "forward")},
+                  "training": path_counts(inorm, train_shapes, torch.bfloat16, "forward"),
+                  "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes],
+                                              torch.bfloat16, "forward")},
     }
 
 
@@ -542,13 +599,14 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes, serving_shapes):
-    """Check the backward kernel at every main-path shape and time both kernels at the
-    training path's shapes.
+def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes):
+    """Check the backward kernel at every main-path shape (the DSB step's at batch
+    DSB_BATCH) and time both kernels at the two training paths' shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
-    whose input is the raw patch, which needs no gradient."""
+    whose input is the raw patch, which needs no gradient; and the forward
+    kernel's times per step of each training path."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rand(shape, dtype, offset=0):
@@ -573,8 +631,17 @@ def phase_backward_kernel(inorm, shapes, serving_shapes):
         max_err = max(max_err, check_backward(inorm, rand(g.shape, dtype), g))
         log(f"  backward {dtype}: ragged, odd-length, misaligned, strided, channels-last and "
             f"non-contiguous-gradient cases agree")
-    for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items():
-        x, g = rand((1, c) + sp, torch.bfloat16), rand((1, c) + sp, torch.bfloat16)
+        for c, sp in sorted(set(dsb_shapes)):
+            shape = (DSB_BATCH, c) + sp
+            err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
+            max_err = max(max_err, err)
+            log(f"  backward {dtype} DSB {shape[:2]} {sp} path "
+                f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+    repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items()]
+    repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
+                for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "backward").items()]
+    for shape, path in repeats:
+        x, g = rand(shape, torch.bfloat16), rand(shape, torch.bfloat16)
         _, mean, rstd = inorm.instance_norm_forward_reference(x)
         if not torch.equal(inorm.instance_norm_backward(x, g, mean, rstd),
                            inorm.instance_norm_backward(x, g, mean, rstd)):
@@ -582,26 +649,15 @@ def phase_backward_kernel(inorm, shapes, serving_shapes):
     log(f"backward kernel agrees with instance_norm_backward_reference: max abs err {max_err:.3g} "
         f"(f32 {BWD_F32_RTOL_OF_MAX}*max|dx|; bf16 {BWD_BF16_RTOL:.3g}*|ref| + "
         f"{BWD_BF16_RTOL_OF_MAX}*max|dx|; f16 {BWD_F16_RTOL:.3g}*|ref| + "
-        f"{BWD_BF16_RTOL_OF_MAX}*max|dx|); two calls bitwise equal on paths A, B and C")
+        f"{BWD_BF16_RTOL_OF_MAX}*max|dx|); two calls bitwise equal on paths {[p for _, p in repeats]}")
 
-    step_shapes = shapes[1:]
-    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
-    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
-    for c, sp in sorted(set(shapes)):
-        f, b = time_step_norm(inorm, rand((1, c) + sp, torch.bfloat16),
-                              rand((1, c) + sp, torch.bfloat16), f"C={c} {sp}")
-        n_fwd, n_bwd = shapes.count((c, sp)), step_shapes.count((c, sp))
-        for key in keys:
-            fwd[key] += n_fwd * f[key]
-            bwd[key] += n_bwd * b[key]
+    fwd, bwd = time_step_norms(inorm, rand, shapes, 1, "tracked")
+    dsb_fwd, dsb_bwd = time_step_norms(inorm, rand, dsb_shapes, DSB_BATCH, "DSB")
     for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
                        f"C={c} {sp}")
     torch.cuda.empty_cache()
-    for name, t, n in (("forward", fwd, len(shapes)), ("backward", bwd, len(step_shapes))):
-        log(f"per training step, {name} ({n} norms, bf16): kernel {t['ms']:.3f} ms as called, "
-            f"{t['device_ms']:.3f} ms device; plain {t['plain_ms']:.3f} ms, F.instance_norm "
-            f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms")
+    step_shapes = shapes[1:]
     return {
         "name": "instance_norm_backward",
         "route": "cuda",
@@ -615,8 +671,31 @@ def phase_backward_kernel(inorm, shapes, serving_shapes):
         "bound_ms": bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": bwd["library_ms"],
-        "paths": {"training": path_counts(inorm, step_shapes, torch.bfloat16, "backward")},
-    }
+        "paths": {"training": path_counts(inorm, step_shapes, torch.bfloat16, "backward"),
+                  "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes[1:]],
+                                              torch.bfloat16, "backward")},
+        "dsb_training": dsb_bwd,
+    }, fwd, dsb_fwd
+
+
+def time_step_norms(inorm, rand, shapes, batch, label):
+    """Both kernels' times per training step (bf16) summed over a step's norms: the forward
+    at every norm, the backward at all but the first; returns (forward, backward)."""
+    step_shapes = shapes[1:]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
+    fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
+    for c, sp in sorted(set(shapes)):
+        f, b = time_step_norm(inorm, rand((batch, c) + sp, torch.bfloat16),
+                              rand((batch, c) + sp, torch.bfloat16), f"{label} ({batch}, {c}) {sp}")
+        n_fwd, n_bwd = shapes.count((c, sp)), step_shapes.count((c, sp))
+        for key in keys:
+            fwd[key] += n_fwd * f[key]
+            bwd[key] += n_bwd * b[key]
+    for name, t, n in (("forward", fwd, len(shapes)), ("backward", bwd, len(step_shapes))):
+        log(f"per {label} training step, {name} ({n} norms, bf16): kernel {t['ms']:.3f} ms as called, "
+            f"{t['device_ms']:.3f} ms device; plain {t['plain_ms']:.3f} ms, F.instance_norm "
+            f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms")
+    return fwd, bwd
 
 
 def time_step_norm(inorm, x, g, label):
@@ -850,6 +929,310 @@ def check_training_gradients(port, inorm, x, y):
         f"{max(r[3] for r in rows if r[3] < 1):.3g}")
 
 
+def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_patches, label):
+    """Fit, rebuild with ``from_checkpoint``, fit on; check iteration counts, a finite and
+    falling loss, the checkpoints and both kernels' launches (counted from 0 here).
+    Returns the resumed trainer, the launches and the first fit's wall seconds."""
+    folder = trainer.checkpoint_folder
+    torch.cuda.synchronize()
+    inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+    t = time.perf_counter()
+    trainer.fit(iterations=fit_iterations)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    resumed = port.DefaultTrainer.from_checkpoint(folder, "latest")
+    if resumed.iteration != fit_iterations:
+        raise AssertionError(f"{label}: from_checkpoint restored iteration {resumed.iteration}")
+    resumed.fit(iterations=resume_iterations)
+    torch.cuda.synchronize()
+    launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+    steps = fit_iterations + resume_iterations
+    if trainer.iteration != fit_iterations or resumed.iteration != steps:
+        raise AssertionError(f"{label}: iterations {trainer.iteration}, resumed {resumed.iteration}")
+    validations = len(trainer.logger.metrics) + len(resumed.logger.metrics)
+    expected = (NORMS_PER_FORWARD * (steps + val_patches * validations), (NORMS_PER_FORWARD - 1) * steps)
+    log(f"{label}: launches forward {launches[0]}, backward {launches[1]} for {steps} steps and "
+        f"{validations} validations of {val_patches} patch(es) (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expected}")
+    losses = trainer.logger.losses + resumed.logger.losses
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[fit_iterations - 4:fit_iterations]))
+    log(f"{label}: loss over {len(losses)} steps: first four {first:.4f}, last four of the first fit "
+        f"{last:.4f}, last {losses[-1]:.4f}; fit {fit_iterations} iterations in {fit_s:.2f} s wall")
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"{label}: the training loss is not finite or does not fall")
+    if not {"best.ckpt", "latest.ckpt"} <= set(os.listdir(folder)):
+        raise AssertionError(f"{label}: checkpoints {os.listdir(folder)}")
+    return resumed, launches
+
+
+def loader_rate(trainer, loader, steps=LOADER_STEPS, warmup=2):
+    """Patches/s of ``loader`` feeding the trainer's steps, after ``warmup`` steps."""
+    it = iter(loader)
+    for k in range(warmup + steps):
+        if k == warmup:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+        x, y = next(it)
+        trainer._train_step(x.cuda(non_blocking=True), y.cuda(non_blocking=True))
+    torch.cuda.synchronize()
+    return steps * loader.batch_size / (time.perf_counter() - t)
+
+
+def bare_step(trainer, loader, label):
+    """Device ms (CUDA events) and wall ms of the trainer's step on a device-resident batch."""
+    x, y = (v.cuda() for v in next(iter(loader)))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(trainer._train_step, x, y, iters=10, repeats=1)
+    t = time.perf_counter()
+    for _ in range(10):
+        trainer._train_step(x, y)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / 10 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{label} step {tuple(x.shape)} bf16: {step_ms:.2f} ms device (CUDA events), {wall_ms:.2f} ms wall, "
+        f"{x.shape[0] * 1e3 / wall_ms:.2f} patches/s, peak memory {peak:.2f} GiB; {nvidia_smi()}")
+    return x, y
+
+
+def phase_factory_3d(port, inorm, device_ops):
+    """The 3-D recipe through ``default_segmentation_loader``: a ConcatDataset over two
+    ``.npy`` volumes with the default (anisotropic flip) augmentations and ``standardize``;
+    returns the kernels' launches of its training run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        raws, labels = [], []
+        for seed in range(2):
+            raw, lab = training_volume(port, seed)
+            raws.append(os.path.join(tmp, f"raw{seed}.npy"))
+            labels.append(os.path.join(tmp, f"labels{seed}.npy"))
+            np.save(raws[-1], raw)
+            np.save(labels[-1], lab)
+        del raw, lab
+
+        def loader(n_samples=None, shuffle=True, transform=None):
+            return port.default_segmentation_loader(
+                raws, None, labels, None, batch_size=1, patch_shape=TRAIN_PATCH, num_workers=LOADER_THREADS,
+                shuffle=shuffle, n_samples=n_samples, transform=transform)
+
+        train = loader()
+        ds = train.dataset
+        pipeline = ds.datasets[0].transform
+        if not (isinstance(ds, port.data.ConcatDataset) and pipeline.init_kwargs == {
+                "ndim": "anisotropic", "transforms": FLIPS_3D}):
+            raise AssertionError(f"factory built {type(ds).__name__} with {pipeline.init_kwargs}")
+        log(f"factory loader: {type(ds).__name__} of {len(ds.datasets)} volumes, {len(ds)} patches, "
+            f"transform {pipeline.init_kwargs}, raw transform {type(ds.datasets[0].raw_transform).__name__}")
+        np.random.seed(1)
+        model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "factory-3d", model, train, loader(n_samples=VAL_SAMPLES, shuffle=False),
+            learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog,
+            save_root=tmp, device_label_transform=device_ops.DeviceAffinityTransform(offsets=OFFSETS))
+        resumed, launches = fit_and_resume(port, inorm, trainer, RECIPE_FIT, RECIPE_RESUME, VAL_SAMPLES,
+                                           "3-D recipe")
+        restored = resumed.train_loader.dataset
+        if not (isinstance(restored, port.data.ConcatDataset)
+                and restored.datasets[0].transform.init_kwargs == pipeline.init_kwargs):
+            raise AssertionError(f"from_checkpoint rebuilt {type(restored).__name__}")
+
+        n = 2 + LOADER_STEPS  # patches per timed run, half from each volume
+        no_transform = port.DataLoader(port.data.ConcatDataset(*[
+            port.SegmentationDataset(r, None, lab, None, patch_shape=TRAIN_PATCH, n_samples=n // 2,
+                                     raw_transform=port.standardize)
+            for r, lab in zip(raws, labels)]), batch_size=1, shuffle=True, num_workers=LOADER_THREADS)
+        elastic = port.transforms.get_augmentations(3, FLIPS_3D + ["RandomElasticDeformation3D"])
+        for mode, modes_loader in (("no transform", no_transform), ("default flips", loader(n)),
+                                   ("flips + RandomElasticDeformation3D", loader(n, transform=elastic))):
+            rate = loader_rate(resumed, modes_loader)
+            log(f"3-D loader, {mode}, {LOADER_THREADS} threads, DeviceAffinityTransform in the step: "
+                f"{rate:.2f} patches/s ({1e3 / rate:.1f} ms per patch)")
+        raw, lab = ds.datasets[0]._get_sample(0)
+        elastic(raw, lab)
+        t = time.perf_counter()
+        for _ in range(3):
+            out = elastic(raw, lab)
+        log(f"host path of flips + RandomElasticDeformation3D on one {TRAIN_PATCH} raw and label patch, "
+            f"alone: {(time.perf_counter() - t) / 3 * 1e3:.1f} ms per sample, {torch.get_num_threads()} "
+            f"intra-op threads; outputs {[tuple(a.shape) for a in out]} {out[0].dtype}")
+        del trainer, resumed, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tie_mask(aug, spatial, params):
+    """Voxels (B, 1, *spatial) where a sampling coordinate of ``aug`` lies within AUG_TIE of a
+    rounding tie of order 0 (None for the flips, which do not resample)."""
+    if not aug.interpolating:
+        return None
+    coords = aug.coords(spatial, params)  # an elastic field covers the last two axes only
+    near = torch.zeros_like(coords[0], dtype=torch.bool)
+    for c in coords:
+        near |= ((c - torch.floor(c)) - 0.5).abs() < AUG_TIE
+    return near.reshape(near.shape[:1] + (1,) * (1 + len(spatial) - len(coords)) + near.shape[1:])
+
+
+def phase_apply_batched(port):
+    """Every registry entry through ``apply_batched``'s apply on the card and on the CPU with the
+    same parameters; times each entry per batch on the card and per sample on the host."""
+    from torch_em_tpu_torch.transforms import augmentation as A
+
+    rows = []
+    gen = torch.Generator().manual_seed(0)
+    for name, kwargs in A.AUGMENTATIONS.items():
+        aug = A.create_augmentation(name)
+        planar = name in ("RandomRotation", "RandomAffine", "RandomElasticDeformation")
+        for batch in AUG_BATCHES:
+            # a 2-D entry cannot warp a 3-D patch (nor can the JAX package's): its 32 planes are channels
+            shape = (batch,) + ((AUG_SHAPE[0],) + AUG_SHAPE[1:] if planar else (1,) + AUG_SHAPE)
+            spatial = shape[2:]
+            raw = torch.rand(shape, generator=gen)
+            labels = torch.randint(0, 1000, shape, generator=gen)
+            params = A._stack([aug.sample_params(gen, spatial) for _ in range(batch)])
+            params["apply"] = torch.ones(batch, dtype=torch.bool)  # every element transformed
+            on_card = {k: v.cuda() for k, v in params.items()}
+            raw_cpu, lab_cpu = aug.apply_batch(raw, params, 1), aug.apply_batch(labels, params, 0)
+            raw_card = aug.apply_batch(raw.cuda(), on_card, 1).cpu()
+            lab_card = aug.apply_batch(labels.cuda(), on_card, 0).cpu()
+            float_err = float((raw_card - raw_cpu).abs().max()) / float(raw.max() - raw.min())
+            differ = lab_card != lab_cpu
+            near = tie_mask(aug, spatial, params)
+            unexplained = int((differ & ~near.expand_as(differ)).sum()) if near is not None else int(differ.sum())
+            n_ties = int(near.expand_as(differ).sum()) if near is not None else 0
+            if float_err > AUG_FLOAT_TOL or unexplained or int(differ.sum()) > AUG_TIE_SHARE * differ.numel():
+                raise AssertionError(f"{name} {shape}: card vs CPU float err {float_err:.3g} of the range, "
+                                     f"{int(differ.sum())} labels differ ({unexplained} away from a tie)")
+            pipeline = A.AugmentationPipeline(aug)
+            card_gen = card_generator(1)
+            raw_c, lab_c = raw.cuda(), labels.cuda()
+            card_ms = time_ms(lambda: pipeline.apply_batched(card_gen, raw_c, lab_c), iters=3, repeats=3)
+            host_ms = None
+            if batch == 1:
+                raw_np, lab_np = raw[0].numpy(), labels[0].numpy().astype(np.uint32)
+                pipeline(raw_np, lab_np)
+                t = time.perf_counter()
+                for _ in range(3):
+                    pipeline(raw_np, lab_np)
+                host_ms = (time.perf_counter() - t) / 3 * 1e3
+            rows.append({"entry": name, "shape": list(shape), "float_err_of_range": float_err,
+                         "labels_differ": int(differ.sum()), "near_ties": n_ties,
+                         "card_ms_per_batch": card_ms, "host_ms_per_sample": host_ms})
+            log(f"  {name} {shape}: card vs CPU float err {float_err:.3g} of the range, "
+                f"{int(differ.sum())} labels differ ({n_ties} voxels near a tie); apply_batched "
+                f"{card_ms:.3f} ms per batch on the card"
+                + (f", host path {host_ms:.1f} ms per sample" if host_ms is not None else ""))
+            del raw_c, lab_c
+    log(f"apply_batched: {json.dumps(rows)}")
+    torch.cuda.empty_cache()
+
+
+def dsb_images(folder, seed=0):
+    """DSB_IMAGES seeded 2-D images and instance labels as ``.npy`` under ``folder``/images and
+    ``folder``/masks: raw is smoothed noise plus bright disks, the labels the disks."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    paths = {"images": [], "masks": []}
+    for sub in paths:
+        os.makedirs(os.path.join(folder, sub))
+    for i in range(DSB_IMAGES):
+        h, w = int(rng.integers(200, 361)), int(rng.integers(240, 361))
+        labels = np.zeros((h, w), dtype=np.uint16)
+        yy, xx = np.mgrid[:h, :w]
+        for k in range(1, int(rng.integers(8, 20)) + 1):
+            cy, cx, r = rng.integers(0, h), rng.integers(0, w), rng.integers(6, 20)
+            labels[(yy - cy) ** 2 + (xx - cx) ** 2 <= r ** 2] = k
+        raw = ndimage.gaussian_filter(rng.normal(size=(h, w)), 2.0) + 2.0 * (labels > 0)
+        for sub, arr in (("images", raw.astype(np.float32)), ("masks", labels)):
+            paths[sub].append(os.path.join(folder, sub, f"{i:02d}.npy"))
+            np.save(paths[sub][-1], arr)
+    return paths["images"], paths["masks"]
+
+
+def phase_dsb(port, inorm):
+    """The DSB recipe: UNet2d at DSB width through ``default_segmentation_loader`` over image
+    files, bf16, then the training and tiled-prediction CLI in subprocesses; returns the
+    kernels' launches of its training run."""
+    from torch_em_tpu_torch.transforms import AugmentationPipeline, BoundaryTransform
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_files, label_files = dsb_images(tmp)
+        shapes = sorted({np.load(f, mmap_mode="r").shape for f in raw_files})
+        log(f"DSB data: {len(raw_files)} images from {shapes[0]} to {shapes[-1]}")
+
+        def loader(n_samples, shuffle, workers=LOADER_THREADS):
+            return port.default_segmentation_loader(
+                raw_files, None, label_files, None, batch_size=DSB_BATCH, patch_shape=DSB_PATCH, ndim=2,
+                is_seg_dataset=False, label_transform=BoundaryTransform(add_binary_target=True),
+                num_workers=workers, shuffle=shuffle, n_samples=n_samples)
+
+        by_list = loader(DSB_BATCH * DSB_FIT, True).dataset
+        by_glob = port.default_segmentation_dataset(
+            os.path.join(tmp, "images"), "*.npy", os.path.join(tmp, "masks"), "*.npy", patch_shape=DSB_PATCH,
+            ndim=2, label_transform=BoundaryTransform(add_binary_target=True), n_samples=DSB_BATCH * DSB_FIT)
+        for ds in (by_list, by_glob):
+            if not (type(ds).__name__ == "ImageCollectionDataset"
+                    and ds.transform.init_kwargs == {"ndim": 2, "transforms": ["RandomHorizontalFlip",
+                                                                              "RandomVerticalFlip"]}):
+                raise AssertionError(f"DSB factory built {type(ds).__name__}")
+            ds.transform = AugmentationPipeline(*ds.transform.augmentations, seed=0)
+        for i in range(4):
+            np.random.seed(i)
+            a = by_list[i]
+            np.random.seed(i)
+            b = by_glob[i]
+            if not all(np.array_equal(u, v) for u, v in zip(a, b)) or a[0].shape != DSB_PATCH:
+                raise AssertionError("the file-list and folder-glob DSB datasets differ")
+        log(f"DSB: file-list and folder-glob datasets give equal samples {a[0].shape}, {a[1].shape}")
+
+        np.random.seed(2)
+        model = port.UNet2d(**DSB_MODEL, depth=DSB_DEPTH, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "dsb", model, loader(DSB_BATCH * DSB_FIT, True), loader(DSB_BATCH, False),
+            learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+        resumed, launches = fit_and_resume(port, inorm, trainer, DSB_FIT, DSB_RESUME, 1, "DSB recipe")
+        if type(resumed.train_loader.dataset).__name__ != "ImageCollectionDataset":
+            raise AssertionError("from_checkpoint did not rebuild the DSB loader")
+        rate = loader_rate(resumed, loader(DSB_BATCH * (LOADER_STEPS + 2), True), steps=LOADER_STEPS)
+        log(f"DSB loader, {LOADER_THREADS} threads, feeding steps: {rate:.2f} patches/s "
+            f"({rate / DSB_BATCH:.2f} batches/s)")
+        x, y = bare_step(resumed, loader(DSB_BATCH, False), "DSB")
+        device_breakdown("DSB training step (bf16 forward, backward, AdamW)", lambda: resumed._train_step(x, y))
+        del trainer, resumed, model, x, y
+        torch.cuda.empty_cache()
+        run_cli(tmp)
+    return launches
+
+
+def run_cli(tmp):
+    """``train_2d_unet`` for DSB_CLI_ITERATIONS iterations on the DSB folders, then
+    ``predict_with_tiling`` on its checkpoint into a ``.npy`` file, each in a subprocess."""
+    def cli(entry, args):
+        code = (f"import sys; sys.argv = ['{entry}'] + {args!r}\n"
+                f"from torch_em_tpu_torch.cli import {entry}\n{entry}()\n")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{entry} failed: {proc.stderr[-3000:]}")
+        last = (proc.stdout.strip().splitlines() or ["(no output)"])[-1]
+        log(f"{entry} ran in {time.perf_counter() - t:.1f} s: {last}")
+
+    cli("train_2d_unet", ["-i", os.path.join(tmp, "images"), "-l", os.path.join(tmp, "masks"),
+                          "-k", "*.npy", "--training_label_key", "*.npy", "-b", str(DSB_BATCH),
+                          "-p", *map(str, DSB_PATCH), "-n", str(DSB_CLI_ITERATIONS),
+                          "-m", "boundaries_and_foreground", "--name", "dsb-cli"])
+    volume = np.stack([np.load(os.path.join(tmp, "images", f"{i:02d}.npy"))[:200, :240] for i in range(2)])
+    np.save(os.path.join(tmp, "volume.npy"), volume)
+    cli("predict_with_tiling", ["-c", os.path.join(tmp, "checkpoints", "dsb-cli"), "-i",
+                                os.path.join(tmp, "volume.npy"), "-o", os.path.join(tmp, "out.npy"),
+                                "--output_key", "pred", "-b", "1", "128", "128", "--halo", "0", "16", "16"])
+    out = np.load(os.path.join(tmp, "out.npy"))
+    if out.shape != (2,) + volume.shape or not np.isfinite(out).all():  # the CLI's model has no activation
+        raise AssertionError(f"predict_with_tiling wrote {out.shape}, finite: {np.isfinite(out).all()}")
+    log(f"predict_with_tiling wrote {out.shape} {out.dtype}, finite, in [{out.min():.3f}, {out.max():.3f}]")
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -880,21 +1263,33 @@ def main():
         block = tuple(b + 2 * h for b, h in zip(BLOCK_SHAPE, HALO))
         shapes = norm_shapes(block, TRACKED["scale_factors"], TRACKED["initial_features"])
         train_shapes = norm_shapes(TRAIN_PATCH, TRACKED["scale_factors"], TRACKED["initial_features"])
-        assert len(shapes) == len(train_shapes) == NORMS_PER_FORWARD
-        forward = phase_norm_kernel(inorm, shapes, train_shapes)
+        dsb_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * DSB_DEPTH, DSB_MODEL["initial_features"])
+        assert len(shapes) == len(train_shapes) == len(dsb_shapes) == NORMS_PER_FORWARD
+        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
-        backward = phase_backward_kernel(inorm, train_shapes, shapes)
+        backward, forward["training"], forward["dsb_training"] = phase_backward_kernel(
+            inorm, train_shapes, shapes, dsb_shapes)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm, device_ops)
-        forward["launches"] = serving_launches + train_fwd
-        backward["launches"] = train_bwd
-        log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training; "
-            f"backward kernel launches: {train_bwd} training")
+
+        log("phase 7: the 3-D recipe through default_segmentation_loader")
+        recipe_fwd, recipe_bwd = phase_factory_3d(port, inorm, device_ops)
+
+        log("phase 8: AugmentationPipeline.apply_batched on the card against the CPU")
+        phase_apply_batched(port)
+
+        log("phase 9: the DSB recipe, UNet2d at DSB width, and the CLI")
+        dsb_fwd, dsb_bwd = phase_dsb(port, inorm)
+        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd
+        log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
+            f"3-D recipe + {dsb_fwd} DSB; backward kernel launches: {train_bwd} training + {recipe_bwd} "
+            f"3-D recipe + {dsb_bwd} DSB")
     except Exception:
         traceback.print_exc()
         log("FAILED")

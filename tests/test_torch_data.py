@@ -101,7 +101,7 @@ def test_npy_files_are_memory_mapped(tmp_path):
     assert port_ds.init_kwargs["raw_path"] == str(tmp_path / "raw.npy")
 
 
-@pytest.mark.parametrize("path", ["data.zarr", "image.tif"])
+@pytest.mark.parametrize("path", ["data.zarr"])
 def test_unported_formats_raise(path, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         io.load_data(str(tmp_path / path), "raw")

@@ -186,16 +186,20 @@ def test_function_passes_gradcheck_in_float64():
     assert torch.autograd.gradcheck(instance_norm, (x,))
 
 
-# Row lengths of the main paths (chip_smoke.norm_shapes) with their channel
-# counts: training on 32x256x256 patches, serving on (40, 576, 576) halo blocks.
+# Row lengths of the main paths (chip_smoke.norm_shapes) with their row counts:
+# training on 32x256x256 patches, serving on (40, 576, 576) halo blocks (batch
+# 1, rows = channels), and the DSB step.
 TRAINING_ROWS = {2097152: (1, 32, 64), 524288: (32, 64, 128), 131072: (64, 128, 256),
                  16384: (128, 256, 512), 2048: (256, 512)}
 SERVING_ROWS = {13271040: (1, 32, 64), 3317760: (32, 64, 128), 829440: (64, 128, 256),
                 103680: (128, 256, 512), 12960: (256, 512)}
+# the DSB step (UNet2d f=64, depth 4, batch 8 of 256x256): rows are 8 x C
+DSB_ROWS = {65536: (8, 512, 1024), 16384: (512, 1024), 4096: (1024, 2048), 1024: (2048, 4096),
+            256: (4096, 8192)}
 # length -> path: A up to 16384 elements; B where the row's inputs fit 8
 # blocks of shared memory; C beyond.
 EXPECTED_PATH = {
-    2048: "A", 12960: "A", 16384: "A",
+    256: "A", 1024: "A", 2048: "A", 4096: "A", 12960: "A", 16384: "A", 65536: "B",
     103680: "B", 131072: "B", 524288: "B-16-bit-forward", 829440: "B-16-bit-forward",
     2097152: "C", 3317760: "C", 13271040: "C",
 }
@@ -211,7 +215,7 @@ def _expected_path(length, itemsize, direction):
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS], ids=["training", "serving"])
+@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS], ids=["training", "serving", "dsb"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize

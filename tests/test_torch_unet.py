@@ -41,6 +41,9 @@ CONFIGS = {
         initial_features=32, final_activation="Sigmoid", anisotropic_kernel=True), 0, (1, 1, 16, 64, 64)),
     "unet2d": (JaxUNet2d, UNet2d, dict(
         in_channels=3, out_channels=2, depth=2, initial_features=4), 2, (2, 3, 32, 32)),
+    # the DSB recipe's model (experiments/dsb/train_dsb.py) at full width and depth
+    "unet2d_dsb": (JaxUNet2d, UNet2d, dict(
+        in_channels=1, out_channels=2, initial_features=64, final_activation="Sigmoid"), 6, (1, 1, 64, 64)),
     "unet3d": (JaxUNet3d, UNet3d, dict(
         in_channels=3, out_channels=2, depth=2, initial_features=4), 2, (1, 3, 8, 16, 16)),
 }

@@ -1,14 +1,18 @@
-"""Host-side data access: numpy arrays, ``.npy`` files, HDF5 containers, and ROI views.
+"""Host-side data access: numpy arrays, ``.npy`` files, HDF5 containers, image files, ROI views.
 
-The part of ``torch_em_tpu/utils/io.py`` the port needs so far:
-``load_data`` passes a numpy array through, opens a ``.npy`` file as a
-read-only memory map and an HDF5 dataset as a lazy h5py handle (several keys
-of one container stack as channels), so a dataset reads only the windows it
-samples; ``open_container``, ``get_dataset_shape`` and ``write_data`` serve
-HDF5 and ``.npy``; ``RoiWrapper`` is a lazy region-of-interest view. h5py is
-imported only inside the functions that read or write HDF5, and they raise
-an ``ImportError`` naming it where it is missing. zarr, N5 and image files
-are not ported yet and raise ``NotImplementedError``.
+The port's own copy of ``torch_em_tpu/utils/io.py`` but its zarr, N5 and
+medical formats: ``load_data`` passes a numpy array through, opens a
+``.npy`` file as a read-only memory map, an HDF5 dataset as a lazy h5py
+handle (several keys of one container stack as channels) and an image file
+(``IMAGE_EXTENSIONS``) as a reader that probes the shape without decoding,
+so a dataset reads only the windows it samples; ``load_image`` decodes an
+image (a multi-page TIFF as a stack) or memory-maps a ``.npy`` file;
+``open_container``, ``get_dataset_shape`` and ``write_data`` serve HDF5,
+``.npy`` and images; ``RoiWrapper`` is a lazy region-of-interest view.
+h5py, PIL and imageio are imported only inside the functions that need
+them, which raise an ``ImportError`` naming the package where it is
+missing. zarr and N5 raise ``NotImplementedError``, and so do NIfTI, MHA,
+MRC and NRRD files, which wait for the port of ``utils/medical_io.py``.
 """
 
 import os
@@ -16,10 +20,13 @@ from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["load_data", "open_container", "get_dataset_shape", "write_data", "RoiWrapper"]
+__all__ = ["load_data", "load_image", "supports_memmap", "open_container", "get_dataset_shape",
+           "write_data", "RoiWrapper", "IMAGE_EXTENSIONS"]
 
 HDF5_EXTENSIONS = (".h5", ".hdf", ".hdf5")
+IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 NUMPY_EXTENSIONS = (".npy",)
+MEDICAL_EXTENSIONS = (".nii", ".nii.gz", ".mha", ".mhd", ".mrc", ".rec", ".nrrd")
 
 
 def _h5py():
@@ -30,15 +37,104 @@ def _h5py():
     return h5py
 
 
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading image files needs PIL (Pillow), which is not installed") from e
+    return Image
+
+
+def _imageio():
+    try:
+        import imageio.v3 as iio
+    except ImportError as e:
+        raise ImportError("writing image files needs imageio, which is not installed") from e
+    return iio
+
+
 def _extension(path) -> str:
     return os.path.splitext(str(path))[1].lower()
 
 
 def _not_ported(path, ext):
+    if str(path).lower().endswith(MEDICAL_EXTENSIONS):
+        return NotImplementedError(
+            f"Reading {ext} data ({path}) is not ported yet: it waits for utils/medical_io.py "
+            "(ROADMAP.md, Queue 1 item 10g)."
+        )
     return NotImplementedError(
         f"Reading {ext or 'this'} data ({path}) is not ported yet: the port reads numpy arrays, "
-        ".npy files and HDF5; zarr, N5 and image files wait (ROADMAP.md, Queue 1)."
+        ".npy files, HDF5 and image files; zarr and N5 wait (ROADMAP.md, Queue 1)."
     )
+
+
+class _PILImageReader:
+    """Image file reader that probes shape and dtype through PIL without decoding; the
+    pixels are decoded on first access. A multi-page TIFF reads as (n_pages, H, W[, C])."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._data = None
+        self.shape, self.dtype = self._probe()
+
+    def _probe(self) -> Tuple[Tuple[int, ...], np.dtype]:
+        with _pil_image().open(self.path) as im:
+            n_frames = getattr(im, "n_frames", 1)
+            w, h = im.size
+            mode = im.mode
+        n_channels = {"L": 0, "I": 0, "I;16": 0, "F": 0, "P": 0, "RGB": 3, "RGBA": 4, "LA": 2}.get(mode, 0)
+        dtype = {"F": np.float32, "I": np.int32, "I;16": np.uint16}.get(mode, np.uint8)
+        shape = (h, w) if n_channels == 0 else (h, w, n_channels)
+        if n_frames > 1:
+            shape = (n_frames,) + shape
+        return shape, np.dtype(dtype)
+
+    def _load(self) -> np.ndarray:
+        if self._data is None:
+            self._data = load_image(self.path)
+        return self._data
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def __getitem__(self, index) -> np.ndarray:
+        return self._load()[index]
+
+    def __array__(self, dtype=None, copy=None):
+        data = self._load()
+        return data.astype(dtype) if dtype is not None else data
+
+
+def supports_memmap(image_path) -> bool:
+    """Whether the shape of this image file can be probed without decoding it."""
+    return _extension(image_path) in IMAGE_EXTENSIONS
+
+
+def load_image(image_path, memmap: bool = True) -> np.ndarray:
+    """An image file as a numpy array (a multi-page TIFF as a (n_pages, H, W) stack); a
+    ``.npy`` file memory-mapped unless ``memmap`` is False."""
+    ext = _extension(image_path)
+    if ext in NUMPY_EXTENSIONS:
+        return np.load(image_path, mmap_mode="r" if memmap else None)
+    if str(image_path).lower().endswith(MEDICAL_EXTENSIONS):
+        raise _not_ported(image_path, ext)
+    with _pil_image().open(image_path) as im:
+        n_frames = getattr(im, "n_frames", 1)
+        if n_frames > 1:
+            frames = []
+            for i in range(n_frames):
+                im.seek(i)
+                frames.append(np.asarray(im))
+            return np.stack(frames)
+        return np.asarray(im)
+
+
+def _lazy_image(image_path):
+    if _extension(image_path) in NUMPY_EXTENSIONS:
+        return np.load(image_path, mmap_mode="r")
+    return _PILImageReader(image_path)
 
 
 def open_container(path: Union[str, os.PathLike], mode: str = "r"):
@@ -57,14 +153,20 @@ def load_data(
     """An array-like with ``shape``, ``dtype`` and ``__getitem__`` for ``path``.
 
     A numpy array passes through; a ``.npy`` file opens as a read-only memory
-    map (``key`` must be None for both); an HDF5 file with a ``key`` gives the
-    dataset's lazy handle, and with a list of keys a lazy (C, *spatial) stack
-    of the datasets.
+    map and an image file as a lazy reader (``key`` must be None for these);
+    an HDF5 file with a ``key`` gives the dataset's lazy handle, and with a
+    list of keys a lazy (C, *spatial) stack of the datasets. A list of paths
+    gives the stack of their images (``key`` None) or a list of datasets.
     """
     if isinstance(path, np.ndarray):
         if key is not None:
             raise ValueError(f"Expected key=None for an in-memory array, got {key}.")
         return path
+    if isinstance(path, (list, tuple)):
+        if key is None:
+            return np.stack([np.asarray(load_image(p)) for p in path])
+        keys = key if isinstance(key, (list, tuple)) else [key] * len(path)
+        return [load_data(p, k, mode=mode) for p, k in zip(path, keys)]
     if isinstance(key, (list, tuple)):
         return _StackedDatasets([load_data(path, k, mode=mode) for k in key])
     ext = _extension(path)
@@ -76,6 +178,10 @@ def load_data(
         if key is None:
             raise ValueError(f"A key is required to load data from the container file {path}.")
         return open_container(path, mode)[key]
+    if ext in IMAGE_EXTENSIONS:
+        if key is not None:
+            raise ValueError(f"Expected key=None for image file {path}, got {key}.")
+        return _lazy_image(path)
     raise _not_ported(path, ext)
 
 
@@ -108,7 +214,8 @@ class _StackedDatasets:
 
 def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarray,
                chunks: Optional[Tuple[int, ...]] = None) -> None:
-    """Write an array into an HDF5 container (gzip, replacing ``key``) or a ``.npy`` file."""
+    """Write an array into an HDF5 container (gzip, replacing ``key``), a ``.npy`` file or an
+    image file (imageio)."""
     ext = _extension(path)
     if ext in HDF5_EXTENSIONS:
         with _h5py().File(path, "a") as f:
@@ -118,6 +225,9 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
         return
     if ext in NUMPY_EXTENSIONS:
         np.save(path, data)
+        return
+    if ext in IMAGE_EXTENSIONS:
+        _imageio().imwrite(path, data)
         return
     raise _not_ported(path, ext)
 
