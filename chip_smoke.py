@@ -61,7 +61,20 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    ``UNet2d(1, 2, initial_features=64, Sigmoid)`` in bf16 at batch 8 of
    256x256, 16 iterations and 4 more after ``from_checkpoint``; times the
    loader and the bare step; then ``train_2d_unet`` and
-   ``predict_with_tiling`` in subprocesses.
+   ``predict_with_tiling`` in subprocesses;
+10. the SNEMI recipe (``experiments/snemi/train_snemi.py``): the tracked model
+   with a 12-channel affinity head, bf16, trained through
+   ``default_segmentation_loader`` over two seeded 64x512x512 volumes of
+   space-filling instance labels with the host ``AffinityTransform(12
+   offsets, add_mask=True)`` and masked Dice, 16 iterations and 4 more after
+   ``from_checkpoint``; holds ``DeviceAffinityTransform`` on the card against
+   the host transform, times the loader with either in use and the bare
+   step; serves the second volume in blocks of (32, 256, 256) through both
+   paths; decodes a (32, 256, 256) crop of the prediction with
+   ``mutex_watershed_segmentation`` (timed, non-empty), decodes the exact
+   targets of the same ground-truth crop (VOI < 0.05, adapted Rand error <
+   0.01 against it), and runs ``validate_checkpoint`` on the card with the
+   VOI of the decode of one sample as its metric.
 
 Phases 3 and 5 also hold both kernels at the DSB step's shapes (batch 8,
 rows 8 x C from 8 x 1 to 8 x 1024, 65536 down to 256 elements), and phase 5
@@ -139,6 +152,16 @@ AUG_FLOAT_TOL, AUG_TIE, AUG_TIE_SHARE = 1e-5, 1e-4, 1e-4
 DSB_MODEL = dict(in_channels=1, out_channels=2, initial_features=64, final_activation="Sigmoid")
 DSB_DEPTH, DSB_BATCH, DSB_PATCH = 4, 8, (1, 256, 256)
 DSB_IMAGES, DSB_FIT, DSB_RESUME, DSB_CLI_ITERATIONS = 16, 16, 4, 4
+# the SNEMI recipe (phase 10): experiments/snemi/train_snemi.py, 12 offsets, masked Dice
+SNEMI_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-2, 0, 0], [0, -3, 0], [0, 0, -3],
+                 [-3, 0, 0], [0, -9, 0], [0, 0, -9], [-4, 0, 0], [0, -27, 0], [0, 0, -27]]
+SNEMI_VOLUME, SNEMI_CELL = (64, 512, 512), (8, 48, 48)
+SNEMI_FIT, SNEMI_RESUME = 16, 4
+SNEMI_BLOCK = (32, 256, 256)
+SNEMI_DECODE = (32, 256, 256)
+SNEMI_VALIDATE, SNEMI_VALIDATE_BLOCK = (16, 128, 128), (16, 128, 128)
+# mutex watershed of the exact affinity targets of a ground-truth crop against that ground truth
+ORACLE_VOI, ORACLE_ARE = 0.05, 0.01
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
 # gradients of this model are themselves inexact in the deep levels on either
@@ -451,10 +474,11 @@ class TimedModel(torch.nn.Module):
         return sum(start.elapsed_time(stop) for start, stop in self.events)
 
 
-def serve(port, inorm, model, volume, path, runs=2):
+def serve(port, inorm, model, volume, path, runs=2, block_shape=BLOCK_SHAPE):
     """``predict_with_halo`` on ``volume`` through the host path (``path`` "host": the numpy
     volume) or the device-resident one ("device": a copy on the card, made before the
-    call); the last of ``runs`` calls is timed, the first pays for cuDNN's first calls.
+    call), in blocks of ``block_shape`` with HALO; the last of ``runs`` calls is timed, the
+    first pays for cuDNN's first calls.
 
     Returns the output as a float32 numpy array and the timed call's numbers: wall time,
     Mvox/s, ms per block, the forwards' device time (CUDA events around each), the
@@ -462,13 +486,13 @@ def serve(port, inorm, model, volume, path, runs=2):
     launches, counted from 0 just before the call."""
     timed = TimedModel(model)
     x = volume if path == "host" else torch.from_numpy(volume).cuda()
-    n_blocks = port.Blocking([0] * volume.ndim, volume.shape, BLOCK_SHAPE).n_blocks
+    n_blocks = port.Blocking([0] * volume.ndim, volume.shape, block_shape).n_blocks
     for _ in range(runs):
         timed.events.clear()
         torch.cuda.synchronize()
         inorm.instance_norm.launches = 0
         t = time.perf_counter()
-        out = port.predict_with_halo(x, timed, block_shape=BLOCK_SHAPE, halo=HALO, output_dtype="float16")
+        out = port.predict_with_halo(x, timed, block_shape=block_shape, halo=HALO, output_dtype="float16")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = inorm.instance_norm.launches
@@ -486,7 +510,7 @@ def serve(port, inorm, model, volume, path, runs=2):
         f"per block ({seconds:.3f} s for {n_blocks} blocks); forwards {forward_ms:.1f} ms device "
         f"({forward_ms / n_blocks:.2f} ms per block), device idle {stats['device_idle']:.1%} of the call; "
         f"{launches} norm launches")
-    if out.shape != (1,) + volume.shape:
+    if out.shape != (model.out_channels,) + volume.shape:
         raise AssertionError(f"output shape {out.shape}")
     if not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("output is not finite or leaves [0, 1]")
@@ -816,7 +840,9 @@ def phase_training(port, inorm, device_ops):
             f"ms per iteration with data loading, 2 validations and checkpoints, "
             f"{FIT_ITERATIONS / fit_s:.2f} patches/s); checkpoints {saved}")
 
-        check_label_transforms(port, device_ops, resumed.train_loader.dataset)
+        check_label_transforms(resumed.train_loader.dataset, (
+            (device_ops.DeviceAffinityTransform(offsets=OFFSETS), port.transforms.AffinityTransform(OFFSETS)),
+            (device_ops.DeviceBoundaryTransform(), port.transforms.BoundaryTransform())))
         time_loaders(port, resumed, loader)
 
         # one training step on a device-resident batch
@@ -840,12 +866,10 @@ def phase_training(port, inorm, device_ops):
     return launches
 
 
-def check_label_transforms(port, device_ops, dataset, n=4):
-    """The device affinity and boundary transforms on the card against the host ones,
-    on ``n`` label patches of the training set: equal."""
+def check_label_transforms(dataset, cases, n=4):
+    """Each (on the card, on the host) pair of label transforms in ``cases`` on ``n`` label
+    patches of ``dataset``: equal."""
     labels = torch.stack([torch.from_numpy(dataset[i][1]) for i in range(n)])  # (n, 1, *patch) float32
-    cases = ((device_ops.DeviceAffinityTransform(offsets=OFFSETS), port.transforms.AffinityTransform(OFFSETS)),
-             (device_ops.DeviceBoundaryTransform(), port.transforms.BoundaryTransform()))
     for on_card, on_host in cases:
         got = on_card(labels.cuda()).cpu().numpy()
         expected = np.stack([on_host(sample[0]).astype(np.float32) for sample in labels.numpy()])
@@ -1233,6 +1257,145 @@ def run_cli(tmp):
     log(f"predict_with_tiling wrote {out.shape} {out.dtype}, finite, in [{out.min():.3f}, {out.max():.3f}]")
 
 
+def snemi_volume(seed):
+    """A seeded EM-like volume of SNEMI_VOLUME and its space-filling instance labels: the
+    nearest of seeds on a jittered grid of SNEMI_CELL (z measured 3x coarser), found at half
+    resolution and repeated 2x per axis; raw shows dark membranes at the cells' boundaries,
+    blurred, with noise."""
+    from scipy import ndimage
+
+    from torch_em_tpu_torch.ops.host import find_boundaries
+
+    rng = np.random.default_rng(seed)
+    coarse = tuple(s // 2 for s in SNEMI_VOLUME)
+    grid = np.stack(np.meshgrid(*[np.arange(c // 4, s, c // 2) for s, c in zip(coarse, SNEMI_CELL)],
+                                indexing="ij"), -1).reshape(-1, len(coarse))
+    jitter = np.stack([rng.integers(-(c // 6), c // 6 + 1, len(grid)) for c in SNEMI_CELL], 1)
+    centers = np.clip(grid + jitter, 0, np.array(coarse) - 1)
+    seeds = np.zeros(coarse, dtype=np.uint32)
+    seeds[tuple(centers.T)] = np.arange(1, len(centers) + 1)
+    nearest = ndimage.distance_transform_edt(seeds == 0, sampling=(3.0, 1.0, 1.0), return_distances=False,
+                                             return_indices=True)
+    labels = seeds[tuple(nearest)]
+    for axis in range(labels.ndim):
+        labels = np.repeat(labels, 2, axis=axis)
+    raw = 0.75 - 0.55 * ndimage.gaussian_filter(find_boundaries(labels).astype(np.float32), (0.5, 1.0, 1.0))
+    raw += 0.03 * rng.standard_normal(SNEMI_VOLUME, dtype=np.float32)
+    return np.clip(raw, 0, 1), labels
+
+
+def decode(affinities):
+    """``mutex_watershed_segmentation`` of (disaffinity) ``affinities`` with all voxels foreground;
+    returns the segmentation and the seconds it took."""
+    from torch_em_tpu_torch.utils.segmentation import mutex_watershed_segmentation
+
+    t = time.perf_counter()
+    seg = mutex_watershed_segmentation(np.ones(affinities.shape[1:], dtype=np.float32), affinities, SNEMI_OFFSETS)
+    return seg, time.perf_counter() - t
+
+
+def phase_snemi(port, inorm, device_ops):
+    """The SNEMI recipe at full width: the tracked model with a 12-channel affinity head trained
+    through ``default_segmentation_loader`` with the host ``AffinityTransform(add_mask=True)``
+    and masked Dice, resumed from its checkpoint, served through both paths, decoded with the
+    mutex watershed, checked against an oracle decode of exact targets, and validated with
+    ``validate_checkpoint``. Returns the kernels' launches of its training, serving and
+    validation runs and its numbers."""
+    from torch_em_tpu_torch.loss import ApplyAndRemoveMask, LossWrapper
+    from torch_em_tpu_torch.metric import rand_index, variation_of_information
+    from torch_em_tpu_torch.utils.validation import validate_checkpoint
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        raws, labels = [], []
+        for seed in range(2):
+            raw, lab = snemi_volume(seed)
+            raws.append(os.path.join(tmp, f"raw{seed}.npy"))
+            labels.append(os.path.join(tmp, f"labels{seed}.npy"))
+            np.save(raws[-1], raw)
+            np.save(labels[-1], lab)
+        volume, gt = raw, lab  # the second volume is served and decoded
+        log(f"SNEMI data: 2 volumes {SNEMI_VOLUME}, {int(gt.max())} instances in the second, made in "
+            f"{time.perf_counter() - t:.1f} s")
+        host_transform = port.transforms.AffinityTransform(SNEMI_OFFSETS, add_mask=True)
+        card_transform = device_ops.DeviceAffinityTransform(SNEMI_OFFSETS, add_mask=True)
+
+        def loader(n_samples=None, shuffle=True, label_transform2=host_transform):
+            return port.default_segmentation_loader(
+                raws, None, labels, None, batch_size=1, patch_shape=TRAIN_PATCH, num_workers=LOADER_THREADS,
+                shuffle=shuffle, n_samples=n_samples, label_transform2=label_transform2)
+
+        masked_dice = LossWrapper(port.DiceLoss(), ApplyAndRemoveMask(masking_method="multiply"))
+        np.random.seed(3)
+        model = port.AnisotropicUNet(**dict(TRACKED, out_channels=len(SNEMI_OFFSETS)), device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "snemi", model, loader(SNEMI_FIT), loader(VAL_SAMPLES, shuffle=False), loss=masked_dice,
+            metric=masked_dice, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog,
+            save_root=tmp)
+        resumed, training = fit_and_resume(port, inorm, trainer, SNEMI_FIT, SNEMI_RESUME, VAL_SAMPLES,
+                                           "SNEMI recipe")
+        folder = trainer.checkpoint_folder
+
+        check_label_transforms(loader(4, label_transform2=None).dataset, ((card_transform, host_transform),))
+        for mode, label_transform2, step_transform in (("host AffinityTransform", host_transform, None),
+                                                       ("DeviceAffinityTransform in the step", None, card_transform)):
+            resumed.device_label_transform = step_transform
+            rate = loader_rate(resumed, loader(2 + LOADER_STEPS, label_transform2=label_transform2))
+            stats[f"loader {mode}"] = rate
+            log(f"SNEMI loader, {mode} (12 offsets and masks), {LOADER_THREADS} threads, with the step: "
+                f"{rate:.2f} patches/s ({1e3 / rate:.1f} ms per patch)")
+        resumed.device_label_transform = None
+        bare_step(resumed, loader(1, shuffle=False), "SNEMI")
+
+        served = resumed.model.eval()
+        served.dtype = torch.bfloat16
+        outputs, serving = {}, 0
+        for path in ("host", "device"):
+            outputs[path], stats[f"serving {path}"] = serve(port, inorm, served, volume, path, block_shape=SNEMI_BLOCK)
+            serving += stats[f"serving {path}"]["launches"]
+        check_close(f"SNEMI {volume.shape}: device-resident path vs host path", outputs["device"], outputs["host"])
+        crop = (slice(None),) + tuple(slice(0, c) for c in SNEMI_DECODE)
+        seg, seconds = decode(outputs["host"][crop].astype(np.float32))
+        del outputs
+        stats["decode_mvox_per_s"] = int(np.prod(SNEMI_DECODE)) / seconds / 1e6
+        log(f"mutex watershed of the served prediction's {SNEMI_DECODE} crop: {int(seg.max())} segments in "
+            f"{seconds:.2f} s on the host ({stats['decode_mvox_per_s']:.3f} Mvox/s)")
+        if seg.max() == 0:
+            raise AssertionError("the mutex watershed of the served prediction is empty")
+
+        gt_crop = gt[crop[1:]]
+        seg, seconds = decode(port.transforms.AffinityTransform(SNEMI_OFFSETS)(gt_crop).astype(np.float32))
+        split, merge = variation_of_information(seg, gt_crop)
+        are, _ = rand_index(seg, gt_crop)
+        stats["oracle"] = {"voi": split + merge, "adapted_rand_error": are, "seconds": seconds}
+        log(f"oracle: the exact targets of a {SNEMI_DECODE} ground-truth crop ({len(np.unique(gt_crop))} "
+            f"instances) decode to {int(seg.max())} segments in {seconds:.2f} s: VOI {split + merge:.4g} (limit "
+            f"{ORACLE_VOI}), adapted Rand error {are:.4g} (limit {ORACLE_ARE})")
+        if not (split + merge < ORACLE_VOI and are < ORACLE_ARE):
+            raise AssertionError("the mutex watershed of exact affinities does not recover the ground truth")
+
+        def mws_voi(target, prediction):
+            seg, _ = decode(prediction)
+            return sum(variation_of_information(seg, target))
+
+        sample = tuple(slice(0, c) for c in SNEMI_VALIDATE)
+        torch.cuda.synchronize()
+        inorm.instance_norm.launches = 0
+        scores = validate_checkpoint(folder, samples=[(volume[sample], gt[sample])], metrics=mws_voi, visualize=False,
+                                     block_shape=SNEMI_VALIDATE_BLOCK, halo=HALO)
+        torch.cuda.synchronize()
+        validation = inorm.instance_norm.launches
+        log(f"validate_checkpoint on the card: VOI {scores} of the MWS decode of one {SNEMI_VALIDATE} sample; "
+            f"{validation} norm launches")
+        if len(scores) != 1 or not np.isfinite(scores[0]) or validation != NORMS_PER_FORWARD:
+            raise AssertionError(f"validate_checkpoint gave {scores} with {validation} norm launches")
+        log(f"SNEMI: {json.dumps(stats)}")
+        del trainer, resumed, model, served
+    torch.cuda.empty_cache()
+    return training[0] + serving + validation, training[1]
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -1285,11 +1448,14 @@ def main():
 
         log("phase 9: the DSB recipe, UNet2d at DSB width, and the CLI")
         dsb_fwd, dsb_bwd = phase_dsb(port, inorm)
-        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd
+
+        log("phase 10: the SNEMI recipe, affinities and the mutex watershed")
+        snemi_fwd, snemi_bwd = phase_snemi(port, inorm, device_ops)
+        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
-            f"3-D recipe + {dsb_fwd} DSB; backward kernel launches: {train_bwd} training + {recipe_bwd} "
-            f"3-D recipe + {dsb_bwd} DSB")
+            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI; backward kernel launches: {train_bwd} training + "
+            f"{recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -1,0 +1,265 @@
+"""The port's quality points: the 3D parity probes of ``experiments/parity``, run with the port.
+
+    python3 scripts/torch_parity3d.py --mode boundary --seeds 0 1 2 3 4 5 6 7 -o OUT
+    python3 scripts/torch_parity3d.py --mode affinity --seeds 0 1 2 3 -o OUT
+    python3 scripts/torch_parity3d.py --mode boundary --seeds 0 --iterations 4 --device cpu -o OUT
+
+Imports only the port (``torch_em_tpu_torch``) and ``chip_smoke`` (for the
+card's name and power limit), and runs on the card unless ``--device
+cpu``. Steps:
+
+1. Data: regenerates the probe volumes of ``experiments/parity/make_data3d.py``
+   (seed 13, 6 train and 2 val volumes of 24x96x96) with the port's
+   ``utils.test.make_volume`` into ``OUT/data`` as ``.npy`` and prints a
+   sha256 of each labels volume (uint32, C order), which
+   ``tests/test_torch_parity3d.py`` takes from the HDF5 files of
+   ``experiments/parity/parity_data3d``.
+2. ``--mode boundary``, the CREMI-style "pb" protocol of
+   ``experiments/parity/run_r5_tpu_seeds.sh`` (``train_tpu3d.py --fixed-val
+   --precomputed-boundaries``): ``BoundaryTransform(mode="thick", ndim=3)``
+   targets computed on the full volumes, a fixed val ROI (0:8, 0:64, 0:64) per
+   val volume, ``AnisotropicUNet(scale_factors=[[1,2,2],[2,2,2]],
+   initial_features=8, Sigmoid)``, AdamW (lr 1e-4, weight decay 0.01), the
+   default plateau scheduler, mixed precision, patches (8, 64, 64) at batch 1,
+   ``n_samples=50`` per epoch, 1500 iterations; the score is the soft boundary
+   Dice of the best checkpoint's predictions on the val crops
+   (``experiments/parity/evaluate3d.py:soft_dice``). The summary sets the
+   seeds' mean and std beside the 16-seed distributions of
+   ``experiments/parity/parity_r5_summary.json`` (JAX package and
+   reference torch-em), with each mean gap and Welch's t.
+3. ``--mode affinity``, the SNEMI-style probe of
+   ``experiments/parity/train_affinity3d.py``: six offsets through
+   ``AffinityTransform(add_binary_target=True, add_mask=True)``, masked Dice
+   (``LossWrapper(DiceLoss(), ApplyAndRemoveMask())``) as loss and metric,
+   f=8, 1200 iterations; the best checkpoint's prediction of each val crop
+   (0:8, 0:64, 0:64) is decoded by ``mutex_watershed_segmentation`` (foreground
+   all ones, ``min_size=10``) and scored against its labels: VOI (split +
+   merge), adapted Rand error, 1 - Rand index (the number that script stores
+   as ``adapted_rand_error``) and matching F1 at IoU 0.5. The summary sets
+   the seeds' means beside the JAX package's one run (mean VOI 0.6389, mean
+   F1 0.3119, ``parity_out_affinity/affinity_mws_results.json``), with the
+   one-sample t of the seeds against it.
+
+Writes ``OUT/<mode>_results.json`` and prints the card's name and power limit
+and the summary as the last line.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import torch_em_tpu_torch as port  # noqa: E402
+from chip_smoke import nvidia_smi  # noqa: E402
+from torch_em_tpu_torch.loss import ApplyAndRemoveMask, DiceLoss, LossWrapper  # noqa: E402
+from torch_em_tpu_torch.metric import matching, rand_index, variation_of_information  # noqa: E402
+from torch_em_tpu_torch.transforms import AffinityTransform, BoundaryTransform  # noqa: E402
+from torch_em_tpu_torch.utils.segmentation import mutex_watershed_segmentation  # noqa: E402
+from torch_em_tpu_torch.utils.test import make_volume  # noqa: E402
+
+DATA_SEED, N_TRAIN, N_VAL, VOLUME = 13, 6, 2, (24, 96, 96)
+PATCH = (8, 64, 64)
+VAL_ROI = tuple(slice(0, p) for p in PATCH)
+SCALE_FACTORS = [[1, 2, 2], [2, 2, 2]]
+AFFINITY_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-2, 0, 0], [0, -3, 0], [0, 0, -3]]
+ITERATIONS = {"boundary": 1500, "affinity": 1200}
+SAMPLES_PER_EPOCH = 50
+
+# experiments/parity/parity_r5_summary.json, "cremi3d_free_seeds_r5": the soft boundary
+# Dice of seeds 0-15 under the pb protocol
+JAX_BOUNDARY_DICE = [0.9339, 0.8427, 0.9491, 0.9597, 0.9165, 0.962, 0.967, 0.9668,
+                     0.9582, 0.9476, 0.9622, 0.919, 0.9659, 0.9597, 0.9648, 0.9629]
+REFERENCE_BOUNDARY_DICE = [0.9632, 0.9624, 0.9434, 0.9672, 0.9734, 0.9706, 0.8998, 0.9633,
+                           0.924, 0.9426, 0.9555, 0.9629, 0.9586, 0.9651, 0.9683, 0.9257]
+# experiments/parity/parity_out_affinity/affinity_mws_results.json: the JAX package's one run
+JAX_AFFINITY = {"mean_voi": 0.6389, "mean_f1": 0.3119}
+
+
+def identity(raw):
+    """The raw transform of the boundary protocol: both sides of the JAX probe fed raw [0, 1]."""
+    return raw
+
+
+def no_augmentation(raw, labels):
+    return raw, labels
+
+
+def labels_digest(labels: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(labels, dtype=np.uint32).tobytes()).hexdigest()
+
+
+def make_data(folder):
+    """The probe volumes as ``.npy`` under ``folder``/{train,val}; returns {split: [(raw, labels,
+    boundaries) paths]} and prints each labels volume's sha256."""
+    rng = np.random.default_rng(DATA_SEED)
+    boundaries = BoundaryTransform(mode="thick", ndim=3)
+    paths = {}
+    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+        os.makedirs(os.path.join(folder, split), exist_ok=True)
+        paths[split] = []
+        for i in range(n):
+            raw, labels = make_volume(rng, VOLUME)
+            files = tuple(os.path.join(folder, split, f"vol{i}_{key}.npy") for key in ("raw", "labels", "boundaries"))
+            for file, data in zip(files, (raw, labels, boundaries(labels).astype("float32")[0])):
+                np.save(file, data)
+            paths[split].append(files)
+            print(f"data {split}/vol{i}: raw {raw.shape} {raw.dtype}, labels sha256 {labels_digest(labels)}",
+                  flush=True)
+    return paths
+
+
+def soft_dice(pred, target, eps=1e-7):
+    """``experiments/parity/evaluate3d.py:soft_dice``."""
+    p, t = pred.reshape(-1), target.reshape(-1)
+    return float(2 * (p * t).sum() / max((p * p).sum() + (t * t).sum(), eps))
+
+
+def welch(a, b):
+    """Welch's t of mean(a) - mean(b) and its Welch-Satterthwaite degrees of freedom."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    va, vb = a.var(ddof=1) / len(a), b.var(ddof=1) / len(b)
+    t = (a.mean() - b.mean()) / np.sqrt(va + vb)
+    dof = (va + vb) ** 2 / (va ** 2 / (len(a) - 1) + vb ** 2 / (len(b) - 1))
+    return float(t), float(dof)
+
+
+def distribution(values):
+    values = np.asarray(values, dtype=np.float64)
+    return {"n": len(values), "mean": float(values.mean()),
+            "std": float(values.std(ddof=1)) if len(values) > 1 else None}
+
+
+def predict_crops(model, val, device):
+    """The model's predictions (N_VAL, C, *PATCH) on the val ROIs, float32 on the host."""
+    model.eval()
+    raws = np.stack([np.load(r)[VAL_ROI] for r, _, _ in val])[:, None]
+    with torch.no_grad():
+        return np.concatenate([model(torch.from_numpy(x[None]).to(device)).float().cpu().numpy() for x in raws])
+
+
+def train_boundary(paths, seed, iterations, device, out):
+    train, val = paths["train"], paths["val"]
+    train_loader = port.default_segmentation_loader(
+        [r for r, _, _ in train], None, [b for _, _, b in train], None, batch_size=1, patch_shape=PATCH, ndim=3,
+        label_dtype="float32", raw_transform=identity, n_samples=SAMPLES_PER_EPOCH)
+    val_loader = port.default_segmentation_loader(
+        [r for r, _, _ in val], None, [b for _, _, b in val], None, batch_size=1, patch_shape=PATCH, ndim=3,
+        label_dtype="float32", raw_transform=identity, rois=[VAL_ROI] * len(val), transform=no_augmentation)
+    model = port.AnisotropicUNet(in_channels=1, out_channels=1, initial_features=8, scale_factors=SCALE_FACTORS,
+                                 final_activation="Sigmoid", device=device, seed=seed)
+    trainer = port.default_segmentation_trainer(
+        f"parity-boundary-s{seed}", model, train_loader, val_loader, learning_rate=1e-4,
+        optimizer_kwargs={"weight_decay": 0.01}, device=device, save_root=out)
+    trainer.fit(iterations=iterations)
+    trainer.load_checkpoint("best")
+    preds = predict_crops(trainer.model, val, device)
+    targets = np.stack([np.load(b)[VAL_ROI] for _, _, b in val])[:, None]
+    return {"seed": seed, "dice_boundary": soft_dice(preds, targets), "best_val_metric": trainer.best_metric,
+            "iterations": trainer.iteration}
+
+
+def train_affinity(paths, seed, iterations, device, out):
+    train, val = paths["train"], paths["val"]
+    trafo = AffinityTransform(offsets=AFFINITY_OFFSETS, add_binary_target=True, add_mask=True)
+    loss = LossWrapper(DiceLoss(), transform=ApplyAndRemoveMask())
+
+    def loader(files, n_samples):
+        return port.default_segmentation_loader(
+            [r for r, _, _ in files], None, [lab for _, lab, _ in files], None, batch_size=1, patch_shape=PATCH,
+            ndim=3, label_transform2=trafo, label_dtype="float32", n_samples=n_samples)
+
+    model = port.AnisotropicUNet(in_channels=1, out_channels=1 + len(AFFINITY_OFFSETS), initial_features=8,
+                                 scale_factors=SCALE_FACTORS, final_activation="Sigmoid", device=device, seed=seed)
+    trainer = port.default_segmentation_trainer(
+        f"parity-affinity-s{seed}", model, loader(train, SAMPLES_PER_EPOCH), loader(val, 8), loss=loss,
+        metric=loss, learning_rate=1e-4, device=device, save_root=out)
+    trainer.fit(iterations=iterations)
+    trainer.load_checkpoint("best")
+    preds = predict_crops(trainer.model, val, device)
+    volumes, decode_s = [], 0.0
+    for pred, (_, lab, _) in zip(preds, val):
+        gt = np.load(lab)[VAL_ROI].astype("uint64")
+        t = time.perf_counter()
+        seg = mutex_watershed_segmentation(np.ones_like(pred[0]), pred[1:], offsets=AFFINITY_OFFSETS, min_size=10)
+        decode_s += time.perf_counter() - t
+        vi_split, vi_merge = variation_of_information(seg, gt)
+        are, ri = rand_index(seg, gt)
+        volumes.append({"voi_split": vi_split, "voi_merge": vi_merge, "adapted_rand_error": are,
+                        "one_minus_rand_index": 1.0 - ri, "matching_f1@0.5": matching(seg, gt)["f1"],
+                        "n_pred_instances": int(len(np.unique(seg)) - 1),
+                        "n_gt_instances": int(len(np.unique(gt)) - 1)})
+    return {"seed": seed, "best_val_metric": trainer.best_metric, "iterations": trainer.iteration,
+            "per_volume": volumes, "decode_s": decode_s,
+            "mean_voi": float(np.mean([v["voi_split"] + v["voi_merge"] for v in volumes])),
+            "mean_f1": float(np.mean([v["matching_f1@0.5"] for v in volumes])),
+            "mean_adapted_rand_error": float(np.mean([v["adapted_rand_error"] for v in volumes])),
+            "mean_one_minus_rand_index": float(np.mean([v["one_minus_rand_index"] for v in volumes]))}
+
+
+def summarize(mode, runs):
+    if mode == "boundary":
+        dice = [r["dice_boundary"] for r in runs]
+        summary = {"port": distribution(dice), "jax": distribution(JAX_BOUNDARY_DICE),
+                   "reference": distribution(REFERENCE_BOUNDARY_DICE)}
+        for side, values in (("jax", JAX_BOUNDARY_DICE), ("reference", REFERENCE_BOUNDARY_DICE)):
+            gap = summary["port"]["mean"] - summary[side]["mean"]
+            t, dof = welch(dice, values) if len(dice) > 1 else (None, None)
+            summary[f"vs_{side}"] = {"mean_gap": gap, "welch_t": t, "welch_dof": dof}
+        return summary
+    summary = {}
+    for key in ("mean_voi", "mean_f1", "mean_adapted_rand_error", "mean_one_minus_rand_index"):
+        summary[key] = distribution([r[key] for r in runs])
+    for key, jax_value in JAX_AFFINITY.items():
+        port_values = summary[key]
+        gap = port_values["mean"] - jax_value
+        t = gap / (port_values["std"] / np.sqrt(port_values["n"])) if port_values["std"] else None
+        summary[f"{key}_vs_jax"] = {"jax_n1": jax_value, "mean_gap": gap, "one_sample_t": t}
+    return summary
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("boundary", "affinity"), required=True)
+    parser.add_argument("--seeds", type=int, nargs="+", required=True)
+    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("-n", "--iterations", type=int, default=None,
+                        help="default: 1500 (boundary) or 1200 (affinity), as the JAX probes ran")
+    parser.add_argument("-d", "--device", default="cuda")
+    args = parser.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        print("torch_parity3d: no CUDA device is available; pass --device cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    iterations = ITERATIONS[args.mode] if args.iterations is None else args.iterations
+    os.makedirs(args.output, exist_ok=True)
+    paths = make_data(os.path.join(args.output, "data"))
+    train = train_boundary if args.mode == "boundary" else train_affinity
+    runs = []
+    for seed in args.seeds:
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+        t = time.perf_counter()
+        run = train(paths, seed, iterations, args.device, args.output)
+        run["seconds"] = time.perf_counter() - t
+        runs.append(run)
+        print(f"{args.mode} seed {seed}: {json.dumps(run)}", flush=True)
+    result = {"mode": args.mode, "device": args.device, "card": nvidia_smi() if args.device != "cpu" else None,
+              "iterations": iterations, "runs": runs, "summary": summarize(args.mode, runs)}
+    with open(os.path.join(args.output, f"{args.mode}_results.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    if result["card"]:
+        print(result["card"], flush=True)
+    print(json.dumps(result["summary"]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,21 @@
 """The port imports nothing of JAX, flax or the JAX package.
 
 The machine with the card has PyTorch, numpy and scipy but none of jax,
-flax, optax, h5py, tqdm, PIL or imageio. Here they are installed, so a
-subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
-before it imports every module of the port and ``chip_smoke``, and reads an
-HDF5 path and a PNG file, which must raise an ImportError that names h5py
-and PIL. h5py, PIL and imageio may be imported inside a function (the
-HDF5 and image readers and writers), never at module level.
+flax, optax, h5py, tqdm, PIL, imageio, sklearn or napari. Here most of them
+are installed, so a subprocess blocks them (``sys.modules[name] = None``
+makes an import raise) before it imports every module of the port,
+``chip_smoke`` and ``scripts/torch_parity3d.py``, and reads an HDF5 path and
+a PNG file, writes HDF5 test data, clusters with ``HDBScan`` and shows a
+validation sample, which must raise an ImportError that names h5py, PIL,
+sklearn and napari. Those packages may be imported inside a function, never
+at module level. The native host library builds under
+``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
+``TMPDIR``.
 """
 
+import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -19,7 +25,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "torch_em_tpu")
+BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "torch_em_tpu")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -31,7 +37,21 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert callable(chip_smoke.main)
-from torch_em_tpu_torch.utils import io
+import runpy
+runpy.run_path("scripts/torch_parity3d.py", run_name="probe")
+import numpy as np
+from torch_em_tpu_torch.metric import HDBScan
+from torch_em_tpu_torch.utils import io, test, validation
+for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "raw", "labels", (4, 4), (2, 2)),
+                       "h5py"),
+                      (lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
+                      (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari")):
+    try:
+        call()
+    except ImportError as e:
+        assert package in str(e), e
+    else:
+        raise AssertionError(package + " was not needed")
 try:
     io.load_data("data.h5", "raw")
 except ImportError as e:
@@ -50,7 +70,8 @@ print(len(names))
 
 
 def _port_sources():
-    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
+        REPO / "scripts" / name for name in ("torch_parity3d.py", "snemi_host_costs.py")]
 
 
 def test_port_imports_with_jax_stack_blocked():
@@ -67,8 +88,37 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|tqdm|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL and imageio only inside the functions that read or write HDF5 and images
-    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio)\b", text, flags=re.MULTILINE)
+    # h5py, PIL, imageio, sklearn and napari only inside the functions that need them
+    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari)\b", text, flags=re.MULTILINE)
+
+
+_BUILD_NATIVE = """
+import sys
+from pathlib import Path
+from torch_em_tpu_torch.ops import _build, native
+source = Path(sys.argv[1])
+source.write_text(native.SOURCE.read_text() + "// a copy with another hash, so that it builds\\n")
+print(_build.compile_library("tem_native", native._find_gxx, native.GXX_FLAGS, [source]))
+"""
+
+
+def test_native_library_builds_under_the_package(tmp_path):
+    """A build of the native host library writes its library under torch_em_tpu_torch/_build/
+    and nothing under HOME or TMPDIR."""
+    home, tmp = tmp_path / "home", tmp_path / "tmp"
+    home.mkdir()
+    tmp.mkdir()
+    env = dict(os.environ, HOME=str(home), TMPDIR=str(tmp))
+    proc = subprocess.run([sys.executable, "-c", _BUILD_NATIVE, str(tmp_path / "tem_native.cpp")], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lib = Path(proc.stdout.split()[-1])
+    try:
+        assert lib.is_file() and lib.parent.parent == PACKAGE / "_build"
+        assert sorted(p.name for p in lib.parent.iterdir()) == ["libtem_native.so"]
+        assert not list(home.iterdir()) and not list(tmp.iterdir())
+    finally:
+        shutil.rmtree(lib.parent, ignore_errors=True)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

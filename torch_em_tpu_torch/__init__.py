@@ -2,14 +2,16 @@
 
 The same U-Net family, training loop, losses, data path (datasets, the
 dataset and loader factories, augmentations on the host and on the card),
-tiled prediction, command line interface and parameter-free instance norm as
-the JAX package, with channel-first (N, C, *spatial) tensors. The instance
-norm runs as hand-written CUDA kernels (forward and backward) on the card and
-as their plain PyTorch versions on the CPU. Entry points run on
-``device="cuda"`` unless the caller passes ``device="cpu"``.
+tiled prediction, instance decodings (watersheds, mutex watershed,
+multicut) and their metrics, checkpoint validation, command line interface
+and parameter-free instance norm as the JAX package, with channel-first
+(N, C, *spatial) tensors. The instance norm runs as hand-written CUDA
+kernels (forward and backward) on the card and as their plain PyTorch
+versions on the CPU. Entry points run on ``device="cuda"`` unless the caller
+passes ``device="cpu"``.
 """
 
-from . import data, loss, models, trainer, transforms, utils
+from . import data, loss, metric, models, trainer, transforms, utils
 from .data import DataLoader, SegmentationDataset
 from .loss import DiceLoss
 from .models import AnisotropicUNet, UNet2d, UNet3d
@@ -22,7 +24,7 @@ from .transforms import standardize
 from .utils import Blocking, predict_with_halo, predict_with_padding, state_dict_from_jax_params
 
 __all__ = [
-    "data", "loss", "models", "trainer", "transforms", "utils",
+    "data", "loss", "metric", "models", "trainer", "transforms", "utils",
     "AnisotropicUNet", "UNet2d", "UNet3d", "instance_norm", "instance_norm_reference",
     "standardize", "Blocking", "predict_with_halo", "predict_with_padding",
     "state_dict_from_jax_params", "DataLoader", "SegmentationDataset", "DiceLoss",

@@ -6,7 +6,8 @@ are included, so a build takes seconds. The output goes to
 ``torch_em_tpu_torch/_build/<name>-<hash>/``, where the hash covers the
 sources and the compiler flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. The headers in ``csrc/`` (``*.cuh``) count
-as sources of every library.
+as sources of every library. ``compile_library`` also builds the host C++
+library of ``ops/native`` with ``g++``.
 """
 
 import ctypes
@@ -18,7 +19,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "find_nvcc", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "find_nvcc", "compile_library", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -43,17 +44,17 @@ def find_nvcc() -> str:
     )
 
 
-@functools.lru_cache(maxsize=None)
-def load_library(name: str, *sources: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` files into ``lib<name>.so`` (once per content hash) and load it."""
-    paths = [CSRC_DIR / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
+def compile_library(name: str, find_compiler, flags, paths) -> Path:
+    """``<compiler> *flags -o lib<name>.so *paths`` (headers left out of the command) once
+    per hash of the flags and the files' contents, under ``BUILD_DIR/<name>-<hash>/``;
+    ``find_compiler()`` is called only when a build is needed. Returns the library's path."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
         digest.update(p.read_bytes())
     out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
     lib_path = out_dir / f"lib{name}.so"
     if not lib_path.is_file():
-        nvcc = find_nvcc()
+        command = find_compiler()
         out_dir.mkdir(parents=True, exist_ok=True)
         # build under a temporary name and rename, so a concurrent or cut-off
         # build never leaves a partial library under the final name
@@ -61,16 +62,23 @@ def load_library(name: str, *sources: str) -> ctypes.CDLL:
         os.close(fd)
         try:
             proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, paths)],
+                [command, *flags, "-o", tmp, *(str(p) for p in paths if p.suffix != ".cuh")],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed to build {name} (exit {proc.returncode}):\n"
+                    f"{os.path.basename(command)} failed to build {name} (exit {proc.returncode}):\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
             os.replace(tmp, lib_path)
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    return ctypes.CDLL(str(lib_path))
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str, *sources: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` files into ``lib<name>.so`` (once per content hash) and load it."""
+    paths = [CSRC_DIR / s for s in sources] + sorted(CSRC_DIR.glob("*.cuh"))
+    return ctypes.CDLL(str(compile_library(name, find_nvcc, NVCC_FLAGS, paths)))

@@ -1,0 +1,141 @@
+"""ctypes bindings for the native (C++) host ops: watershed, mutex watershed,
+connected components.
+
+The port's own copy of the JAX package's ``ops/native``. ``tem_native.cpp``
+beside this file is built with ``g++ -O3 -std=c++17 -fPIC -shared`` at first
+use into ``torch_em_tpu_torch/_build/tem_native-<hash>/``, keyed by a hash of
+the source and the flags (``ops/_build.py:compile_library``). A failed build
+raises; nothing falls back to another implementation.
+"""
+
+import ctypes
+import functools
+import shutil
+from pathlib import Path
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from .._build import compile_library
+
+__all__ = ["watershed", "mutex_watershed", "connected_components_labels", "load_library"]
+
+SOURCE = Path(__file__).resolve().parent / "tem_native.cpp"
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+MAX_NDIM = 8  # the C++ side keeps per-axis strides in arrays of 8
+
+
+def _find_gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ was not found on PATH; it builds the port's native host ops")
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build ``tem_native.cpp`` (once per content hash) and load it with its signatures."""
+    lib = ctypes.CDLL(str(compile_library("tem_native", _find_gxx, GXX_FLAGS, [SOURCE])))
+    f32, u32, i64 = (ctypes.POINTER(t) for t in (ctypes.c_float, ctypes.c_uint32, ctypes.c_int64))
+    lib.watershed.argtypes = [f32, u32, ctypes.c_void_p, i64, ctypes.c_int]
+    lib.mutex_watershed.argtypes = [f32, i64, ctypes.c_int, i64, ctypes.c_int, i64, ctypes.c_int,
+                                    ctypes.c_uint64, ctypes.c_void_p, u32]
+    lib.connected_components_labels.argtypes = [u32, i64, ctypes.c_int, u32]
+    for fn in (lib.watershed, lib.mutex_watershed, lib.connected_components_labels):
+        fn.restype = None
+    return lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _shape(shape) -> np.ndarray:
+    if not 1 <= len(shape) <= MAX_NDIM or min(shape) < 1:
+        raise ValueError(f"the native ops take 1 to {MAX_NDIM} non-empty axes, got shape {tuple(shape)}")
+    return np.asarray(shape, dtype="int64")
+
+
+def _mask(mask: Optional[np.ndarray], shape):
+    """A uint8 copy of ``mask`` (None stays None), checked against ``shape``."""
+    if mask is None:
+        return None
+    mask = np.ascontiguousarray(mask, dtype="uint8")
+    if mask.shape != tuple(shape):
+        raise ValueError(f"mask of shape {mask.shape} for data of shape {tuple(shape)}")
+    return mask
+
+
+def _mask_ptr(mask: Optional[np.ndarray]):
+    return None if mask is None else mask.ctypes.data_as(ctypes.c_void_p)
+
+
+def watershed(hmap: np.ndarray, seeds: np.ndarray, mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """Seeded watershed via priority flood (skimage.watershed functional spec).
+
+    Args:
+        hmap: Height map (float).
+        seeds: Seed labels (nonzero = seed); not modified.
+        mask: Optional boolean mask restricting the flood.
+
+    Returns:
+        The labels grown from the seeds.
+    """
+    lib = load_library()
+    hmap = np.ascontiguousarray(hmap, dtype="float32")
+    labels = np.array(seeds, dtype="uint32", order="C", copy=True)
+    if labels.shape != hmap.shape:
+        raise ValueError(f"seeds of shape {labels.shape} for a height map of shape {hmap.shape}")
+    shape = _shape(hmap.shape)
+    mask = _mask(mask, hmap.shape)
+    lib.watershed(_ptr(hmap, ctypes.c_float), _ptr(labels, ctypes.c_uint32), _mask_ptr(mask),
+                  _ptr(shape, ctypes.c_int64), hmap.ndim)
+    return labels
+
+
+def mutex_watershed(
+    affinities: np.ndarray,
+    offsets: List[List[int]],
+    strides: Optional[Sequence[int]] = None,
+    randomize_strides: bool = False,
+    mask: Optional[np.ndarray] = None,
+    seed: int = 0,
+) -> np.ndarray:
+    """Mutex watershed segmentation (elf.segmentation.mutex_watershed spec).
+
+    ``affinities`` follow the training (disaffinity) convention: 1 = boundary.
+    The first ndim offsets are attractive, the rest repulsive; strides
+    subsample repulsive edges (at random with ``randomize_strides``, from the
+    generator seeded with ``seed``).
+    """
+    lib = load_library()
+    affinities = np.ascontiguousarray(affinities, dtype="float32")
+    n_offsets, spatial = affinities.shape[0], affinities.shape[1:]
+    ndim = len(spatial)
+    offsets_arr = np.ascontiguousarray(np.asarray(offsets, dtype="int64"))
+    if offsets_arr.shape != (n_offsets, ndim):
+        raise ValueError(f"{n_offsets} affinity channels of {ndim} axes need offsets of shape "
+                         f"({n_offsets}, {ndim}), got {offsets_arr.shape}")
+    strides_arr = np.ascontiguousarray(np.asarray([1] * ndim if strides is None else strides, dtype="int64"))
+    if strides_arr.shape != (ndim,) or (strides_arr < 1).any():
+        raise ValueError(f"strides {strides} for {ndim} axes")
+    shape = _shape(spatial)
+    mask = _mask(mask, spatial)
+    out = np.zeros(spatial, dtype="uint32")
+    lib.mutex_watershed(
+        _ptr(affinities, ctypes.c_float), _ptr(offsets_arr, ctypes.c_int64), n_offsets,
+        _ptr(shape, ctypes.c_int64), ndim, _ptr(strides_arr, ctypes.c_int64),
+        int(randomize_strides), seed, _mask_ptr(mask), _ptr(out, ctypes.c_uint32),
+    )
+    return out
+
+
+def connected_components_labels(seg: np.ndarray) -> np.ndarray:
+    """Connected components of a label image (same id + adjacency)."""
+    lib = load_library()
+    seg = np.ascontiguousarray(seg, dtype="uint32")
+    shape = _shape(seg.shape)
+    out = np.zeros(seg.shape, dtype="uint32")
+    lib.connected_components_labels(_ptr(seg, ctypes.c_uint32), _ptr(shape, ctypes.c_int64), seg.ndim,
+                                    _ptr(out, ctypes.c_uint32))
+    return out
