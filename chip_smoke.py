@@ -78,7 +78,9 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
 
 Phases 3 and 5 also hold both kernels at the DSB step's shapes (batch 8,
 rows 8 x C from 8 x 1 to 8 x 1024, 65536 down to 256 elements), and phase 5
-times them there.
+times them there. Phase 3 also holds the forward kernel at the SNEMI
+recipe's serving blocks (40x320x320 with the halo) and validation blocks
+(24x192x192), whose norms phase 10 launches.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -359,9 +361,10 @@ def dsb_paths(inorm, dsb_shapes, dtype, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes):
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes):
     """Check the forward kernel at every main-path shape (the DSB step's at batch
-    DSB_BATCH) and time it at the serving path's; returns its entry of the kernels line."""
+    DSB_BATCH, and the SNEMI recipe's serving and validation blocks, ``snemi_shapes``
+    {name: shapes}) and time it at the serving path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -370,7 +373,7 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes):
     max_err = 0.0
     for dtype in DTYPES:
         hit = set()
-        for c, sp in sorted(set(shapes) | set(train_shapes)):
+        for c, sp in sorted(set(shapes).union(train_shapes, *snemi_shapes.values())):
             err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
                                rand((1, c) + sp, dtype))
             max_err = max(max_err, err)
@@ -430,7 +433,8 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes):
         "paths": {"serving": path_counts(inorm, shapes, torch.bfloat16, "forward"),
                   "training": path_counts(inorm, train_shapes, torch.bfloat16, "forward"),
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes],
-                                              torch.bfloat16, "forward")},
+                                              torch.bfloat16, "forward"),
+                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in snemi_shapes.items()}},
     }
 
 
@@ -1423,12 +1427,19 @@ def main():
         log(f"built instance_norm.cu and instance_norm_bwd.cu in {time.perf_counter() - t:.1f} s")
 
         log("phase 3: forward kernel against its plain version, serving and training shapes")
-        block = tuple(b + 2 * h for b, h in zip(BLOCK_SHAPE, HALO))
-        shapes = norm_shapes(block, TRACKED["scale_factors"], TRACKED["initial_features"])
-        train_shapes = norm_shapes(TRAIN_PATCH, TRACKED["scale_factors"], TRACKED["initial_features"])
+
+        def tracked_shapes(block, halo=(0, 0, 0)):
+            block = tuple(b + 2 * h for b, h in zip(block, halo))
+            return norm_shapes(block, TRACKED["scale_factors"], TRACKED["initial_features"])
+
+        shapes = tracked_shapes(BLOCK_SHAPE, HALO)
+        train_shapes = tracked_shapes(TRAIN_PATCH)
         dsb_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * DSB_DEPTH, DSB_MODEL["initial_features"])
-        assert len(shapes) == len(train_shapes) == len(dsb_shapes) == NORMS_PER_FORWARD
-        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes)
+        # the SNEMI recipe's model differs from the tracked one only after its last norm
+        snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
+                        "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
+        assert all(len(s) == NORMS_PER_FORWARD for s in (shapes, train_shapes, dsb_shapes, *snemi_shapes.values()))
+        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)

@@ -71,7 +71,7 @@ print(len(names))
 
 def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / name for name in ("torch_parity3d.py", "snemi_host_costs.py")]
+        REPO / "scripts" / "torch_parity3d.py"]
 
 
 def test_port_imports_with_jax_stack_blocked():

@@ -17,6 +17,7 @@ from glob import glob
 import h5py
 import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PARITY = os.path.join(REPO, "experiments", "parity")
@@ -30,6 +31,15 @@ def _probe():
 
 
 probe = _probe()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in parallel workers; torch's thread pool in each would oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_regenerated_volumes_equal_the_tracked_files(tmp_path, capsys):

@@ -21,8 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from torch_em_tpu.metric import MWSVOIMetric as JaxMWSVOIMetric
-from torch_em_tpu.utils import test as jax_test
 import torch_em_tpu_torch as port
 from torch_em_tpu_torch.loss import DiceLoss
 from torch_em_tpu_torch.metric import MWSVOIMetric, variation_of_information
@@ -59,6 +57,15 @@ def mws_voi(gt, prediction):
                                        min_size=5)
     split, merge = variation_of_information(seg, gt)
     return split + merge
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in parallel workers; torch's thread pool in each would oversubscribe the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 class MetricLog:
@@ -98,6 +105,8 @@ def trained(tmp_path_factory):
 
 
 def test_fit_with_host_metric(trained):
+    from torch_em_tpu.metric import MWSVOIMetric as JaxMWSVOIMetric
+
     trainer, _ = trained
     assert trainer.iteration == 8 and len(trainer.logger.metrics) == 2
     for metric, x, y, pred in trainer.logger.metrics:
@@ -140,8 +149,9 @@ def test_validate_checkpoint_cli(trained):
     trainer, _ = trained
     code = ("import sys; sys.argv = ['validate_checkpoint', '-p', sys.argv[1], '-g', 'cpu']\n"
             "from torch_em_tpu_torch.utils.validation import main\nmain()\nprint('validated')\n")
-    # the checkpoint names this module's label transform and loss
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    # the checkpoint names this module's label transform and loss; the module imports the JAX
+    # package only inside the tests that compare with it, so that this process need not load it
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code, trainer.checkpoint_folder], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr
@@ -152,6 +162,8 @@ def test_validate_checkpoint_cli(trained):
                                     dict(spatial_shape=(32, 32), with_channels=True, with_background=True,
                                          dtype="int64")])
 def test_make_gt(kwargs):
+    from torch_em_tpu.utils import test as jax_test
+
     np.random.seed(5)
     got = port_test.make_gt(**kwargs)
     np.random.seed(5)
@@ -161,6 +173,8 @@ def test_make_gt(kwargs):
 
 
 def test_test_data_writers(tmp_path):
+    from torch_em_tpu.utils import test as jax_test
+
     for side, module in (("port", port_test), ("jax", jax_test)):
         np.random.seed(3)
         module.create_segmentation_test_data(str(tmp_path / f"{side}.h5"), "raw", "labels", (8, 16, 16), (4, 8, 8))
