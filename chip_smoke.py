@@ -74,11 +74,23 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    ``mutex_watershed_segmentation`` (timed, non-empty), decodes the exact
    targets of the same ground-truth crop (VOI < 0.05, adapted Rand error <
    0.01 against it), and runs ``validate_checkpoint`` on the card with the
-   VOI of the decode of one sample as its metric.
+   VOI of the decode of one sample as its metric;
+11. the SPOCO recipe (``experiments/spoco/train_spoco_dsb.py``):
+   ``SPOCOTrainer`` (momentum 0.999) trains ``UNet2d(1, 8, initial_features=32)``
+   embeddings in bf16 at batch 8 of 256x256 with ``SPOCOLoss`` and the
+   ``ContrastiveLoss`` metric on phase 9's images through
+   ``default_segmentation_loader`` with ``connected_components`` labels, 16
+   iterations and 4 more after ``from_checkpoint`` (model2 restored bitwise);
+   holds one EMA update on the card against the CPU; times the loader, the
+   bare step and the loss, and breaks the step and the loss down with the
+   profiler; predicts the embeddings of 4 images on the card and grid-searches
+   their embedding mutex watershed on the host (2 deltas x 2 sizes); then
+   runs UNet2d and UNet3d with each of the other norms in bf16 on the card
+   against the CPU.
 
-Phases 3 and 5 also hold both kernels at the DSB step's shapes (batch 8,
-rows 8 x C from 8 x 1 to 8 x 1024, 65536 down to 256 elements), and phase 5
-times them there. Phase 3 also holds the forward kernel at the SNEMI
+Phases 3 and 5 also hold both kernels at the DSB and SPOCO steps' shapes
+(batch 8, rows 8 x C from 8 x 1 to 8 x 1024 and 8 x 512, 65536 down to 256
+elements), and phase 5 times them there. Phase 3 also holds the forward kernel at the SNEMI
 recipe's serving blocks (40x320x320 with the halo) and validation blocks
 (24x192x192), whose norms phase 10 launches.
 
@@ -164,6 +176,29 @@ SNEMI_DECODE = (32, 256, 256)
 SNEMI_VALIDATE, SNEMI_VALIDATE_BLOCK = (16, 128, 128), (16, 128, 128)
 # mutex watershed of the exact affinity targets of a ground-truth crop against that ground truth
 ORACLE_VOI, ORACLE_ARE = 0.05, 0.01
+# the SPOCO recipe (phase 11): experiments/spoco/train_spoco_dsb.py, 8-dim embeddings, the DSB data and
+# batch; decoded with the embedding mutex watershed of experiments/parity/train_spoco2d.py
+SPOCO_MODEL = dict(in_channels=1, out_channels=8, initial_features=32)
+SPOCO_DEPTH, SPOCO_FIT, SPOCO_RESUME, SPOCO_MOMENTUM = 4, 16, 4, 0.999
+SPOCO_LOSS = dict(delta_var=0.75, delta_dist=2.0)
+SPOCO_OFFSETS = [[-1, 0], [0, -1], [-3, 0], [0, -3], [-9, 0], [0, -9]]
+SPOCO_DECODE_IMAGES, SPOCO_GRID = 4, {"delta": [1.5, 2.0], "min_seg_size": [50, 100]}
+# one EMA update of model2 on the card against t * m + s * (1 - m) on the CPU from the same float32
+# tensors: the card may fuse a multiply-add, one rounding step apart
+EMA_RTOL, EMA_ATOL = 1e-6, 1e-7
+# the other norms (phase 11), each in a UNet2d and a UNet3d (16 features, two levels, batch 2: GroupNorm
+# takes groups of 2 channels at the base, BatchNorm sums over the batch), in training mode from the same
+# weights and input, on the card in bfloat16 and in float32 (TF32 off), on the CPU in bfloat16, float32
+# and float64. Errors are relative L2 from float64 on the CPU, over the output, and over all parameter
+# gradients together. Some gradients are sums with cancellation, and no fixed bound fits them: the CPU's
+# own float32 gradients of UNet3d with BatchNorm lie 3.3e-3 from float64 (one tensor 4.5%), its bf16
+# ones 5-9% (single tensors 10-35%); the first calls on the card held single tensors to bounds of their
+# own and failed there (the first norm's scale, a sum over 8192 products: 0.96 of its norm off in bf16
+# on the card against 0.17 on the CPU) and then a fixed 1e-3 in float32 (3.3e-3 on the card, as on the
+# CPU). So, as phase 6 holds its kernels, the card in each dtype within 4x the CPU's error in that dtype,
+# plus 1e-5 (float32) or 2% (bfloat16). A wrong norm, forward or backward, moves either by its own size.
+NORM_VARIANTS = ("InstanceNormTrackStats", "GroupNorm", "BatchNorm")
+VARIANT_FACTOR, VARIANT_SLACK = 4.0, {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
 # gradients of this model are themselves inexact in the deep levels on either
@@ -361,8 +396,8 @@ def dsb_paths(inorm, dsb_shapes, dtype, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes):
-    """Check the forward kernel at every main-path shape (the DSB step's at batch
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes):
+    """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, and the SNEMI recipe's serving and validation blocks, ``snemi_shapes``
     {name: shapes}) and time it at the serving path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -384,11 +419,13 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes):
         for x in layout_cases(rand, dtype):
             max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference, x))
         log(f"  norm {dtype}: ragged, odd-length, misaligned, strided and channels-last inputs agree")
-        for c, sp in sorted(set(dsb_shapes)):
-            err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference, rand((DSB_BATCH, c) + sp, dtype))
-            max_err = max(max_err, err)
-            log(f"  norm {dtype} DSB ({DSB_BATCH}, {c}) {sp} path "
-                f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+        for recipe, batch_shapes in (("DSB", dsb_shapes), ("SPOCO", spoco_shapes)):
+            for c, sp in sorted(set(batch_shapes)):
+                err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
+                                   rand((DSB_BATCH, c) + sp, dtype))
+                max_err = max(max_err, err)
+                log(f"  norm {dtype} {recipe} ({DSB_BATCH}, {c}) {sp} path "
+                    f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "forward").items()]
@@ -434,6 +471,8 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes):
                   "training": path_counts(inorm, train_shapes, torch.bfloat16, "forward"),
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes],
                                               torch.bfloat16, "forward"),
+                  "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes],
+                                                torch.bfloat16, "forward"),
                   **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in snemi_shapes.items()}},
     }
 
@@ -627,9 +666,9 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes):
-    """Check the backward kernel at every main-path shape (the DSB step's at batch
-    DSB_BATCH) and time both kernels at the two training paths' shapes.
+def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes):
+    """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
+    DSB_BATCH) and time both kernels at the three training paths' shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
@@ -659,12 +698,13 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes):
         max_err = max(max_err, check_backward(inorm, rand(g.shape, dtype), g))
         log(f"  backward {dtype}: ragged, odd-length, misaligned, strided, channels-last and "
             f"non-contiguous-gradient cases agree")
-        for c, sp in sorted(set(dsb_shapes)):
-            shape = (DSB_BATCH, c) + sp
-            err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
-            max_err = max(max_err, err)
-            log(f"  backward {dtype} DSB {shape[:2]} {sp} path "
-                f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+        for recipe, batch_shapes in (("DSB", dsb_shapes), ("SPOCO", spoco_shapes)):
+            for c, sp in sorted(set(batch_shapes)):
+                shape = (DSB_BATCH, c) + sp
+                err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
+                max_err = max(max_err, err)
+                log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
+                    f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "backward").items()]
@@ -681,6 +721,7 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes):
 
     fwd, bwd = time_step_norms(inorm, rand, shapes, 1, "tracked")
     dsb_fwd, dsb_bwd = time_step_norms(inorm, rand, dsb_shapes, DSB_BATCH, "DSB")
+    spoco_fwd, spoco_bwd = time_step_norms(inorm, rand, spoco_shapes, DSB_BATCH, "SPOCO")
     for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
                        f"C={c} {sp}")
@@ -701,9 +742,12 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes):
         "library_ms": bwd["library_ms"],
         "paths": {"training": path_counts(inorm, step_shapes, torch.bfloat16, "backward"),
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes[1:]],
-                                              torch.bfloat16, "backward")},
+                                              torch.bfloat16, "backward"),
+                  "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes[1:]],
+                                                torch.bfloat16, "backward")},
         "dsb_training": dsb_bwd,
-    }, fwd, dsb_fwd
+        "spoco_training": spoco_bwd,
+    }, fwd, dsb_fwd, spoco_fwd
 
 
 def time_step_norms(inorm, rand, shapes, batch, label):
@@ -957,10 +1001,12 @@ def check_training_gradients(port, inorm, x, y):
         f"{max(r[3] for r in rows if r[3] < 1):.3g}")
 
 
-def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_patches, label):
-    """Fit, rebuild with ``from_checkpoint``, fit on; check iteration counts, a finite and
-    falling loss, the checkpoints and both kernels' launches (counted from 0 here).
-    Returns the resumed trainer, the launches and the first fit's wall seconds."""
+def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_patches, label, forwards=1,
+                   check_resumed=None):
+    """Fit, rebuild with ``from_checkpoint`` (then ``check_resumed(resumed)``), fit on; check
+    iteration counts, a finite and falling loss, the checkpoints and both kernels' launches
+    (counted from 0 here; ``forwards`` model forwards per step and validation batch).
+    Returns the resumed trainer and the launches."""
     folder = trainer.checkpoint_folder
     torch.cuda.synchronize()
     inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
@@ -971,6 +1017,8 @@ def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_
     resumed = port.DefaultTrainer.from_checkpoint(folder, "latest")
     if resumed.iteration != fit_iterations:
         raise AssertionError(f"{label}: from_checkpoint restored iteration {resumed.iteration}")
+    if check_resumed is not None:
+        check_resumed(resumed)
     resumed.fit(iterations=resume_iterations)
     torch.cuda.synchronize()
     launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
@@ -978,7 +1026,7 @@ def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_
     if trainer.iteration != fit_iterations or resumed.iteration != steps:
         raise AssertionError(f"{label}: iterations {trainer.iteration}, resumed {resumed.iteration}")
     validations = len(trainer.logger.metrics) + len(resumed.logger.metrics)
-    expected = (NORMS_PER_FORWARD * (steps + val_patches * validations), (NORMS_PER_FORWARD - 1) * steps)
+    expected = (forwards * NORMS_PER_FORWARD * (steps + val_patches * validations), (NORMS_PER_FORWARD - 1) * steps)
     log(f"{label}: launches forward {launches[0]}, backward {launches[1]} for {steps} steps and "
         f"{validations} validations of {val_patches} patch(es) (expected {expected})")
     if launches != expected:
@@ -1400,6 +1448,191 @@ def phase_snemi(port, inorm, device_ops):
     return training[0] + serving + validation, training[1]
 
 
+def phase_spoco(port, inorm):
+    """The SPOCO recipe at full width: ``SPOCOTrainer`` with its EMA network trains UNet2d
+    embeddings with ``SPOCOLoss`` on the DSB images, resumes from its checkpoint (model2
+    restored bitwise), holds one EMA update against the CPU, times the step, the loader and
+    the loss, then predicts the embeddings of images on the card and grid-searches their
+    embedding mutex watershed on the host. Returns the kernels' launches of its training and
+    prediction."""
+    from torch_em_tpu_torch.loss import ContrastiveLoss, SPOCOLoss
+    from torch_em_tpu_torch.metric.instance_segmentation_metric import EmbeddingMWS
+    from torch_em_tpu_torch.trainer import SPOCOTrainer
+    from torch_em_tpu_torch.transforms import connected_components
+    from torch_em_tpu_torch.utils.grid_search import instance_segmentation_grid_search
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_files, label_files = dsb_images(tmp)
+
+        def loader(n_samples, shuffle=True):
+            return port.default_segmentation_loader(
+                raw_files, None, label_files, None, batch_size=DSB_BATCH, patch_shape=DSB_PATCH, ndim=2,
+                is_seg_dataset=False, label_transform=connected_components, label_dtype="int32",
+                num_workers=LOADER_THREADS, shuffle=shuffle, n_samples=n_samples)
+
+        np.random.seed(4)
+        model = port.UNet2d(**SPOCO_MODEL, depth=SPOCO_DEPTH, device="cuda", seed=0)
+        trainer = SPOCOTrainer(
+            name="spoco", model=model, train_loader=loader(DSB_BATCH * SPOCO_FIT),
+            val_loader=loader(DSB_BATCH, False), loss=SPOCOLoss(**SPOCO_LOSS), metric=ContrastiveLoss(**SPOCO_LOSS),
+            optimizer=port.OptimizerSpec("adamw", lr=LEARNING_RATE), momentum=SPOCO_MOMENTUM, mixed_precision=True,
+            device="cuda", logger=LossLog, save_root=tmp)
+
+        def model2_restored(resumed):
+            saved = trainer.model2.state_dict()
+            restored = resumed.model2.state_dict()
+            if not (type(resumed) is SPOCOTrainer and resumed.momentum == SPOCO_MOMENTUM
+                    and restored.keys() == saved.keys() and all(torch.equal(restored[k], saved[k]) for k in saved)):
+                raise AssertionError("from_checkpoint did not restore model2 bitwise")
+            if all(torch.equal(restored[k], resumed.model.state_dict()[k]) for k in saved):
+                raise AssertionError("model2 equals the model: the moving average did not trail it")
+            log(f"SPOCO: from_checkpoint restored model2 bitwise ({len(saved)} tensors), a moving average "
+                f"that trails the model")
+
+        resumed, launches = fit_and_resume(port, inorm, trainer, SPOCO_FIT, SPOCO_RESUME, 1, "SPOCO recipe",
+                                           forwards=2, check_resumed=model2_restored)
+        check_ema(resumed, stats)
+
+        rate = loader_rate(resumed, loader(DSB_BATCH * (LOADER_STEPS + 2)), steps=LOADER_STEPS)
+        stats["loader_patches_per_s"] = rate
+        log(f"SPOCO loader, {LOADER_THREADS} threads, connected_components, feeding steps: {rate:.2f} patches/s "
+            f"({rate / DSB_BATCH:.2f} batches/s)")
+        x, y = bare_step(resumed, loader(DSB_BATCH, False), "SPOCO")
+        stats["step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=3)
+        stats["step"] = device_breakdown("SPOCO training step (bf16 forwards of both networks, backward, AdamW, EMA)",
+                                         lambda: resumed._train_step(x, y))
+        with resumed._compute_precision():
+            with torch.no_grad():
+                pred2 = resumed.model2(x)
+            pred = resumed.model(x).detach().requires_grad_()
+        if not (pred.dtype == pred2.dtype == torch.float32 and tuple(pred.shape) == (DSB_BATCH, 8) + DSB_PATCH[1:]):
+            raise AssertionError(f"SPOCO predictions {pred.dtype} {tuple(pred.shape)}")
+
+        def loss_step():
+            resumed.loss((pred, pred2), y, generator=resumed.generator).backward()
+
+        stats["loss_ms"] = time_ms(loss_step, iters=10, repeats=3)
+        stats["loss"] = device_breakdown("SPOCO loss forward and backward (float32, batch 8)", loss_step)
+        log(f"SPOCO step {stats['step_ms']:.2f} ms as called: the loss's forward and backward {stats['loss_ms']:.2f} "
+            f"ms ({stats['loss_ms'] / stats['step_ms']:.1%}), its device kernels {stats['loss']['device_ms']:.2f} ms "
+            f"({stats['loss']['device_ms'] / stats['step']['device_ms']:.1%} of the step's); the norms "
+            f"{stats['step']['norm_ms']:.2f} ms ({stats['step']['norm_ms'] / stats['step']['device_ms']:.1%})")
+        del x, y, pred, pred2
+
+        network = resumed.model.eval()
+
+        class Segmenter:
+            """Embeddings predicted on the card; the embedding mutex watershed on the host."""
+
+            def initialize(self, image):
+                self.emb = port.predict_with_padding(network, image, min_divisible=(16, 16))[0]
+                if not (self.emb.shape == (8,) + image.shape and np.isfinite(self.emb).all()):
+                    raise AssertionError(f"SPOCO embeddings {self.emb.shape}, finite {np.isfinite(self.emb).all()}")
+
+            def generate(self, delta, min_seg_size):
+                return EmbeddingMWS(delta, SPOCO_OFFSETS, with_background=True, min_seg_size=min_seg_size)(self.emb)
+
+        images, gts = raw_files[:SPOCO_DECODE_IMAGES], label_files[:SPOCO_DECODE_IMAGES]
+        torch.cuda.synchronize()
+        inorm.instance_norm.launches = 0
+        t = time.perf_counter()
+        best, score = instance_segmentation_grid_search(Segmenter(), images, gts, os.path.join(tmp, "grid"),
+                                                        SPOCO_GRID)
+        seconds = time.perf_counter() - t
+        torch.cuda.synchronize()
+        predicted = inorm.instance_norm.launches
+        segmenter = Segmenter()
+        segmenter.initialize(np.load(images[0]))
+        t = time.perf_counter()
+        seg = segmenter.generate(**best)
+        decode_s = time.perf_counter() - t
+        n_settings = int(np.prod([len(v) for v in SPOCO_GRID.values()]))
+        stats["grid_search"] = {"best": best, "score": score, "s_per_image": seconds / len(images),
+                                "decode_s": decode_s, "pixels": int(seg.size)}
+        log(f"SPOCO grid search over {SPOCO_GRID} on {len(images)} images (embeddings predicted on the card, "
+            f"{predicted} norm launches): best {best}, accuracy {score:.4f}; {seconds / len(images):.2f} s per "
+            f"image for {n_settings} decodes, one decode of {seg.shape} {decode_s:.3f} s on the host "
+            f"({seg.size / decode_s / 1e6:.3f} Mpix/s), {len(np.unique(seg)) - 1} segments")
+        tables = sorted(os.listdir(os.path.join(tmp, "grid")))
+        if not (0 <= score <= 1 and predicted == NORMS_PER_FORWARD * len(images) and len(tables) == len(images) + 1):
+            raise AssertionError(f"grid search: score {score}, {predicted} norm launches, tables {tables}")
+        log(f"SPOCO: {json.dumps(stats)}")
+        del trainer, resumed, model, network
+    torch.cuda.empty_cache()
+    return launches[0] + predicted, launches[1]
+
+
+def check_ema(trainer, stats):
+    """One EMA update of ``trainer.model2`` on the card against t * m + s * (1 - m) on the CPU."""
+    m = trainer.momentum
+    before = {k: v.detach().cpu().clone() for k, v in trainer.model2.state_dict().items()}
+    source = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    trainer.ema_update()
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, value in trainer.model2.state_dict().items():
+        expected = before[name] * m + source[name] * (1.0 - m)
+        got = value.cpu()
+        if not torch.allclose(got, expected, rtol=EMA_RTOL, atol=EMA_ATOL):
+            raise AssertionError(f"EMA update of {name} on the card differs from the CPU's")
+        err = max(err, float((got - expected).abs().max()))
+    stats["ema_ms"] = time_ms(trainer.ema_update, iters=10, repeats=3)
+    log(f"EMA update on the card of {len(before)} tensors: max abs err {err:.3g} against the CPU (rtol "
+        f"{EMA_RTOL}, atol {EMA_ATOL}); {stats['ema_ms']:.3f} ms as called")
+
+
+def _relative_l2(got, expected, names):
+    """L2 distance of the tensors ``names`` of ``got`` from ``expected``, over their L2 norm, all together."""
+    dist = sum(float((got[n] - expected[n]).double().norm()) ** 2 for n in names)
+    return (dist / sum(float(expected[n].double().norm()) ** 2 for n in names)) ** 0.5
+
+
+def phase_norm_variants(port, card="cuda"):
+    """UNet2d and UNet3d with each of the other norms: forward and backward on the card in bfloat16
+    and float32 against the same model on the CPU, each held to float64 on the CPU, in training
+    mode, from the same weights and input."""
+    rows = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for factory, shape in ((port.UNet2d, (2, 1, 64, 64)), (port.UNet3d, (2, 1, 16, 32, 32))):
+            x = torch.from_numpy(np.random.default_rng(5).normal(0.5, 1.0, size=shape).astype(np.float32))
+            for norm in NORM_VARIANTS:
+                runs = {}
+                for where, device, dtype in (("card", card, torch.bfloat16), ("card", card, torch.float32),
+                                             ("cpu", "cpu", torch.bfloat16), ("cpu", "cpu", torch.float32),
+                                             ("cpu", "cpu", torch.float64)):
+                    model = factory(1, 2, depth=2, initial_features=16, norm=norm, dtype=dtype, device=device, seed=1)
+                    if dtype == torch.float64:
+                        model.double()
+                    model.train()
+                    out = model(x.to(device, torch.float64 if dtype == torch.float64 else torch.float32))
+                    ((out - 1.0) ** 2).mean().backward()
+                    run = {"output": out.detach().double().cpu(),
+                           **{n: p.grad.double().cpu() for n, p in model.named_parameters()}}
+                    if not all(bool(torch.isfinite(v).all()) for v in run.values()):
+                        raise AssertionError(f"{factory.__name__} norm={norm} on the {where} in {dtype}: not finite")
+                    runs[(where, dtype)] = run
+                ref = runs[("cpu", torch.float64)]
+                parts = {"output": ["output"], "gradients": [n for n in ref if n != "output"]}
+                row = {}
+                for dtype in (torch.float32, torch.bfloat16):
+                    for what, names in parts.items():
+                        on_card, on_cpu = (_relative_l2(runs[(where, dtype)], ref, names) for where in ("card", "cpu"))
+                        limit = VARIANT_FACTOR * on_cpu + VARIANT_SLACK[dtype]
+                        row[f"{str(dtype)[6:]} {what}"] = (float(f"{on_card:.3g}"), float(f"{on_cpu:.3g}"))
+                        if not on_card <= limit:
+                            raise AssertionError(f"{factory.__name__} norm={norm}: {what} in {dtype} on the card "
+                                                 f"{on_card:.3g} (L2) from float64, on the CPU {on_cpu:.3g}, "
+                                                 f"limit {limit:.3g}")
+                rows.append((factory.__name__, norm, row))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"other norms, relative L2 from float64 on the CPU (card, CPU): {rows} (limits: {VARIANT_FACTOR}x the "
+        f"CPU's + {VARIANT_SLACK[torch.float32]} in float32, + {VARIANT_SLACK[torch.bfloat16]} in bfloat16)")
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -1435,18 +1668,20 @@ def main():
         shapes = tracked_shapes(BLOCK_SHAPE, HALO)
         train_shapes = tracked_shapes(TRAIN_PATCH)
         dsb_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * DSB_DEPTH, DSB_MODEL["initial_features"])
+        spoco_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * SPOCO_DEPTH, SPOCO_MODEL["initial_features"])
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
-        assert all(len(s) == NORMS_PER_FORWARD for s in (shapes, train_shapes, dsb_shapes, *snemi_shapes.values()))
-        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes)
+        assert all(len(s) == NORMS_PER_FORWARD
+                   for s in (shapes, train_shapes, dsb_shapes, spoco_shapes, *snemi_shapes.values()))
+        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
-        backward, forward["training"], forward["dsb_training"] = phase_backward_kernel(
-            inorm, train_shapes, shapes, dsb_shapes)
+        backward, forward["training"], forward["dsb_training"], forward["spoco_training"] = phase_backward_kernel(
+            inorm, train_shapes, shapes, dsb_shapes, spoco_shapes)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm, device_ops)
@@ -1462,11 +1697,15 @@ def main():
 
         log("phase 10: the SNEMI recipe, affinities and the mutex watershed")
         snemi_fwd, snemi_bwd = phase_snemi(port, inorm, device_ops)
-        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd
+
+        log("phase 11: the SPOCO recipe, embeddings, the EMA network and the grid search; the other norms")
+        spoco_fwd, spoco_bwd = phase_spoco(port, inorm)
+        phase_norm_variants(port)
+        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
-            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI; backward kernel launches: {train_bwd} training + "
-            f"{recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI")
+            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO; backward kernel launches: "
+            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO")
     except Exception:
         traceback.print_exc()
         log("FAILED")

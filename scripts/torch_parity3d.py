@@ -166,21 +166,23 @@ def train_boundary(paths, seed, iterations, device, out):
             "iterations": trainer.iteration}
 
 
+def affinity_loader(files, n_samples):
+    """The affinity probe's loader over ``files`` [(raw, labels, boundaries) paths]: random patches
+    with the default augmentations and the affinity targets, as ``train_affinity3d.py``'s."""
+    trafo = AffinityTransform(offsets=AFFINITY_OFFSETS, add_binary_target=True, add_mask=True)
+    return port.default_segmentation_loader(
+        [r for r, _, _ in files], None, [lab for _, lab, _ in files], None, batch_size=1, patch_shape=PATCH,
+        ndim=3, label_transform2=trafo, label_dtype="float32", n_samples=n_samples)
+
+
 def train_affinity(paths, seed, iterations, device, out):
     train, val = paths["train"], paths["val"]
-    trafo = AffinityTransform(offsets=AFFINITY_OFFSETS, add_binary_target=True, add_mask=True)
     loss = LossWrapper(DiceLoss(), transform=ApplyAndRemoveMask())
-
-    def loader(files, n_samples):
-        return port.default_segmentation_loader(
-            [r for r, _, _ in files], None, [lab for _, lab, _ in files], None, batch_size=1, patch_shape=PATCH,
-            ndim=3, label_transform2=trafo, label_dtype="float32", n_samples=n_samples)
-
     model = port.AnisotropicUNet(in_channels=1, out_channels=1 + len(AFFINITY_OFFSETS), initial_features=8,
                                  scale_factors=SCALE_FACTORS, final_activation="Sigmoid", device=device, seed=seed)
     trainer = port.default_segmentation_trainer(
-        f"parity-affinity-s{seed}", model, loader(train, SAMPLES_PER_EPOCH), loader(val, 8), loss=loss,
-        metric=loss, learning_rate=1e-4, device=device, save_root=out)
+        f"parity-affinity-s{seed}", model, affinity_loader(train, SAMPLES_PER_EPOCH), affinity_loader(val, 8),
+        loss=loss, metric=loss, learning_rate=1e-4, device=device, save_root=out)
     trainer.fit(iterations=iterations)
     trainer.load_checkpoint("best")
     preds = predict_crops(trainer.model, val, device)

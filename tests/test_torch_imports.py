@@ -1,14 +1,16 @@
 """The port imports nothing of JAX, flax or the JAX package.
 
 The machine with the card has PyTorch, numpy and scipy but none of jax,
-flax, optax, h5py, tqdm, PIL, imageio, sklearn or napari. Here most of them
-are installed, so a subprocess blocks them (``sys.modules[name] = None``
-makes an import raise) before it imports every module of the port,
-``chip_smoke`` and ``scripts/torch_parity3d.py``, and reads an HDF5 path and
-a PNG file, writes HDF5 test data, clusters with ``HDBScan`` and shows a
-validation sample, which must raise an ImportError that names h5py, PIL,
-sklearn and napari. Those packages may be imported inside a function, never
-at module level. The native host library builds under
+flax, optax, h5py, tqdm, PIL, imageio, sklearn, napari, pandas,
+tensorboardX, tensorboard or wandb. Here most of them are installed, so a
+subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
+before it imports every module of the port, ``chip_smoke`` and the probe
+scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
+reads an HDF5 path and a PNG file, writes HDF5 test data, clusters with
+``HDBScan``, shows a validation sample and builds the tensorboard and wandb
+loggers, which must raise an ImportError that names h5py, PIL, sklearn,
+napari, tensorboardX and wandb. Those packages may be imported inside a
+function, never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -25,7 +27,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "torch_em_tpu")
+BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
+           "tensorboard", "wandb", "torch_em_tpu")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -39,13 +42,19 @@ import chip_smoke
 assert callable(chip_smoke.main)
 import runpy
 runpy.run_path("scripts/torch_parity3d.py", run_name="probe")
+runpy.run_path("scripts/torch_spoco2d.py", run_name="probe")
+import types
 import numpy as np
 from torch_em_tpu_torch.metric import HDBScan
+from torch_em_tpu_torch.trainer import TensorboardLogger, WandbLogger
 from torch_em_tpu_torch.utils import io, test, validation
+trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
 for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "raw", "labels", (4, 4), (2, 2)),
                        "h5py"),
                       (lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
-                      (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari")):
+                      (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
+                      (lambda: TensorboardLogger(trainer, None), "tensorboardX"),
+                      (lambda: WandbLogger(trainer, None), "wandb")):
     try:
         call()
     except ImportError as e:
@@ -71,7 +80,7 @@ print(len(names))
 
 def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / "torch_parity3d.py"]
+        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_spoco2d.py")]
 
 
 def test_port_imports_with_jax_stack_blocked():
@@ -88,8 +97,10 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|tqdm|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL, imageio, sklearn and napari only inside the functions that need them
-    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari)\b", text, flags=re.MULTILINE)
+    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard and wandb only inside the functions
+    # that need them
+    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb)",
+                         text, flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

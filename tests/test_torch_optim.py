@@ -1,7 +1,8 @@
 """The port's optimizer specs and plateau scheduler against the JAX package's.
 
 ``OptimizerSpec`` builds an optax transformation in the JAX package and a
-``torch.optim`` optimizer in the port; the same spec must give the same
+``torch.optim`` optimizer in the port (torch's own, or the port's copy of
+optax's rule for rmsprop, adagrad, lamb and lion); the same spec must give the same
 parameters after k steps on the same parameters and gradients (seeded numpy
 arrays). Tolerance: atol 1e-6 on O(1) parameters; the update formulas are
 the same up to the order of float32 operations, and a step moves a
@@ -34,6 +35,18 @@ SPECS = {
     "sgd": ("sgd", dict(lr=1e-2)),
     "sgd_momentum": ("sgd", dict(lr=1e-2, momentum=0.9)),
     "adamw_clip": ("adamw", dict(lr=1e-3, grad_clip=0.5)),
+    # optax's own rules, which torch's optimizers of these names do not follow
+    "rmsprop": ("rmsprop", dict(lr=1e-3)),
+    "rmsprop_centered_momentum": ("rmsprop", dict(lr=1e-3, centered=True, momentum=0.9)),
+    "rmsprop_bias_correction": ("rmsprop", dict(lr=1e-3, decay=0.8, bias_correction=True)),
+    "rmsprop_nesterov_eps_outside": ("rmsprop", dict(lr=1e-3, momentum=0.5, nesterov=True, eps_in_sqrt=False,
+                                                     initial_scale=1.0)),
+    "adagrad": ("adagrad", dict(lr=1e-2)),
+    "adagrad_zero_start": ("adagrad", dict(lr=1e-2, initial_accumulator_value=0.0, eps=1e-5)),
+    "lamb": ("lamb", dict(lr=1e-3)),
+    "lamb_decay": ("lamb", dict(lr=1e-3, weight_decay=0.1, b1=0.8)),
+    "lion": ("lion", dict(lr=1e-3)),
+    "lion_clip": ("lion", dict(lr=1e-4, b2=0.9, weight_decay=0.1, grad_clip=0.5)),
 }
 
 
@@ -78,8 +91,33 @@ def test_adamw_takes_optax_defaults():
 
 @pytest.mark.parametrize("name", ["rmsprop", "lamb"])
 def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OptimizerSpec(name)
+    """These raised NotImplementedError until they were ported; now they build the port's own
+    optimizer with optax's defaults (their steps: ``test_steps_match_optax``), and an unknown
+    name raises."""
+    optimizer = OptimizerSpec(name, lr=1e-3).build([torch.nn.Parameter(torch.zeros(2))])
+    assert type(optimizer).__name__ == {"rmsprop": "OptaxRMSProp", "lamb": "OptaxLamb"}[name]
+    assert optimizer.param_groups[0]["eps"] == {"rmsprop": 1e-8, "lamb": 1e-6}[name]
+    with pytest.raises(ValueError, match="Unknown optimizer"):
+        OptimizerSpec(name + "x")
+
+
+def test_ported_optimizers_resume_from_state_dict():
+    """An optimizer rebuilt from its ``state_dict`` (as a checkpoint resume does) takes the same steps."""
+    params, grads = _params_and_grads(1)
+    runs = []
+    for split in (None, 2):
+        torch_params = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+        optimizer = OptimizerSpec("lamb", lr=1e-3, weight_decay=0.1).build(torch_params)
+        for k, g in enumerate(grads):
+            if k == split:
+                state = optimizer.state_dict()
+                optimizer = OptimizerSpec("lamb", lr=1e-3, weight_decay=0.1).build(torch_params)
+                optimizer.load_state_dict(state)
+            for p, gi in zip(torch_params, g):
+                p.grad = torch.from_numpy(gi.copy())
+            optimizer.step()
+        runs.append([p.detach().clone() for p in torch_params])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 SCHEDULES = {

@@ -89,3 +89,76 @@ def test_probe_runs_on_the_cpu(mode, tmp_path):
             assert len(run["per_volume"]) == 2 and np.isfinite(run["mean_voi"]) and 0 <= run["mean_f1"] <= 1
             assert all(v["n_pred_instances"] > 0 for v in run["per_volume"])
         assert summary["mean_voi"]["n"] == 2 and "one_sample_t" in summary["mean_f1_vs_jax"]
+
+
+def test_affinity_validation_patches_match_jax(tmp_path):
+    """ROADMAP Queue 3 item 7, first suspect: the affinity probe's validation patches. With the
+    same ``np.random`` state, the port's val loader draws the same 8 crops with the same targets
+    as ``train_affinity3d.py``'s over the tracked files, and both draw new ones at every
+    validation. The default flips are left out of the comparison: each package draws them from
+    its own pipeline's generator (their application on shared parameters is held in
+    ``tests/test_torch_augmentation.py``)."""
+    import torch_em_tpu as te
+    from torch_em_tpu.transforms.label import AffinityTransform as JaxAffinityTransform
+
+    paths = probe.make_data(str(tmp_path))
+    tracked = sorted(glob(os.path.join(PARITY, "parity_data3d", "val", "vol*.h5")))
+    jax_loader = te.default_segmentation_loader(
+        tracked, "raw", tracked, "labels", batch_size=1, patch_shape=probe.PATCH, ndim=3, label_dtype="float32",
+        label_transform2=JaxAffinityTransform(offsets=probe.AFFINITY_OFFSETS, add_binary_target=True,
+                                              add_mask=True), n_samples=8)
+    loader = probe.affinity_loader(paths["val"], 8)
+    for ds in jax_loader.dataset.datasets + loader.dataset.datasets:
+        assert type(ds.transform).__name__ == "AugmentationPipeline"
+        ds.transform = None
+    epochs = []
+    for epoch in range(2):
+        np.random.seed(100 + epoch)
+        expected = [(np.asarray(x), np.asarray(y)) for x, y in jax_loader]
+        np.random.seed(100 + epoch)
+        got = [(x.numpy(), y.numpy()) for x, y in loader]
+        assert len(got) == len(expected) == 8
+        for (x, y), (ex, ey) in zip(got, expected):
+            np.testing.assert_array_equal(y, ey)
+            # raw regenerated within 1e-6 of the files, then standardized per patch
+            np.testing.assert_allclose(x, ex, rtol=0, atol=1e-4)
+        epochs.append(got)
+    assert not any(np.array_equal(a[1], b[1]) for a, b in zip(*epochs))
+
+
+def test_best_checkpoint_choice_matches_jax(tmp_path):
+    """ROADMAP Queue 3 item 7, second suspect: which checkpoint counts as best. Both trainers,
+    fed the same sequence of validation metrics (ties and a later minimum included), keep the
+    same epoch as best, and ``load_checkpoint("best")`` restores the same iteration."""
+    import jax  # noqa: F401
+    import torch_em_tpu as te
+    from torch_em_tpu.data.loader import DataLoader as JaxDataLoader
+    from torch_em_tpu.data.segmentation_dataset import SegmentationDataset as JaxSegmentationDataset
+    from torch_em_tpu.models.unet import AnisotropicUNet as JaxAnisotropicUNet
+
+    import torch_em_tpu_torch as port
+
+    metrics = [0.5, 0.4, 0.45, 0.4, 0.3, 0.35, 0.3]
+    raw = np.random.default_rng(0).normal(size=(8, 32, 32)).astype(np.float32)
+    labels = (raw > 0).astype(np.float32)
+    model_kwargs = dict(in_channels=1, out_channels=1, scale_factors=[[1, 2, 2]], initial_features=2,
+                        final_activation="Sigmoid")
+    results = []
+    for side in ("jax", "port"):
+        if side == "jax":
+            ds = JaxSegmentationDataset(raw, None, labels, None, patch_shape=(4, 16, 16), n_samples=1)
+            trainer = te.default_segmentation_trainer(
+                "best", JaxAnisotropicUNet(**model_kwargs), JaxDataLoader(ds), JaxDataLoader(ds), device="cpu",
+                mixed_precision=False, logger=None, save_root=str(tmp_path / side))
+        else:
+            ds = port.SegmentationDataset(raw, None, labels, None, patch_shape=(4, 16, 16), n_samples=1)
+            trainer = port.default_segmentation_trainer(
+                "best", port.AnisotropicUNet(**model_kwargs, device="cpu"), port.DataLoader(ds), port.DataLoader(ds),
+                device="cpu", mixed_precision=False, logger=None, save_root=str(tmp_path / side))
+        scripted = iter(metrics)
+        trainer._validate = lambda: next(scripted)
+        trainer.fit(iterations=len(metrics))
+        best_epoch = trainer._best_epoch
+        trainer.load_checkpoint("best")
+        results.append((best_epoch, trainer.iteration, trainer.best_metric))
+    assert results[0] == results[1] == (4, 5, 0.3)

@@ -104,8 +104,14 @@ def test_norm_none_layout_and_forward():
 
 @pytest.mark.parametrize("norm", ["GroupNorm", "BatchNorm", "InstanceNormTrackStats"])
 def test_unported_norms_raise(norm):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        UNet2d(1, 1, depth=1, initial_features=2, norm=norm, device="cpu")
+    """These norms raised NotImplementedError until they were ported; now they build, with their
+    affine parameters at torch-em's ``block.{0,3}``, and an unknown norm raises. Their parity
+    with the JAX package: ``tests/test_torch_norms.py``."""
+    state = UNet2d(1, 1, depth=1, initial_features=2, norm=norm, device="cpu").state_dict()
+    assert "encoder.blocks.0.block.0.weight" in state and "encoder.blocks.0.block.3.bias" in state
+    assert ("encoder.blocks.0.block.0.running_var" in state) == (norm != "GroupNorm")
+    with pytest.raises(ValueError, match="Invalid norm"):
+        UNet2d(1, 1, depth=1, initial_features=2, norm=norm + "X", device="cpu")
 
 
 def test_bfloat16_compute_keeps_float32_parameters():

@@ -3,9 +3,13 @@
 Counterpart of ``torch_em_tpu/models/unet.py``: the same encoder / base /
 decoder computation with channel-first (N, C, *spatial) tensors throughout.
 ``ConvBlock`` is two [norm -> conv (same padding) -> ReLU] stages with the
-parameter-free instance norm by default; the encoder max-pools; the decoder
-upsamples with a 1x1 conv followed by linear interpolation, concatenates the
-skip and runs a ``ConvBlock``. The JAX package's TPU layout work (width
+parameter-free instance norm by default (``norm`` may also be
+``"InstanceNormTrackStats"``, ``"GroupNorm"``, ``"BatchNorm"`` or None); the
+encoder max-pools; the decoder upsamples with a 1x1 conv followed by linear
+interpolation, concatenates the skip and runs a ``ConvBlock``. With
+``return_side_outputs`` every decoder level has its own output conv
+(``out_conv.<i>``, the deepest first) and the model returns a list of
+outputs, the full-resolution one first. The JAX package's TPU layout work (width
 packing, phase convs, the norm fold, the 2.5D mode) computes the same math
 and has no counterpart here.
 
@@ -15,7 +19,8 @@ and are cast to it at each use; the output is float32. A trainer with
 their arguments in ``model.init_kwargs`` and their import path in
 ``model.factory``, so a trainer checkpoint can rebuild the model. Parameter names
 follow torch-em's state-dict layout (``encoder.blocks.<i>.block.{1,4}``,
-``base.block.{1,4}``, ``decoder.samplers.<i>.conv``, ``out_conv``), so
+``base.block.{1,4}``, norms at ``block.{0,3}``, ``decoder.samplers.<i>.conv``,
+``out_conv``), so
 torch-em checkpoints load, and ``utils.convert`` carries JAX weights over.
 """
 
@@ -31,7 +36,8 @@ from .base import get_activation, resolve_device
 
 __all__ = [
     "UNet2d", "UNet3d", "AnisotropicUNet", "UNetModule", "POSTPROCESSING",
-    "AccumulateChannels", "ConvBlock", "Upsampler", "InstanceNorm",
+    "AccumulateChannels", "ConvBlock", "Upsampler", "InstanceNorm", "InstanceNormTrackStats",
+    "GroupNorm", "BatchNorm",
 ]
 
 
@@ -87,13 +93,110 @@ class InstanceNorm(nn.Module):
         return instance_norm(x)
 
 
-def _NormLayer(norm: str) -> nn.Module:
+def _norm_dtype(x):
+    """The dtype a norm computes in: float32, or float64 for a float64 input."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class _AffineNorm(nn.Module):
+    """Per-channel ``weight`` (ones) and ``bias`` (zeros) in float32; with ``running``, also
+    ``running_mean`` (zeros), ``running_var`` (ones) and torch's ``num_batches_tracked``.
+    The norm computes in float32 (float64 for a float64 input) and returns the input's
+    dtype, as the JAX package's."""
+
+    def __init__(self, channels: int, running: bool, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        if running:
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
+            self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def _channel(self, v, ndim):
+        return v.reshape((1, -1) + (1,) * (ndim - 2))
+
+    def _affine(self, xhat, dtype):
+        return (self._channel(self.weight, xhat.ndim) * xhat + self._channel(self.bias, xhat.ndim)).to(dtype)
+
+    def _running(self, xf):
+        return (xf - self._channel(self.running_mean, xf.ndim)) * torch.rsqrt(
+            self._channel(self.running_var, xf.ndim) + self.eps)
+
+    @torch.no_grad()
+    def _track(self, mean, var, momentum):
+        """running <- (1 - momentum) * running + momentum * observed."""
+        self.running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        self.running_var.mul_(1 - momentum).add_(var, alpha=momentum)
+        self.num_batches_tracked += 1
+
+
+class InstanceNormTrackStats(_AffineNorm):
+    """Affine instance norm with running statistics, torch's ``InstanceNorm*d(affine=True,
+    track_running_stats=True)``: in training each sample is normalized by its own statistics
+    and the running mean and unbiased variance move by ``momentum`` 0.1 towards the batch's
+    averages; in eval the running statistics normalize."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(channels, running=True, eps=eps)
+        self.momentum = momentum
+
+    def forward(self, x):
+        xf = x.to(_norm_dtype(x))
+        if not self.training:
+            return self._affine(self._running(xf), x.dtype)
+        axes = tuple(range(2, x.ndim))
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+        n = float(np.prod(x.shape[2:]))
+        self._track(mean.mean(0).reshape(-1), var.mean(0).reshape(-1) * (n / max(n - 1.0, 1.0)), self.momentum)
+        return self._affine((xf - mean) * torch.rsqrt(var + self.eps), x.dtype)
+
+
+class BatchNorm(_AffineNorm):
+    """Batch norm as flax's ``nn.BatchNorm(momentum=0.9)``, which the JAX package uses: in
+    training the batch's mean and biased variance normalize, and the running statistics move
+    by ``momentum`` 0.1 towards them; in eval the running statistics normalize. (torch's
+    ``BatchNorm*d`` keeps the unbiased variance in its running statistics.)"""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__(channels, running=True, eps=eps)
+        self.momentum = momentum
+
+    def forward(self, x):
+        xf = x.to(_norm_dtype(x))
+        if not self.training:
+            return self._affine(self._running(xf), x.dtype)
+        axes = (0,) + tuple(range(2, x.ndim))
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+        self._track(mean.reshape(-1), var.reshape(-1), self.momentum)
+        return self._affine((xf - mean) * torch.rsqrt(var + self.eps), x.dtype)
+
+
+class GroupNorm(_AffineNorm):
+    """Affine group norm with ``min(32, channels)`` groups, as the JAX package's flax ``GroupNorm``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(channels, running=False, eps=eps)
+        self.num_groups = min(32, channels)
+
+    def forward(self, x):
+        dtype = _norm_dtype(x)
+        return F.group_norm(x.to(dtype), self.num_groups, self.weight.to(dtype), self.bias.to(dtype),
+                            self.eps).to(x.dtype)
+
+
+def _NormLayer(norm: str, channels: int) -> nn.Module:
     if norm == "InstanceNorm":
         return InstanceNorm()
-    if norm in ("InstanceNormTrackStats", "GroupNorm", "BatchNorm"):
-        raise NotImplementedError(
-            f"norm={norm!r} is not ported yet (ROADMAP.md, Queue 1); use 'InstanceNorm' or None"
-        )
+    if norm == "InstanceNormTrackStats":
+        return InstanceNormTrackStats(channels)
+    if norm == "GroupNorm":
+        return GroupNorm(channels)
+    if norm == "BatchNorm":
+        return BatchNorm(channels)
     raise ValueError(
         f"Invalid norm: expect one of 'InstanceNorm', 'BatchNorm' or 'GroupNorm', got {norm}"
     )
@@ -132,7 +235,7 @@ class ConvBlock(nn.Module):
         layers = []
         for cin in (in_channels, out_channels):
             if norm is not None:
-                layers.append(_NormLayer(norm))
+                layers.append(_NormLayer(norm, cin))
             layers += [_Conv(dim, cin, out_channels, kernel_size, padding), nn.ReLU()]
         self.block = nn.Sequential(*layers)
 
@@ -188,10 +291,13 @@ class Decoder(nn.Module):
         return skip[(slice(None), slice(None)) + crop]
 
     def forward(self, x, skips):
+        """The output of every level, the deepest first."""
+        outputs = []
         for block, sampler, skip in zip(self.blocks, self.samplers, skips[::-1]):
             x = sampler(x)
             x = block(torch.cat([x, self._crop(skip, x.shape[2:])], dim=1))
-        return x
+            outputs.append(x)
+        return outputs
 
 
 def _update_conv_kwargs(kernel_size, padding, scale_factor):
@@ -215,9 +321,10 @@ class UNetModule(nn.Module):
         features_encoder: Sequence[int],
         scale_factors: Sequence,
         in_channels: int,
-        out_channels: Optional[int],
+        out_channels,
         final_activation: Optional[Union[str, Callable]] = None,
         postprocessing: Optional[Union[str, Callable]] = None,
+        return_side_outputs: bool = False,
         norm: Optional[str] = "InstanceNorm",
         kernel_size=3,
         padding=1,
@@ -259,7 +366,17 @@ class UNetModule(nn.Module):
             [Upsampler(cin, f, sf, dim) for cin, f, sf in
              zip([base_features] + decoder_feats[:-1], decoder_feats, decoder_sfs)],
         )
-        self.out_conv = None if out_channels is None else _Conv(dim, feats[0], out_channels, 1, 0)
+        self.return_side_outputs = return_side_outputs
+        if return_side_outputs:
+            # one output conv per decoder level, the deepest first (torch-em's ``out_conv.<i>``)
+            ocs = [out_channels] * len(feats) if out_channels is None or isinstance(out_channels, int) \
+                else list(out_channels)
+            if len(ocs) != len(feats):
+                raise ValueError(f"return_side_outputs needs one out_channels per level, got {out_channels}")
+            self.out_conv = nn.ModuleList([nn.Identity() if oc is None else _Conv(dim, f, oc, 1, 0)
+                                           for f, oc in zip(decoder_feats, ocs)])
+        else:
+            self.out_conv = None if out_channels is None else _Conv(dim, feats[0], out_channels, 1, 0)
 
     def _check_input_shape(self, x):
         spatial_shape = tuple(x.shape)[2:]
@@ -275,9 +392,15 @@ class UNetModule(nn.Module):
         if self.check_shape:
             self._check_input_shape(x)
         h, skips = self.encoder(x.to(self.dtype))
-        h = self.decoder(self.base(h), skips)
-        if self.out_conv is not None:
-            h = self.out_conv(h)
+        outputs = self.decoder(self.base(h), skips)
+        if self.return_side_outputs:
+            # the full-resolution output first
+            return [self._finalize(h, conv) for h, conv in zip(outputs, self.out_conv)][::-1]
+        return self._finalize(outputs[-1], self.out_conv)
+
+    def _finalize(self, h, out_conv):
+        if out_conv is not None:
+            h = out_conv(h)
         out = h.float()
         if self.final_activation is not None:
             out = self.final_activation(out)
@@ -303,11 +426,12 @@ def _build_unet(factory, init_kwargs, dim, in_channels, out_channels, scale_fact
 
 def UNet2d(
     in_channels: int,
-    out_channels: Optional[int],
+    out_channels,
     depth: int = 4,
     initial_features: int = 32,
     gain: int = 2,
     final_activation: Optional[Union[str, Callable]] = None,
+    return_side_outputs: bool = False,
     postprocessing: Optional[Union[str, Callable]] = None,
     check_shape: bool = True,
     dtype: torch.dtype = torch.float32,
@@ -319,22 +443,24 @@ def UNet2d(
     init_kwargs = dict(
         in_channels=in_channels, out_channels=out_channels, depth=depth,
         initial_features=initial_features, gain=gain, final_activation=final_activation,
-        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+        return_side_outputs=return_side_outputs, postprocessing=postprocessing, check_shape=check_shape,
+        dtype=dtype, **conv_block_kwargs,
     )
     return _build_unet(
         UNet2d, init_kwargs, 2, in_channels, out_channels, [2] * depth, initial_features, gain,
-        device, seed, final_activation=final_activation, postprocessing=postprocessing,
-        check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+        device, seed, final_activation=final_activation, return_side_outputs=return_side_outputs,
+        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )
 
 
 def AnisotropicUNet(
     in_channels: int,
-    out_channels: Optional[int],
+    out_channels,
     scale_factors: List[List[int]],
     initial_features: int = 32,
     gain: int = 2,
     final_activation: Optional[Union[str, Callable]] = None,
+    return_side_outputs: bool = False,
     anisotropic_kernel: bool = False,
     postprocessing: Optional[Union[str, Callable]] = None,
     check_shape: bool = True,
@@ -347,12 +473,13 @@ def AnisotropicUNet(
     init_kwargs = dict(
         in_channels=in_channels, out_channels=out_channels, scale_factors=scale_factors,
         initial_features=initial_features, gain=gain, final_activation=final_activation,
-        anisotropic_kernel=anisotropic_kernel, postprocessing=postprocessing,
-        check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+        return_side_outputs=return_side_outputs, anisotropic_kernel=anisotropic_kernel,
+        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )
     return _build_unet(
         AnisotropicUNet, init_kwargs, 3, in_channels, out_channels, scale_factors,
         initial_features, gain, device, seed, final_activation=final_activation,
+        return_side_outputs=return_side_outputs,
         anisotropic_kernel=anisotropic_kernel, postprocessing=postprocessing,
         check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )
@@ -360,11 +487,12 @@ def AnisotropicUNet(
 
 def UNet3d(
     in_channels: int,
-    out_channels: Optional[int],
+    out_channels,
     depth: int = 4,
     initial_features: int = 32,
     gain: int = 2,
     final_activation: Optional[Union[str, Callable]] = None,
+    return_side_outputs: bool = False,
     postprocessing: Optional[Union[str, Callable]] = None,
     check_shape: bool = True,
     dtype: torch.dtype = torch.float32,
@@ -376,10 +504,11 @@ def UNet3d(
     init_kwargs = dict(
         in_channels=in_channels, out_channels=out_channels, depth=depth,
         initial_features=initial_features, gain=gain, final_activation=final_activation,
-        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+        return_side_outputs=return_side_outputs, postprocessing=postprocessing, check_shape=check_shape,
+        dtype=dtype, **conv_block_kwargs,
     )
     return _build_unet(
         UNet3d, init_kwargs, 3, in_channels, out_channels, [2] * depth, initial_features, gain,
-        device, seed, final_activation=final_activation, postprocessing=postprocessing,
-        check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
+        device, seed, final_activation=final_activation, return_side_outputs=return_side_outputs,
+        postprocessing=postprocessing, check_shape=check_shape, dtype=dtype, **conv_block_kwargs,
     )

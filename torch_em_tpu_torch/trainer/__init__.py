@@ -1,7 +1,11 @@
-"""Training loop, checkpointing, optimizers and the logger interface."""
+"""Training loop, checkpointing, optimizers, the SPOCO trainer and the loggers."""
 
 from .default_trainer import DefaultTrainer
 from .logger_base import TorchEmLogger
 from .optimizers import OptimizerSpec, ReduceLROnPlateau
+from .spoco_trainer import SPOCOTrainer
+from .tensorboard_logger import TensorboardLogger
+from .wandb_logger import WandbLogger
 
-__all__ = ["DefaultTrainer", "TorchEmLogger", "OptimizerSpec", "ReduceLROnPlateau"]
+__all__ = ["DefaultTrainer", "TorchEmLogger", "OptimizerSpec", "ReduceLROnPlateau", "SPOCOTrainer",
+           "TensorboardLogger", "WandbLogger"]

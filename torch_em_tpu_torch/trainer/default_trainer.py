@@ -71,8 +71,9 @@ class DefaultTrainer:
         save_root: Root folder for checkpoints; ``./checkpoints`` when None.
         compile_model: Accepted for API parity; the model runs eagerly.
         rank: Rank for distributed training (only rank 0 writes checkpoints).
-        seed: Recorded for API parity; the port's models draw no random
-            numbers in a step.
+        seed: Seeds ``generator``, from which the losses that draw random
+            numbers (``needs_rng``, such as the SPOCO losses' anchors) draw;
+            the port's models draw none.
         device_label_transform: A callable applied to the labels inside the step.
         steps_per_execution: Accepted for API parity; steps run one by one.
     """
@@ -131,6 +132,9 @@ class DefaultTrainer:
         self.logger_kwargs = logger_kwargs
         self.logger = None
         self.torch_optimizer: Optional[torch.optim.Optimizer] = None
+        self.seed = seed
+        # random numbers of the losses that draw them (``needs_rng``), on the training device
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self._explicit_init_kwargs = {
             "name": name, "train_loader": train_loader, "val_loader": val_loader, "model": model,
@@ -157,30 +161,44 @@ class DefaultTrainer:
         return self._epoch
 
     # ------------------------------------------------------------- stepping
+    def _compute_models(self):
+        """The models whose forwards ``_compute_precision`` switches to bfloat16."""
+        return [self.model]
+
     @contextlib.contextmanager
     def _compute_precision(self):
         """bfloat16 compute for the duration of a forward when ``mixed_precision`` is on."""
-        if not (self.mixed_precision and hasattr(self.model, "dtype")):
-            yield
-            return
-        dtype = self.model.dtype
-        self.model.dtype = torch.bfloat16
+        models = [m for m in self._compute_models() if hasattr(m, "dtype")] if self.mixed_precision else []
+        dtypes = [m.dtype for m in models]
+        for m in models:
+            m.dtype = torch.bfloat16
         try:
             yield
         finally:
-            self.model.dtype = dtype
+            for m, dtype in zip(models, dtypes):
+                m.dtype = dtype
 
-    def _compute_loss(self, x, y):
+    def _loss_value(self, loss, pred, y, generator=None):
+        """``loss(pred, y)``; a loss that draws random numbers (``needs_rng``) also gets a
+        generator: the trainer's in training, one seeded 0 in validation, as the JAX
+        package hands ``PRNGKey(0)`` to its validation step."""
+        if not getattr(loss, "needs_rng", False):
+            return loss(pred, y)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return loss(pred, y, generator=generator)
+
+    def _compute_loss(self, x, y, generator=None):
         if self.device_label_transform is not None:
             y = self.device_label_transform(y)
         with self._compute_precision():
             pred = self.model(x)
-        return self.loss(pred, y), pred
+        return self._loss_value(self.loss, pred, y, generator), pred
 
     def _train_step(self, x, y):
         """One optimizer step on a batch on the device; returns the detached loss and prediction."""
         self.torch_optimizer.zero_grad(set_to_none=True)
-        loss, pred = self._compute_loss(x, y)
+        loss, pred = self._compute_loss(x, y, self.generator)
         loss.backward()
         self.optimizer.clip_gradients(self.model.parameters())
         self.torch_optimizer.step()

@@ -1,9 +1,10 @@
 """Logger plugin interface, counterpart of ``torch_em_tpu/trainer/logger_base.py``.
 
 The trainer calls ``log_train`` for training steps and ``log_validation``
-after each validation. The port has no ``TensorboardLogger`` yet (the
-machine with the card has no tensorboard package), so a trainer's
-``logger`` defaults to ``None``.
+after each validation. The port's loggers are ``TensorboardLogger``
+(tensorboardX) and ``WandbLogger`` (wandb); each imports its package when it
+is constructed, since the machine with the card has neither, so
+``DefaultTrainer``'s ``logger`` defaults to ``None``.
 """
 
 

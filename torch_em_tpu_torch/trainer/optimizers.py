@@ -10,12 +10,16 @@ where torch's differ, so one spec means one update rule on both sides:
   every parameter decays, biases too (optax's ``mask=None``);
 - ``adam``: optax's ``b1``, ``b2`` and ``eps`` become torch's ``betas`` and
   ``eps``;
-- ``sgd``: optax's ``momentum=None`` is torch's ``momentum=0``.
+- ``sgd``: optax's ``momentum=None`` is torch's ``momentum=0``;
+- ``rmsprop``, ``adagrad``, ``lamb`` and ``lion``: torch's own optimizers of
+  these names follow other update rules (torch's RMSprop adds ``eps``
+  outside the square root, its Adagrad starts the sum of squares at 0, it
+  has no LAMB, and no Lion), so the port has its own ``torch.optim.Optimizer``
+  for each, with optax's update rule, defaults and arguments.
 
-optax's rmsprop, adagrad, lamb and lion have no torch counterpart with the
-same update rule and are not ported yet. ``grad_clip`` clips by the global
-norm as ``optax.clip_by_global_norm`` does; the trainer calls
-:meth:`OptimizerSpec.clip_gradients` before each step.
+``grad_clip`` clips by the global norm as ``optax.clip_by_global_norm``
+does; the trainer calls :meth:`OptimizerSpec.clip_gradients` before each
+step.
 
 ``ReduceLROnPlateau`` steps once per epoch on the validation metric (lower
 is better) and scales ``param_group["lr"]`` of the trainer's optimizer.
@@ -25,7 +29,8 @@ from typing import Any, Dict, Iterable, Optional
 
 import torch
 
-__all__ = ["OptimizerSpec", "ReduceLROnPlateau", "get_learning_rate", "set_learning_rate"]
+__all__ = ["OptimizerSpec", "ReduceLROnPlateau", "get_learning_rate", "set_learning_rate",
+           "OptaxRMSProp", "OptaxAdagrad", "OptaxLamb", "OptaxLion"]
 
 
 def _adam_kwargs(b1=0.9, b2=0.999, eps=1e-8, **kwargs):
@@ -44,17 +49,131 @@ def _sgd(params, lr, momentum=None, nesterov=False):
     return torch.optim.SGD(params, lr=lr, momentum=momentum or 0.0, nesterov=nesterov)
 
 
-_OPTIMIZERS = {"adam": _adam, "adamw": _adamw, "sgd": _sgd}
-_NOT_PORTED = ("rmsprop", "adagrad", "lamb", "lion")
+class _OptaxOptimizer(torch.optim.Optimizer):
+    """An optax update rule as a torch optimizer: ``_update(p, g, state, group)`` returns the
+    update (optax's sign convention, already scaled by the learning rate), which is added to
+    ``p``; ``state["step"]`` counts the steps, as optax's ``count``."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    self._init_state(p, state, group)
+                state["step"] += 1
+                p.add_(self._update(p, p.grad, state, group))
+        return loss
+
+
+class OptaxRMSProp(_OptaxOptimizer):
+    """``optax.rmsprop``: ``scale_by_rms`` (or ``scale_by_stddev`` when ``centered``), the learning
+    rate, then an optional ``trace`` (momentum) of the scaled updates."""
+
+    def __init__(self, params, lr, decay=0.9, eps=1e-8, initial_scale=0.0, eps_in_sqrt=True, centered=False,
+                 momentum=None, nesterov=False, bias_correction=False):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale,
+                                      eps_in_sqrt=eps_in_sqrt, centered=centered, momentum=momentum,
+                                      nesterov=nesterov, bias_correction=bias_correction))
+
+    def _init_state(self, p, state, group):
+        state["nu"] = torch.full_like(p, group["initial_scale"])
+        if group["centered"]:
+            state["mu"] = torch.zeros_like(p)
+        if group["momentum"] is not None:
+            state["trace"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        decay = group["decay"]
+        nu = state["nu"].mul_(decay).add_((1 - decay) * g ** 2)
+        count = float(state["step"])
+        correction = 1 - decay ** count if group["bias_correction"] else 1.0
+        second = nu / correction
+        if group["centered"]:
+            mu = state["mu"].mul_(decay).add_((1 - decay) * g)
+            second = second - (mu / correction) ** 2
+        if group["eps_in_sqrt"]:
+            scaling = torch.rsqrt(second + group["eps"])
+        else:
+            scaling = 1 / (torch.sqrt(second) + group["eps"])
+        update = -group["lr"] * (scaling * g)
+        if group["momentum"] is not None:
+            trace = state["trace"].mul_(group["momentum"]).add_(update)
+            update = update + group["momentum"] * trace if group["nesterov"] else trace.clone()
+        return update
+
+
+class OptaxAdagrad(_OptaxOptimizer):
+    """``optax.adagrad``: the sum of squared gradients starts at ``initial_accumulator_value``, and the
+    update is ``-lr * g / sqrt(sum + eps)`` (0 where the sum is 0)."""
+
+    def __init__(self, params, lr, initial_accumulator_value=0.1, eps=1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value, eps=eps))
+
+    def _init_state(self, p, state, group):
+        state["sum_of_squares"] = torch.full_like(p, group["initial_accumulator_value"])
+
+    def _update(self, p, g, state, group):
+        total = state["sum_of_squares"].add_(g ** 2)
+        inv = torch.where(total > 0, torch.rsqrt(total + group["eps"]), torch.zeros_like(total))
+        return -group["lr"] * (inv * g)
+
+
+class OptaxLamb(_OptaxOptimizer):
+    """``optax.lamb``: Adam's bias-corrected update, plus ``weight_decay * p``, scaled per tensor by
+    the trust ratio ``|p| / |update|`` (1 where either norm is 0), then by the learning rate."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-6, eps_root=0.0, weight_decay=0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, eps_root=eps_root, weight_decay=weight_decay))
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+        state["nu"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        b1, b2 = group["b1"], group["b2"]
+        mu = state["mu"].mul_(b1).add_((1 - b1) * g)
+        nu = state["nu"].mul_(b2).add_((1 - b2) * g ** 2)
+        count = float(state["step"])
+        mu_hat, nu_hat = mu / (1 - b1 ** count), nu / (1 - b2 ** count)
+        update = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"]) + group["weight_decay"] * p
+        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(update)
+        ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+        return -group["lr"] * (update * ratio)
+
+
+class OptaxLion(_OptaxOptimizer):
+    """``optax.lion``: ``sign((1 - b1) * g + b1 * m)`` plus ``weight_decay * p``, by the learning
+    rate; then ``m <- (1 - b2) * g + b2 * m``."""
+
+    def __init__(self, params, lr, b1=0.9, b2=0.99, weight_decay=1e-3):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, weight_decay=weight_decay))
+
+    def _init_state(self, p, state, group):
+        state["mu"] = torch.zeros_like(p)
+
+    def _update(self, p, g, state, group):
+        b1, b2 = group["b1"], group["b2"]
+        direction = torch.sign((1 - b1) * g + b1 * state["mu"])
+        state["mu"].mul_(b2).add_((1 - b2) * g)
+        return -group["lr"] * (direction + group["weight_decay"] * p)
+
+
+_OPTIMIZERS = {"adam": _adam, "adamw": _adamw, "sgd": _sgd, "rmsprop": OptaxRMSProp, "adagrad": OptaxAdagrad,
+               "lamb": OptaxLamb, "lion": OptaxLion}
 
 
 class OptimizerSpec:
     """Serializable optimizer description; ``build(params)`` makes the torch optimizer."""
 
     def __init__(self, name: str = "adamw", lr: float = 1e-4, grad_clip: Optional[float] = None, **kwargs):
-        if name.lower() in _NOT_PORTED:
-            raise NotImplementedError(
-                f"optimizer {name!r} is not ported yet (ROADMAP.md); use one of {sorted(_OPTIMIZERS)}")
         if name.lower() not in _OPTIMIZERS:
             raise ValueError(f"Unknown optimizer {name}; available: {sorted(_OPTIMIZERS)}")
         self.name = name.lower()

@@ -1,13 +1,18 @@
-"""Carry U-Net weights from the JAX package's flax parameters into the port.
+"""Carry U-Net weights from the JAX package's flax variables into the port.
 
 The port keeps its own copy of the mapping in
 ``torch_em_tpu/utils/modelzoo.py:torch_state_dict_from_flax``: flax block
 ``encoder<i>`` / ``base`` / ``decoder<i>`` with convs ``conv0`` and ``conv1``
 becomes torch-em's ``encoder.blocks.<i>.block.{1,4}`` (``{0,2}`` without a
 norm), ``sampler<i>/conv`` becomes ``decoder.samplers.<i>.conv``, and
-``out_conv`` stays. Conv kernels go from (*kernel, I, O) to (O, I, *kernel);
+``out_conv`` stays (``out_conv<i>`` of a model with side outputs becomes
+``out_conv.<i>``). Conv kernels go from (*kernel, I, O) to (O, I, *kernel);
 the upsamplers' and the output's 1x1 convs are flax ``Dense`` layers with an
-(I, O) kernel and become (O, I, 1, ..., 1).
+(I, O) kernel and become (O, I, 1, ..., 1). A block's norms ``norm0`` and
+``norm1`` sit at ``block.{0,3}``: the ``scale`` and ``bias`` of their flax
+child (``GroupNorm_0``, ``BatchNorm_0``, ``_InstanceNormTrackStats_0``)
+become ``weight`` and ``bias``, and the ``mean`` and ``var`` of the
+``batch_stats`` collection ``running_mean`` and ``running_var``.
 """
 
 from typing import Dict, Optional
@@ -30,23 +35,40 @@ def _conv_weight(kernel: np.ndarray, spatial_rank: int) -> np.ndarray:
 
 def state_dict_from_jax_params(
     flat: Dict[str, np.ndarray], norm: Optional[str] = "InstanceNorm",
+    batch_stats: Optional[Dict[str, np.ndarray]] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Map a flax U-Net ``params`` tree, flattened to ``/``-joined keys, onto the port's state dict.
+    """Map a flax U-Net's ``params`` tree, flattened to ``/``-joined keys, onto the port's state dict.
 
     ``norm`` is the model's norm: it decides whether the convs of a block
-    sit at ``block.{1,4}`` (behind norms) or ``block.{0,2}`` (no norm).
-    Only the parameter-free norms (``"InstanceNorm"``, ``None``) are ported.
+    sit at ``block.{1,4}`` (behind norms) or ``block.{0,2}`` (no norm), and
+    which norm parameters there are. ``batch_stats`` is the flattened
+    ``batch_stats`` collection of a model with ``"BatchNorm"`` or
+    ``"InstanceNormTrackStats"``.
     """
-    if norm not in (None, "InstanceNorm"):
-        raise NotImplementedError(f"norm={norm!r} is not ported yet (ROADMAP.md, Queue 1)")
+    if norm not in (None, "InstanceNorm", "InstanceNormTrackStats", "GroupNorm", "BatchNorm"):
+        raise ValueError(f"Invalid norm: {norm!r}")
+    tracked = norm in ("BatchNorm", "InstanceNormTrackStats")
+    if tracked and not batch_stats:
+        raise ValueError(f"norm={norm!r} needs the model's batch_stats")
     conv_idx = (0, 2) if norm is None else (1, 4)
     spatial_rank = max(np.ndim(v) for v in flat.values()) - 2
-    groups = {}
-    for key, value in flat.items():
-        top, rest = key.split("/", 1)
-        groups.setdefault(top, {})[rest] = value
 
+    def grouped(tree):
+        groups = {}
+        for key, value in (tree or {}).items():
+            top, rest = key.split("/", 1)
+            groups.setdefault(top, {})[rest] = value
+        return groups
+
+    groups, stats = grouped(flat), grouped(batch_stats)
     state = {}
+
+    def leaf(tree, j, name):
+        """The ``name`` leaf of the j-th norm's flax child in a block's flattened tree."""
+        found = [v for k, v in tree.items() if k.startswith(f"norm{j}/") and k.endswith(f"/{name}")]
+        if len(found) != 1:
+            raise ValueError(f"expected one norm{j}/*/{name}, found {len(found)}")
+        return found[0]
 
     def block(src, dst):
         params = groups.pop(src)
@@ -54,6 +76,12 @@ def state_dict_from_jax_params(
             state[f"{dst}.block.{conv_idx[j]}.weight"] = _conv_weight(
                 params[f"conv{j}/kernel"], spatial_rank)
             state[f"{dst}.block.{conv_idx[j]}.bias"] = params[f"conv{j}/bias"]
+            if norm not in (None, "InstanceNorm"):
+                state[f"{dst}.block.{3 * j}.weight"] = leaf(params, j, "scale")
+                state[f"{dst}.block.{3 * j}.bias"] = leaf(params, j, "bias")
+            if tracked:
+                state[f"{dst}.block.{3 * j}.running_mean"] = leaf(stats[src], j, "mean")
+                state[f"{dst}.block.{3 * j}.running_var"] = leaf(stats[src], j, "var")
 
     n_levels = len([k for k in groups if k.startswith("encoder")])
     for i in range(n_levels):
@@ -63,6 +91,10 @@ def state_dict_from_jax_params(
         state[f"decoder.samplers.{i}.conv.weight"] = _conv_weight(
             sampler["conv/kernel"], spatial_rank)
         state[f"decoder.samplers.{i}.conv.bias"] = sampler["conv/bias"]
+        if f"out_conv{i}" in groups:  # side outputs
+            out = groups.pop(f"out_conv{i}")
+            state[f"out_conv.{i}.weight"] = _conv_weight(out["kernel"], spatial_rank)
+            state[f"out_conv.{i}.bias"] = out["bias"]
     block("base", "base")
     if "out_conv" in groups:
         out = groups.pop("out_conv")
@@ -70,4 +102,8 @@ def state_dict_from_jax_params(
         state["out_conv.bias"] = out["bias"]
     if groups:
         raise ValueError(f"Unmapped parameter groups: {sorted(groups)}")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
+    result = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
+    if tracked:  # torch's counter, which the JAX package does not keep
+        for key in [k for k in result if k.endswith(".running_mean")]:
+            result[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
+    return result

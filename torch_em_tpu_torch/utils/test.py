@@ -12,7 +12,8 @@ from ..ops import native
 from ..ops.host import find_boundaries
 from .io import _h5py, _pil_image
 
-__all__ = ["make_gt", "make_volume", "create_segmentation_test_data", "create_image_collection_test_data"]
+__all__ = ["make_gt", "make_volume", "make_image", "create_segmentation_test_data",
+           "create_image_collection_test_data"]
 
 
 def make_gt(spatial_shape: Sequence[int], n_batches: Optional[int] = None,
@@ -64,6 +65,42 @@ def make_volume(rng: np.random.Generator, shape=(24, 96, 96)):
     raw = raw + 0.08 * ndimage.gaussian_filter(rng.random(shape, dtype=np.float32), 1.0)
     raw = np.clip(raw + rng.normal(0, 0.03, shape), 0, 1).astype("float32")
     return raw, labels.astype("uint32")
+
+
+def make_image(rng: np.random.Generator, size: int = 128):
+    """A synthetic DSB-like nucleus image and its instance labels, the SPOCO probe's data
+    (``experiments/parity/make_data.py:make_image``; ``rng`` seeded with 42 there): the
+    EDT core of each region of a seeded watershed over smoothed noise becomes a nucleus of
+    its own intensity, blurred, with noise. Returns (raw float32 in [0, 1], labels uint32)."""
+    shape = (size, size)
+    n_seeds = int(rng.integers(10, 20))
+    seeds = np.zeros(shape, dtype="uint32")
+    coords = (rng.integers(0, size, n_seeds), rng.integers(0, size, n_seeds))
+    seeds[coords] = np.arange(1, n_seeds + 1)
+    hmap = ndimage.gaussian_filter(rng.random(shape, dtype=np.float32), 2.0)
+    ws = native.watershed(hmap, seeds)
+
+    labels = np.zeros(shape, dtype="uint32")
+    raw = np.full(shape, 0.08, dtype="float32")
+    next_id = 1
+    for region_id in np.unique(ws):
+        mask = ws == region_id
+        edt = ndimage.distance_transform_edt(mask)
+        rmax = edt.max()
+        if rmax < 3:  # too small to host a nucleus
+            continue
+        tau = rng.uniform(0.25, 0.55) * rmax
+        nucleus = edt > max(tau, 1.5)
+        if nucleus.sum() < 12:
+            continue
+        labels[nucleus] = next_id
+        raw[nucleus] = rng.uniform(0.35, 0.95)
+        next_id += 1
+
+    raw = ndimage.gaussian_filter(raw, 1.0)
+    raw = raw + rng.normal(0.0, 0.04, shape).astype("float32")
+    raw = np.clip(raw, 0.0, 1.0).astype("float32")
+    return raw, labels
 
 
 def create_segmentation_test_data(data_path: str, raw_key: str, label_key: str,
