@@ -86,13 +86,33 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    profiler; predicts the embeddings of 4 images on the card and grid-searches
    their embedding mutex watershed on the host (2 deltas x 2 sizes); then
    runs UNet2d and UNet3d with each of the other norms in bf16 on the card
-   against the CPU.
+   against the CPU;
+12. the ViM-UNet / UNETR recipe (``experiments/vimunet/train_vimunet_livecell.py``):
+   ``UNETR(img_size=512, encoder="vit_b", resize_input=True)`` and
+   ``get_vimunet_model("vim_t", img_size=512)``, 2 Sigmoid outputs, each at full
+   width: built from one seed on the CPU and on the card, the same weights in
+   float32 (TF32 off) on both against each other at 512x512 (UNETR also at
+   448x448, its encoder's position embedding and relative-position tables then
+   shrinking); trained by ``default_segmentation_trainer`` (AdamW 1e-4, bf16,
+   batch 4 of 512x512 patches of 8 seeded 704x520 grayscale images through
+   ``default_segmentation_loader`` with ``BoundaryTransform(add_binary_target=True)``
+   targets) for 16 iterations with ``fit(profile_dir=..., log_mfu=True)`` and 4
+   more after ``from_checkpoint``; the bare step timed as called and on the
+   device, broken down by the profiler (attention, norms, convs), its peak
+   memory and MFU, the SDPA backends that take the float bias and the bias's
+   bf16 rounding against float64 (UNETR), one Mamba layer's scan timed forward
+   and backward (ViM-UNet); then a 1536x1536 image served in 448x448 blocks with
+   a 32 px halo through both paths in bf16; last, ``UNETR3D`` at a small depth
+   and width on the card against the CPU.
 
 Phases 3 and 5 also hold both kernels at the DSB and SPOCO steps' shapes
 (batch 8, rows 8 x C from 8 x 1 to 8 x 1024 and 8 x 512, 65536 down to 256
 elements), and phase 5 times them there. Phase 3 also holds the forward kernel at the SNEMI
 recipe's serving blocks (40x320x320 with the halo) and validation blocks
-(24x192x192), whose norms phase 10 launches.
+(24x192x192), whose norms phase 10 launches, and both kernels at the UNETR
+and ViM-UNet decoders' shapes (phase 12: 3 to 768 channels, 32x32 to
+512x512; the forward at batch 4 and 1, the backward at batch 4), where
+phase 5 also times them per training step.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -108,6 +128,7 @@ import tempfile
 import time
 import traceback
 import unittest.mock
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -198,6 +219,27 @@ EMA_RTOL, EMA_ATOL = 1e-6, 1e-7
 # CPU). So, as phase 6 holds its kernels, the card in each dtype within 4x the CPU's error in that dtype,
 # plus 1e-5 (float32) or 2% (bfloat16). A wrong norm, forward or backward, moves either by its own size.
 NORM_VARIANTS = ("InstanceNormTrackStats", "GroupNorm", "BatchNorm")
+# the ViM-UNet / UNETR recipe (phase 12): experiments/vimunet/train_vimunet_livecell.py, two models at
+# 512x512, batch 4, mixed precision, AdamW at lr 1e-4, foreground and boundary targets of
+# get_livecell_loader(boundaries=True); seeded synthetic grayscale images of LIVECell's 704x520
+VIT_RECIPES = (
+    ("UNETR", "UNETR", dict(img_size=512, encoder="vit_b", out_channels=2, resize_input=True,
+                            final_activation="Sigmoid")),
+    ("ViM-UNet", "get_vimunet_model", dict(out_channels=2, model_type="vim_t", img_size=512,
+                                           final_activation="Sigmoid")),
+)
+LIVECELL_SHAPE, VIT_IMAGES = (520, 704), 10  # 8 to train on, 2 to validate on
+VIT_PATCH, VIT_BATCH, VIT_FIT, VIT_RESUME = (1, 512, 512), 4, 16, 4
+VIT_SERVE, VIT_BLOCK, VIT_HALO = (1536, 1536), (448, 448), (32, 32)
+# the same weights on the CPU and on the card in float32 (TF32 off): sigmoid outputs within 1e-3,
+# encoder features within 1e-3 of their largest magnitude; float32 sums in another order drift
+# through 12 transformer blocks or 24 Mamba layers (1.1e-4 on the CPU against the JAX package
+# through vim_t), a wrong layer moves them by its own size
+VIT_CPU_ATOL, VIT_FEATURE_RTOL = 1e-3, 1e-3
+# UNETR3D at a small depth and width on the card against the CPU (float32, TF32 off)
+UNETR3D_SMALL = dict(img_size=64, encoder="vit_t", out_channels=2, embed_dim=96, depth=4, num_heads=3,
+                     global_attn_indexes=(1, 3))
+ATTENTION_KERNELS = re.compile(r"fmha|flash|attention|sdpa", re.I)
 VARIANT_FACTOR, VARIANT_SLACK = 4.0, {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
@@ -240,6 +282,20 @@ def norm_shapes(block, scale_factors, initial_features, in_channels=1, gain=2):
     for f, skip in zip(feats[::-1], skips[::-1]):
         shapes += [(2 * f, skip), (f, skip)]
     return shapes
+
+
+def unetr_norm_shapes(embed_dim, skip, size=512, initial_features=64, depth=3, in_chans=3):
+    """(channels, spatial shape) of the instance norms of one UNETR (or ViM-UNet) forward at a
+    ``size`` x ``size`` input, in order: the input's ConvBlock (``skip`` only), the base at
+    size / 16, the decoder's levels, the head."""
+    feats = [initial_features * 2 ** i for i in range(depth + 1)][::-1]
+    full, sp = (size, size), size // 16
+    shapes = [(in_chans, full), (feats[-1], full)] if skip else []
+    shapes += [(embed_dim, (sp, sp)), (feats[0], (sp, sp))]
+    for f in feats[1:]:
+        sp *= 2
+        shapes += [(2 * f, (sp, sp)), (f, (sp, sp))]
+    return shapes + [(2 * feats[-1], full), (feats[-1], full)]
 
 
 def path_of(inorm, shape, dtype, direction):
@@ -332,7 +388,7 @@ def device_breakdown(label, fn, steps=3, top=8):
         f"{total - norms - convs:.3f} ms ({(total - norms - convs) / total:.1%})")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {ms:8.3f} ms {ms / total:6.1%}  {name[:110]}")
-    return {"device_ms": total, "norm_ms": norms, "conv_ms": convs}
+    return {"device_ms": total, "norm_ms": norms, "conv_ms": convs, "kernels": kernels}
 
 
 def card_generator(seed):
@@ -396,10 +452,12 @@ def dsb_paths(inorm, dsb_shapes, dtype, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes):
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes):
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
-    DSB_BATCH, and the SNEMI recipe's serving and validation blocks, ``snemi_shapes``
-    {name: shapes}) and time it at the serving path's; returns its entry of the kernels line."""
+    DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
+    shapes}, and the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
+    1, ``vit_shapes`` {name: shapes}) and time it at the serving path's; returns its entry of
+    the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -426,6 +484,14 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                 max_err = max(max_err, err)
                 log(f"  norm {dtype} {recipe} ({DSB_BATCH}, {c}) {sp} path "
                     f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+        for recipe, recipe_shapes in vit_shapes.items():
+            for batch in (VIT_BATCH, 1):
+                for c, sp in sorted(set(recipe_shapes)):
+                    err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
+                                       rand((batch, c) + sp, dtype))
+                    max_err = max(max_err, err)
+                    log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
+                        f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "forward").items()]
@@ -473,7 +539,11 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                                               torch.bfloat16, "forward"),
                   "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes],
                                                 torch.bfloat16, "forward"),
-                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in snemi_shapes.items()}},
+                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in snemi_shapes.items()},
+                  **{f"{name}_training": path_counts(inorm, [(VIT_BATCH * c, sp) for c, sp in s], torch.bfloat16,
+                                                     "forward") for name, s in vit_shapes.items()},
+                  **{f"{name}_serving": path_counts(inorm, s, torch.bfloat16, "forward")
+                     for name, s in vit_shapes.items()}},
     }
 
 
@@ -517,10 +587,10 @@ class TimedModel(torch.nn.Module):
         return sum(start.elapsed_time(stop) for start, stop in self.events)
 
 
-def serve(port, inorm, model, volume, path, runs=2, block_shape=BLOCK_SHAPE):
+def serve(port, inorm, model, volume, path, runs=2, block_shape=BLOCK_SHAPE, halo=HALO, norms=NORMS_PER_FORWARD):
     """``predict_with_halo`` on ``volume`` through the host path (``path`` "host": the numpy
     volume) or the device-resident one ("device": a copy on the card, made before the
-    call), in blocks of ``block_shape`` with HALO; the last of ``runs`` calls is timed, the
+    call), in blocks of ``block_shape`` with ``halo``; the last of ``runs`` calls is timed, the
     first pays for cuDNN's first calls.
 
     Returns the output as a float32 numpy array and the timed call's numbers: wall time,
@@ -535,7 +605,7 @@ def serve(port, inorm, model, volume, path, runs=2, block_shape=BLOCK_SHAPE):
         torch.cuda.synchronize()
         inorm.instance_norm.launches = 0
         t = time.perf_counter()
-        out = port.predict_with_halo(x, timed, block_shape=block_shape, halo=HALO, output_dtype="float16")
+        out = port.predict_with_halo(x, timed, block_shape=block_shape, halo=halo, output_dtype="float16")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t
         launches = inorm.instance_norm.launches
@@ -557,8 +627,8 @@ def serve(port, inorm, model, volume, path, runs=2, block_shape=BLOCK_SHAPE):
         raise AssertionError(f"output shape {out.shape}")
     if not np.isfinite(out).all() or out.min() < 0 or out.max() > 1:
         raise AssertionError("output is not finite or leaves [0, 1]")
-    if launches != NORMS_PER_FORWARD * n_blocks:
-        raise AssertionError(f"{launches} kernel launches, expected {NORMS_PER_FORWARD} x {n_blocks} blocks")
+    if launches != norms * n_blocks:
+        raise AssertionError(f"{launches} kernel launches, expected {norms} x {n_blocks} blocks")
     return out, stats
 
 
@@ -666,9 +736,10 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes):
+def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes):
     """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
-    DSB_BATCH) and time both kernels at the three training paths' shapes.
+    DSB_BATCH, the UNETR and ViM-UNet steps' at VIT_BATCH) and time both kernels at the
+    training paths' shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
@@ -705,6 +776,13 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                 max_err = max(max_err, err)
                 log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
                     f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+        for recipe, recipe_shapes in vit_shapes.items():
+            for c, sp in sorted(set(recipe_shapes)):
+                shape = (VIT_BATCH, c) + sp
+                err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
+                max_err = max(max_err, err)
+                log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
+                    f"{path_of(inorm, (VIT_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "backward").items()]
@@ -722,6 +800,9 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
     fwd, bwd = time_step_norms(inorm, rand, shapes, 1, "tracked")
     dsb_fwd, dsb_bwd = time_step_norms(inorm, rand, dsb_shapes, DSB_BATCH, "DSB")
     spoco_fwd, spoco_bwd = time_step_norms(inorm, rand, spoco_shapes, DSB_BATCH, "SPOCO")
+    # the ViM-UNet's first norm reads the encoder's features, which need a gradient
+    vit_times = {name: time_step_norms(inorm, rand, s, VIT_BATCH, name, first_has_grad=name == "vimunet")
+                 for name, s in vit_shapes.items()}
     for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
                        f"C={c} {sp}")
@@ -740,20 +821,24 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
         "bound_ms": bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": bwd["library_ms"],
-        "paths": {"training": path_counts(inorm, step_shapes, torch.bfloat16, "backward"),
+        "paths": {**{f"{name}_training": path_counts(inorm, [(VIT_BATCH * c, sp) for c, sp in s], torch.bfloat16,
+                                                     "backward") for name, s in vit_shapes.items()},
+                  "training": path_counts(inorm, step_shapes, torch.bfloat16, "backward"),
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes[1:]],
                                               torch.bfloat16, "backward"),
                   "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes[1:]],
                                                 torch.bfloat16, "backward")},
         "dsb_training": dsb_bwd,
         "spoco_training": spoco_bwd,
-    }, fwd, dsb_fwd, spoco_fwd
+        **{f"{name}_training": b for name, (f, b) in vit_times.items()},
+    }, fwd, dsb_fwd, spoco_fwd, {f"{name}_training": f for name, (f, b) in vit_times.items()}
 
 
-def time_step_norms(inorm, rand, shapes, batch, label):
+def time_step_norms(inorm, rand, shapes, batch, label, first_has_grad=False):
     """Both kernels' times per training step (bf16) summed over a step's norms: the forward
-    at every norm, the backward at all but the first; returns (forward, backward)."""
-    step_shapes = shapes[1:]
+    at every norm, the backward at all but the first (whose input is the raw patch) unless
+    ``first_has_grad``; returns (forward, backward)."""
+    step_shapes = shapes if first_has_grad else shapes[1:]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")
     fwd, bwd = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0.0)
     for c, sp in sorted(set(shapes)):
@@ -1002,16 +1087,17 @@ def check_training_gradients(port, inorm, x, y):
 
 
 def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_patches, label, forwards=1,
-                   check_resumed=None):
-    """Fit, rebuild with ``from_checkpoint`` (then ``check_resumed(resumed)``), fit on; check
-    iteration counts, a finite and falling loss, the checkpoints and both kernels' launches
-    (counted from 0 here; ``forwards`` model forwards per step and validation batch).
-    Returns the resumed trainer and the launches."""
+                   check_resumed=None, norms=(NORMS_PER_FORWARD, NORMS_PER_FORWARD - 1), **fit_kwargs):
+    """Fit (with ``fit_kwargs``), rebuild with ``from_checkpoint`` (then
+    ``check_resumed(resumed)``), fit on; check iteration counts, a finite and falling loss, the
+    checkpoints and both kernels' launches (counted from 0 here; ``forwards`` model forwards
+    per step and validation batch, ``norms`` the forward norms of a forward and the backward
+    ones of a step). Returns the resumed trainer and the launches."""
     folder = trainer.checkpoint_folder
     torch.cuda.synchronize()
     inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
     t = time.perf_counter()
-    trainer.fit(iterations=fit_iterations)
+    trainer.fit(iterations=fit_iterations, **fit_kwargs)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t
     resumed = port.DefaultTrainer.from_checkpoint(folder, "latest")
@@ -1026,7 +1112,7 @@ def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_
     if trainer.iteration != fit_iterations or resumed.iteration != steps:
         raise AssertionError(f"{label}: iterations {trainer.iteration}, resumed {resumed.iteration}")
     validations = len(trainer.logger.metrics) + len(resumed.logger.metrics)
-    expected = (forwards * NORMS_PER_FORWARD * (steps + val_patches * validations), (NORMS_PER_FORWARD - 1) * steps)
+    expected = (forwards * norms[0] * (steps + val_patches * validations), norms[1] * steps)
     log(f"{label}: launches forward {launches[0]}, backward {launches[1]} for {steps} steps and "
         f"{validations} validations of {val_patches} patch(es) (expected {expected})")
     if launches != expected:
@@ -1633,6 +1719,263 @@ def phase_norm_variants(port, card="cuda"):
         f"CPU's + {VARIANT_SLACK[torch.float32]} in float32, + {VARIANT_SLACK[torch.bfloat16]} in bfloat16)")
 
 
+def livecell_images(folder, seed=0):
+    """VIT_IMAGES seeded grayscale images of LIVECell's size and their instance labels as
+    ``.npy`` under ``folder``: the port's synthetic nucleus images (``utils/test.py:make_image``)
+    at 704x704, cropped to 520x704."""
+    from torch_em_tpu_torch.utils.test import make_image
+
+    rng = np.random.default_rng(seed)
+    paths = {"images": [], "masks": []}
+    for sub in paths:
+        os.makedirs(os.path.join(folder, sub))
+    for i in range(VIT_IMAGES):
+        raw, labels = make_image(rng, max(LIVECELL_SHAPE))
+        crop = tuple(slice(0, s) for s in LIVECELL_SHAPE)
+        for sub, arr in (("images", raw[crop]), ("masks", labels[crop])):
+            paths[sub].append(os.path.join(folder, sub, f"{i:02d}.npy"))
+            np.save(paths[sub][-1], arr)
+    return paths["images"], paths["masks"]
+
+
+def check_cpu_against_card(label, factory, kwargs, inputs):
+    """The model built from one seed on the CPU and on the card: the same weights, and float32
+    outputs (TF32 off) within VIT_CPU_ATOL on each input; for UNETR also the encoder's features
+    at the smaller input, where its position embedding and relative-position tables shrink."""
+    cpu_model = factory(**kwargs, device="cpu", seed=0)
+    card_model = factory(**kwargs, device="cuda", seed=0)
+    card_state = card_model.state_dict()
+    if not all(torch.equal(v, card_state[k].cpu()) for k, v in cpu_model.state_dict().items()):
+        raise AssertionError(f"{label}: the same seed gave other weights on the card")
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    errors = {}
+    try:
+        with torch.inference_mode():
+            for x in inputs:
+                expected, got = cpu_model(x), card_model(x.cuda()).cpu()
+                err = float((got - expected).abs().max())
+                errors[f"output {tuple(x.shape[2:])}"] = err
+                if not (got.shape == expected.shape and bool(torch.isfinite(got).all()) and err <= VIT_CPU_ATOL):
+                    raise AssertionError(f"{label} {tuple(x.shape)}: card against CPU max abs err {err}")
+                if label == "UNETR":
+                    x3 = x.repeat(1, 3, 1, 1)
+                    feat_cpu, feat_card = cpu_model.encoder(x3)[0], card_model.encoder(x3.cuda())[0].cpu()
+                    rel = float((feat_card - feat_cpu).abs().max() / feat_cpu.abs().max())
+                    errors[f"encoder features {tuple(x.shape[2:])}"] = rel
+                    if rel > VIT_FEATURE_RTOL:
+                        raise AssertionError(f"{label} encoder at {tuple(x.shape)}: relative err {rel}")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"{label}: the seeded weights equal on the CPU and the card; float32 (TF32 off) card against CPU "
+        f"{json.dumps(errors)} (limits {VIT_CPU_ATOL} abs on outputs, {VIT_FEATURE_RTOL} of the largest on "
+        f"encoder features)")
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    return errors
+
+
+def sdpa_report(vit_module, batch):
+    """Which scaled_dot_product_attention backends take a global block's bf16 attention with its
+    float bias (the step's shape; the step's profile shows which one runs), and what the bf16 bias
+    costs against the JAX package's float32 logits, bias and softmax (the port's plain version),
+    each against float64, in error and in time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = card_generator(12)
+    heads, tokens, dim = 12, 1024, 64
+    q, k, v = (torch.randn(batch, heads, tokens, dim, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    bias = torch.randn(batch, heads, tokens, tokens, generator=gen, device="cuda") * 2
+    accepted = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusing backend warns why
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias.to(q.dtype))
+            torch.cuda.synchronize()
+            accepted[backend.name] = True
+        except RuntimeError:
+            accepted[backend.name] = False
+    exact = vit_module._attention_plain(q.double(), k.double(), v.double(), bias.double())
+    plain = vit_module._attention_plain(q, k, v, bias)
+    fused = vit_module._attention(q, k, v, bias)
+    scale = float(exact.abs().max())
+    report = {
+        "accepted": accepted,
+        "sdpa_bf16_bias_err": float((fused.double() - exact).abs().max()) / scale,
+        "plain_f32_bias_err": float((plain.double() - exact).abs().max()) / scale,
+        "sdpa_ms": time_ms(vit_module._attention, q, k, v, bias),
+        "plain_ms": time_ms(vit_module._attention_plain, q, k, v, bias),
+    }
+    log(f"attention at a global block ({batch}, {heads}, {tokens}, {dim}) bf16 with a float bias: {json.dumps(report)}")
+    return report
+
+
+def scan_ms(vim_module, batch, tokens=1025, channels=384, state=16):
+    """Device ms of one Mamba layer's scan (both directions in one batch, float32), forward and
+    backward, at the ViM-UNet step's shapes."""
+    gen = card_generator(13)
+
+    def rand(*shape, positive=False):
+        t = torch.randn(*shape, generator=gen, device="cuda")
+        return (torch.nn.functional.softplus(t) if positive else t).requires_grad_()
+
+    u, delta = rand(2, batch, tokens, channels), rand(2, batch, tokens, channels, positive=True)
+    A = (-torch.rand(2, 1, channels, state, generator=gen, device="cuda") - 0.5).requires_grad_()
+    B, C = rand(2, batch, tokens, state), rand(2, batch, tokens, state)
+    D = rand(2, 1, channels)
+    g = torch.randn(2, batch, tokens, channels, generator=gen, device="cuda")
+
+    def step():
+        vim_module._selective_scan(u, delta, A, B, C, D).backward(g)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = vim_module._selective_scan(u, delta, A, B, C, D)
+    saved = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del y
+    kernels = profiled_kernels(step, 3)
+    as_called = time_ms(step, iters=3, repeats=3)
+    device = sum(kernels.values())
+    log(f"one Mamba layer's scan, forward and backward, ({2}, {batch}, {tokens}, {channels}, {state}) float32: "
+        f"{as_called:.2f} ms as called, {device:.2f} ms of {len(kernels)} distinct device kernels; "
+        f"{saved:.2f} GiB held for the backward")
+    return as_called, device, saved
+
+
+def vit_recipe(port, inorm, label, factory_name, kwargs, raw_files, label_files, tmp):
+    """One recipe model: CPU against card, training with resume, the step broken down, serving
+    through both paths. Returns its numbers and the kernels' launches of training and serving."""
+    from torch_em_tpu_torch.models import vim as vim_module, vit as vit_module
+    from torch_em_tpu_torch.transforms import BoundaryTransform
+    from torch_em_tpu_torch.utils import profiling
+    from torch_em_tpu_torch.utils.test import make_image
+
+    factory = getattr(port.models, factory_name)
+    stats = {}
+    gen = np.random.default_rng(11)
+    inputs = [torch.from_numpy(gen.normal(size=(1, 1) + VIT_PATCH[1:]).astype(np.float32))]
+    if label == "UNETR":
+        inputs.append(torch.from_numpy(gen.normal(size=(1, 1, 448, 448)).astype(np.float32)))
+    stats["cpu_vs_card"] = check_cpu_against_card(label, factory, kwargs, inputs)
+
+    def loader(n_samples, shuffle):
+        return port.default_segmentation_loader(
+            raw_files[:-2] if shuffle else raw_files[-2:], None, label_files[:-2] if shuffle else label_files[-2:],
+            None, batch_size=VIT_BATCH, patch_shape=VIT_PATCH, ndim=2, is_seg_dataset=False,
+            label_transform=BoundaryTransform(add_binary_target=True), num_workers=LOADER_THREADS, shuffle=shuffle,
+            n_samples=n_samples)
+
+    model = factory(**kwargs, device="cuda", seed=0)
+    skip = model.use_skip_connection  # the first norm then reads the input, which needs no gradient
+    shapes = unetr_norm_shapes(model.encoder.embed_dim, skip)
+    norms = (len(shapes), len(shapes) - 1 if skip else len(shapes))
+    np.random.seed(12)
+    torch.manual_seed(12)
+    trainer = port.default_segmentation_trainer(
+        label, model, loader(VIT_BATCH * VIT_FIT, True), loader(VIT_BATCH, False), learning_rate=LEARNING_RATE,
+        device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+    profile_dir = os.path.join(tmp, f"profile-{label}")
+    resumed, launches = fit_and_resume(port, inorm, trainer, VIT_FIT, VIT_RESUME, 1, f"{label} recipe", norms=norms,
+                                       profile_dir=profile_dir, log_mfu=True)
+    traces = os.listdir(profile_dir)
+    if not traces:
+        raise AssertionError(f"{label}: fit(profile_dir=...) wrote no trace")
+    flops = trainer._step_flops
+    x, y = (v.cuda() for v in next(iter(loader(VIT_BATCH, False))))
+    stats["step_ms_as_called"] = time_ms(resumed._train_step, x, y, iters=3, repeats=3)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        resumed._train_step(x, y)
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t) / 5
+    torch.cuda.reset_peak_memory_stats()
+    resumed._train_step(x, y)
+    torch.cuda.synchronize()
+    stats["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    breakdown = device_breakdown(f"{label} training step (bf16 forward, backward, AdamW), batch {VIT_BATCH}",
+                                 lambda: resumed._train_step(x, y), steps=1, top=12)
+    kernels = breakdown.pop("kernels")
+    attention = sum(ms for k, ms in kernels.items() if ATTENTION_KERNELS.search(k))
+    stats.update(step_device_ms=breakdown["device_ms"], step_wall_ms=wall_s * 1e3,
+                 device_idle=max(0.0, 1 - breakdown["device_ms"] / (wall_s * 1e3)),
+                 norm_share=breakdown["norm_ms"] / breakdown["device_ms"],
+                 conv_share=breakdown["conv_ms"] / breakdown["device_ms"],
+                 attention_share=attention / sum(kernels.values()), step_gflop=flops / 1e9, traces=traces,
+                 mfu_bare_step=profiling.mfu(flops, wall_s), sdpa_kernels=sorted(
+                     {k[:60] for k in kernels if ATTENTION_KERNELS.search(k)}))
+    if label == "UNETR":
+        stats["sdpa"] = sdpa_report(vit_module, VIT_BATCH)
+    else:
+        as_called, device, saved = scan_ms(vim_module, VIT_BATCH)
+        layers = len(resumed.model.encoder.layers)
+        stats.update(scan_ms_per_layer=as_called, scan_device_ms_per_layer=device, scan_saved_gib_per_layer=saved,
+                     scan_share=min(1.0, layers * device / breakdown["device_ms"]))
+    log(f"{label} step: {stats['step_ms_as_called']:.2f} ms as called (CUDA events), {wall_s * 1e3:.2f} ms wall, "
+        f"{breakdown['device_ms']:.2f} ms of device kernels (idle {stats['device_idle']:.1%}); {flops / 1e9:.1f} "
+        f"GFLOP per step, MFU {stats['mfu_bare_step']:.2%} of the bf16 peak; peak memory "
+        f"{stats['peak_memory_gib']:.2f} GiB; attention {stats['attention_share']:.1%}, norms "
+        f"{stats['norm_share']:.1%} of the device time; {nvidia_smi()}")
+    del x, y, trainer
+    torch.cuda.empty_cache()
+
+    network = resumed.model.eval()
+    network.dtype = torch.bfloat16
+    image = make_image(np.random.default_rng(14), max(VIT_SERVE))[0][:VIT_SERVE[0], :VIT_SERVE[1]]
+    host, host_stats = serve(port, inorm, network, image, "host", block_shape=VIT_BLOCK, halo=VIT_HALO,
+                             norms=norms[0])
+    device, device_stats = serve(port, inorm, network, image, "device", block_shape=VIT_BLOCK, halo=VIT_HALO,
+                                 norms=norms[0])
+    # the paths reflect-pad a partial edge block differently (the host path per block, the device path the
+    # whole image once; utils/prediction.py:_predict_on_device), and a global attention spreads that over the
+    # whole block: they are compared over the full blocks
+    full = (slice(None),) + tuple(slice(0, s // b * b) for s, b in zip(VIT_SERVE, VIT_BLOCK))
+    check_close(f"{label} {VIT_SERVE}: device-resident path vs host path over the full blocks {host[full].shape}",
+                device[full], host[full])
+    edge = np.abs(device - host)
+    edge[full] = 0
+    log(f"{label}: the partial edge blocks differ between the paths by up to {float(edge.max()):.3g}")
+    stats["serving"] = [host_stats, device_stats]
+    log(f"{label}: {json.dumps(stats)}")
+    del resumed, network, host, device
+    torch.cuda.empty_cache()
+    return launches[0] + host_stats["launches"] + device_stats["launches"], launches[1]
+
+
+def phase_vit_recipes(port, inorm):
+    """The ViM-UNet / UNETR recipe: both models at full width (CPU against card, training with
+    resume, the step broken down, serving), then UNETR3D at a small size against the CPU.
+    Returns the kernels' launches of the two models' training and serving."""
+    fwd = bwd = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_files, label_files = livecell_images(tmp)
+        log(f"LIVECell-sized data: {len(raw_files)} images {np.load(raw_files[0]).shape}")
+        for label, factory_name, kwargs in VIT_RECIPES:
+            f, b = vit_recipe(port, inorm, label, factory_name, kwargs, raw_files, label_files, tmp)
+            fwd, bwd = fwd + f, bwd + b
+    x = torch.from_numpy(np.random.default_rng(15).normal(size=(1, 1, 4, 64, 64)).astype(np.float32))
+    cpu_model = port.models.UNETR3D(**UNETR3D_SMALL, device="cpu", seed=0)
+    card_model = port.models.UNETR3D(**UNETR3D_SMALL, device="cuda", seed=0)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            expected, got = cpu_model(x), card_model(x.cuda()).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    err = float((got - expected).abs().max() / expected.abs().max())
+    log(f"UNETR3D {tuple(x.shape)} float32 (TF32 off), card against CPU: max err {err:.3g} of the largest output "
+        f"(limit {VIT_FEATURE_RTOL})")
+    if got.shape != (1, 2, 4, 64, 64) or not err <= VIT_FEATURE_RTOL:
+        raise AssertionError(f"UNETR3D on the card disagrees with the CPU: {err}")
+    return fwd, bwd
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -1674,14 +2017,17 @@ def main():
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
         assert all(len(s) == NORMS_PER_FORWARD
                    for s in (shapes, train_shapes, dsb_shapes, spoco_shapes, *snemi_shapes.values()))
-        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes)
+        # the recipe's UNETR (vit_b, skip connections) and ViM-UNet (vim_t) decoders at 512x512
+        vit_shapes = {"unetr": unetr_norm_shapes(768, True), "vimunet": unetr_norm_shapes(192, False)}
+        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
-        backward, forward["training"], forward["dsb_training"], forward["spoco_training"] = phase_backward_kernel(
-            inorm, train_shapes, shapes, dsb_shapes, spoco_shapes)
+        backward, forward["training"], forward["dsb_training"], forward["spoco_training"], vit_step_fwd = \
+            phase_backward_kernel(inorm, train_shapes, shapes, dsb_shapes, spoco_shapes, vit_shapes)
+        forward.update(vit_step_fwd)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm, device_ops)
@@ -1701,11 +2047,15 @@ def main():
         log("phase 11: the SPOCO recipe, embeddings, the EMA network and the grid search; the other norms")
         spoco_fwd, spoco_bwd = phase_spoco(port, inorm)
         phase_norm_variants(port)
-        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd
+
+        log("phase 12: the ViM-UNet / UNETR recipe, UNETR vit_b and ViM-UNet vim_t at 512x512; UNETR3D")
+        vit_fwd, vit_bwd = phase_vit_recipes(port, inorm)
+        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
-            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO; backward kernel launches: "
-            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO")
+            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet; "
+            f"backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + "
+            f"{snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -224,3 +224,32 @@ def test_threaded_loader_yields_every_batch():
     assert shapes == [(2, 1, 4, 16, 16)] * 4 + [(1, 1, 4, 16, 16)]
     with pytest.raises(NotImplementedError, match="not ported"):
         DataLoader(ds, worker_mode="process")
+
+
+def _order(loader):
+    return [int(i) for batch in loader for i in batch.reshape(-1)]
+
+
+def test_unseeded_shuffle_follows_torch_manual_seed():
+    """With ``seed=None`` the shuffle draws its seed from torch's global generator (as torch's
+    RandomSampler), so ``torch.manual_seed`` repeats the order; another seed gives another,
+    and each epoch draws anew."""
+    data = np.arange(64, dtype=np.float32)
+    orders = {}
+    for seed in (3, 3, 4):
+        torch.manual_seed(seed)
+        loader = DataLoader(data, batch_size=4, shuffle=True)
+        orders.setdefault(seed, []).append((_order(loader), _order(loader)))
+    (first, second), (first_again, second_again) = orders[3]
+    assert first == first_again and second == second_again
+    assert first != second and sorted(first) == list(range(64))
+    assert orders[4][0][0] != first
+
+
+def test_seeded_shuffle_ignores_torch_manual_seed():
+    data = np.arange(64, dtype=np.float32)
+    torch.manual_seed(0)
+    a = _order(DataLoader(data, batch_size=4, shuffle=True, seed=7))
+    torch.manual_seed(1)
+    b = _order(DataLoader(data, batch_size=4, shuffle=True, seed=7))
+    assert a == b == [int(i) for i in np.random.default_rng(7).permutation(64)]

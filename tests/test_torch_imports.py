@@ -2,7 +2,8 @@
 
 The machine with the card has PyTorch, numpy and scipy but none of jax,
 flax, optax, h5py, tqdm, PIL, imageio, sklearn, napari, pandas,
-tensorboardX, tensorboard or wandb. Here most of them are installed, so a
+tensorboardX, tensorboard or wandb, and neither machine has timm,
+segment_anything or mamba_ssm, whose models the port builds itself. Here most of them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
@@ -28,7 +29,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
-           "tensorboard", "wandb", "torch_em_tpu")
+           "tensorboard", "wandb", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys

@@ -186,7 +186,7 @@ def test_function_passes_gradcheck_in_float64():
     assert torch.autograd.gradcheck(instance_norm, (x,))
 
 
-# Row lengths of the main paths (chip_smoke.norm_shapes) with their row counts:
+# Row lengths of the main paths (chip_smoke.norm_shapes, unetr_norm_shapes) with their row counts:
 # training on 32x256x256 patches, serving on (40, 576, 576) halo blocks (batch
 # 1, rows = channels), and the DSB step.
 TRAINING_ROWS = {2097152: (1, 32, 64), 524288: (32, 64, 128), 131072: (64, 128, 256),
@@ -196,12 +196,16 @@ SERVING_ROWS = {13271040: (1, 32, 64), 3317760: (32, 64, 128), 829440: (64, 128,
 # the DSB step (UNet2d f=64, depth 4, batch 8 of 256x256): rows are 8 x C
 DSB_ROWS = {65536: (8, 512, 1024), 16384: (512, 1024), 4096: (1024, 2048), 1024: (2048, 4096),
             256: (4096, 8192)}
+# the UNETR and ViM-UNet decoders' norms (the recipe's 512x512 input; ConvBlocks from 32x32 to
+# 512x512): rows are C at serving batch 1 and 4 x C at training batch 4
+UNETR_ROWS = {1024: (192, 512, 768, 768, 2048, 3072), 4096: (256, 512, 1024, 2048),
+              16384: (128, 256, 512, 1024), 65536: (64, 128, 256, 512), 262144: (3, 64, 128, 12, 256, 512)}
 # length -> path: A up to 16384 elements; B where the row's inputs fit 8
 # blocks of shared memory; C beyond.
 EXPECTED_PATH = {
     256: "A", 1024: "A", 2048: "A", 4096: "A", 12960: "A", 16384: "A", 65536: "B",
-    103680: "B", 131072: "B", 524288: "B-16-bit-forward", 829440: "B-16-bit-forward",
-    2097152: "C", 3317760: "C", 13271040: "C",
+    103680: "B", 131072: "B", 262144: "B-but-float32-backward", 524288: "B-16-bit-forward",
+    829440: "B-16-bit-forward", 2097152: "C", 3317760: "C", 13271040: "C",
 }
 SMEM_PER_BLOCK = 232448  # 227 KB, the most a Hopper block may use
 
@@ -210,12 +214,15 @@ def _expected_path(length, itemsize, direction):
     path = EXPECTED_PATH[length]
     if path == "B-16-bit-forward":  # only x of a 16-bit row of these lengths fits 8 x 225 KB
         return "B" if itemsize == 2 and direction == "forward" else "C"
+    if path == "B-but-float32-backward":  # all but x and g of a float32 row fit 8 x 225 KB
+        return "C" if itemsize == 4 and direction == "backward" else "B"
     return path
 
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS], ids=["training", "serving", "dsb"])
+@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS],
+                         ids=["training", "serving", "dsb", "unetr"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize

@@ -39,7 +39,10 @@ class DataLoader:
     ``batch_size``, ``shuffle`` (a mutable attribute), ``num_workers``,
     ``drop_last``, ``collate_fn``, ``prefetch_factor`` and ``seed`` (of the
     shuffling ``np.random.default_rng``) mean what they mean in the JAX
-    package. Other torch DataLoader keyword arguments are accepted and unused.
+    package. With ``seed=None`` each epoch's permutation comes from a seed
+    drawn from torch's global generator, as torch's ``RandomSampler`` draws
+    it, so ``torch.manual_seed`` fixes the order. Other torch DataLoader
+    keyword arguments are accepted and unused.
     """
 
     def __init__(
@@ -65,7 +68,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.collate_fn = collate_fn or default_collate
         self.prefetch_factor = prefetch_factor
-        self._rng = np.random.default_rng(seed)
+        self._rng = None if seed is None else np.random.default_rng(seed)
         self.init_kwargs = {
             "batch_size": batch_size, "shuffle": shuffle, "num_workers": num_workers,
             "drop_last": drop_last, "prefetch_factor": prefetch_factor, "worker_mode": worker_mode,
@@ -84,7 +87,11 @@ class DataLoader:
     def _batches(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:
-            idx = self._rng.permutation(idx)
+            if self._rng is None:
+                seed = int(torch.empty((), dtype=torch.int64).random_().item())
+                idx = torch.randperm(len(idx), generator=torch.Generator().manual_seed(seed)).numpy()
+            else:
+                idx = self._rng.permutation(idx)
         batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]

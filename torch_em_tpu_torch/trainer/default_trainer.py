@@ -27,7 +27,13 @@ The step is eager PyTorch: forward, ``loss.backward()``, optimizer step.
 ``steps_per_execution=k`` is accepted and runs its k steps one by one; the
 JAX package stages k batches into one ``lax.scan`` to save TPU dispatches,
 and that scan computes the same k steps in order. Progress is reported with
-plain prints. The logger defaults to ``None`` (see ``logger_base``).
+plain prints, or by a ``progress`` object (``update(1)`` per step, as a
+tqdm bar takes it) handed to ``fit``. ``fit(profile_dir=...)`` traces steps
+3 to 7 of each epoch with ``torch.profiler``; ``fit(log_mfu=True)`` counts
+the FLOPs of the first step (``utils.profiling.estimate_step_flops``) and
+prints the model FLOPs utilisation at the end of each epoch on a card whose
+peak ``utils.profiling.peak_flops`` knows. The logger defaults to ``None``
+(see ``logger_base``).
 """
 
 import contextlib
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models.base import resolve_device
+from ..utils import profiling
 from .optimizers import OptimizerSpec, ReduceLROnPlateau, get_learning_rate
 from .serialization import deserialize_value, resolve_path, serialize_value, serialize_value_or_pickle
 
@@ -132,6 +139,7 @@ class DefaultTrainer:
         self.logger_kwargs = logger_kwargs
         self.logger = None
         self.torch_optimizer: Optional[torch.optim.Optimizer] = None
+        self._step_flops: Optional[float] = None  # FLOPs of one step, counted with log_mfu
         self.seed = seed
         # random numbers of the losses that draw them (``needs_rng``), on the training device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -363,15 +371,28 @@ class DefaultTrainer:
             self.logger.log_train(step, float(loss), lr, x, y, pred)
         buffer.clear()
 
-    def _train_epoch(self):
+    def _train_epoch(self, progress=None, profile_dir: Optional[str] = None, log_mfu: bool = False):
         self.model.train()
         n_iter = 0
         t_start = time.time()
         lr = get_learning_rate(self.torch_optimizer)
         buffer = []
+        tracing = None
         for x, y in self.train_loader:
             x, y = self._to_device(x), self._to_device(y)
-            loss, pred = self._train_step(x, y)
+            if profile_dir is not None:
+                # trace steps [3, 8) of the epoch, after the first steps' warm-up
+                if n_iter == 3 and tracing is None:
+                    tracing = profiling.start_trace(profile_dir)
+                elif n_iter == 8 and tracing is not None:
+                    profiling.stop_trace(tracing, profile_dir, f"trace-iteration{self._iteration - 5}")
+                    tracing = None
+            if log_mfu and self._step_flops is None:
+                result = []
+                self._step_flops = profiling.estimate_step_flops(lambda: result.append(self._train_step(x, y))) or 0.0
+                loss, pred = result[0]
+            else:
+                loss, pred = self._train_step(x, y)
             if self.logger is not None:
                 want_images = self._iteration % self.log_image_interval == 0
                 buffer.append((self._iteration, loss, lr, (x, y, pred) if want_images else None))
@@ -379,12 +400,27 @@ class DefaultTrainer:
                     self._flush(buffer)
             self._iteration += 1
             n_iter += 1
+            if progress is not None:
+                progress.update(1)
             if self._iteration >= self.max_iteration:
                 break
         if self.logger is not None:
             self._flush(buffer)
+        if tracing is not None:
+            profiling.stop_trace(tracing, profile_dir, f"trace-iteration{self._iteration - n_iter + 3}")
         self._sync()
-        return (time.time() - t_start) / max(n_iter, 1)
+        t_per_iter = (time.time() - t_start) / max(n_iter, 1)
+        if log_mfu and self._step_flops:
+            self._print_mfu(t_per_iter)
+        return t_per_iter
+
+    def _print_mfu(self, t_per_iter):
+        util = profiling.mfu(self._step_flops, t_per_iter, self.device)
+        if util is not None:
+            print(f"train step: {self._step_flops / 1e9:.1f} GFLOP, {t_per_iter:.4f} s/it, MFU {100 * util:.1f}%")
+        else:
+            print(f"train step: {self._step_flops / 1e9:.1f} GFLOP, {t_per_iter:.4f} s/it, MFU not known "
+                  f"(no peak for {self.device})")
 
     def _validate(self):
         self.model.eval()
@@ -410,9 +446,16 @@ class DefaultTrainer:
         load_from_checkpoint: Optional[str] = None,
         epochs: Optional[int] = None,
         save_every_kth_epoch: Optional[int] = None,
+        progress=None,
         overwrite_training: bool = True,
+        profile_dir: Optional[str] = None,
+        log_mfu: bool = False,
     ):
-        """Run training; exactly one of 'iterations' or 'epochs' must be given."""
+        """Run training; exactly one of 'iterations' or 'epochs' must be given.
+
+        ``progress`` (a tqdm bar, say) gets ``update(1)`` per step; ``profile_dir`` receives a
+        Chrome trace of steps 3 to 7 of each epoch; ``log_mfu`` prints the step's FLOPs and the
+        model FLOPs utilisation at the end of each epoch."""
         best_metric = self._initialize(iterations, load_from_checkpoint, epochs)
 
         if not overwrite_training:
@@ -435,7 +478,7 @@ class DefaultTrainer:
         train_time_start = time.time()
         while self._epoch < self.max_epoch and self._iteration < self.max_iteration:
             self.train_loader.set_epoch(self._epoch)
-            t_per_iter = self._train_epoch()
+            t_per_iter = self._train_epoch(progress, profile_dir=profile_dir, log_mfu=log_mfu)
             current_metric = self._validate()
             self.current_metric = current_metric
 

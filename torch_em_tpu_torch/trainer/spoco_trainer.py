@@ -140,8 +140,8 @@ class SPOCOTrainer(DefaultTrainer):
             metric = loss
         return loss, metric, pred
 
-    def _train_epoch(self):
-        t_per_iter = super()._train_epoch()
+    def _train_epoch(self, progress=None, profile_dir=None, log_mfu=False):
+        t_per_iter = super()._train_epoch(progress, profile_dir=profile_dir, log_mfu=log_mfu)
         if self.semisupervised_loader is not None:
             for x in self.semisupervised_loader:
                 self._semisupervised_step(self._to_device(x))

@@ -1,4 +1,5 @@
 from .convert import state_dict_from_jax_params
+from .training import parser_helper
 from .io import RoiWrapper, get_dataset_shape, load_data, load_image, open_container, supports_memmap, write_data
 from .prediction import Blocking, predict_with_halo, predict_with_padding
 from .segmentation import (
@@ -11,7 +12,7 @@ from .util import (
 )
 
 __all__ = [
-    "Blocking", "predict_with_halo", "predict_with_padding", "state_dict_from_jax_params",
+    "Blocking", "predict_with_halo", "predict_with_padding", "state_dict_from_jax_params", "parser_helper",
     "RoiWrapper", "load_data", "load_image", "supports_memmap", "open_container", "get_dataset_shape",
     "write_data", "get_trainer", "get_normalizer", "load_model", "model_is_equal", "get_constructor_arguments",
     "get_random_colors", "is_compiled", "auto_compile", "connected_components_with_boundaries",

@@ -1,4 +1,6 @@
-"""Carry U-Net weights from the JAX package's flax variables into the port.
+"""Carry the JAX package's flax weights into the port's models.
+
+U-Nets (``state_dict_from_jax_params``):
 
 The port keeps its own copy of the mapping in
 ``torch_em_tpu/utils/modelzoo.py:torch_state_dict_from_flax``: flax block
@@ -13,14 +15,28 @@ the upsamplers' and the output's 1x1 convs are flax ``Dense`` layers with an
 child (``GroupNorm_0``, ``BatchNorm_0``, ``_InstanceNormTrackStats_0``)
 become ``weight`` and ``bias``, and the ``mean`` and ``var`` of the
 ``batch_stats`` collection ``running_mean`` and ``running_var``.
+
+Transformer models (``vit_state_dict_from_jax_params``,
+``vim_state_dict_from_jax_params``, ``unetr_state_dict_from_jax_params``,
+``unetr3d_state_dict_from_jax_params``): the port's names are
+segment-anything's for the ViT, hustvl/Vim's for the ViM and torch-em's for
+the UNETR decoder (the port's copy of the JAX package's
+``utils/modelzoo.py:_torch_state_dict_unetr``). Dense kernels (I, O) become
+(O, I), except the upsamplers', which become 1x1 conv weights; the Mamba
+layers' depthwise conv kernels (K, 1, E) become (E, 1, K); flax's ``scale``
+becomes ``weight``.
 """
 
-from typing import Dict, Optional
+import re
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax_params"]
+__all__ = [
+    "state_dict_from_jax_params", "vit_state_dict_from_jax_params", "vim_state_dict_from_jax_params",
+    "unetr_state_dict_from_jax_params", "unetr3d_state_dict_from_jax_params",
+]
 
 
 def _conv_weight(kernel: np.ndarray, spatial_rank: int) -> np.ndarray:
@@ -107,3 +123,172 @@ def state_dict_from_jax_params(
         for key in [k for k in result if k.endswith(".running_mean")]:
             result[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
     return result
+
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# (module path pattern, port module path, kind of its kernel): "linear" (I, O) -> (O, I), "conv"
+# (flax conv or dense 1x1) -> torch conv weight, "depthwise" (K, 1, E) -> (E, 1, K); other
+# leaves (biases, scales, statistics) and the bare tensors (``_*_TENSORS``) keep their layout
+_Rules = List[Tuple[str, str, str]]
+
+_VIT_RULES: _Rules = [
+    (r"patch_embed", "patch_embed.proj", "conv"),
+    (r"block(\d+)/norm([12])", r"blocks.\1.norm\2", "linear"),
+    (r"block(\d+)/attn/(qkv|proj)", r"blocks.\1.attn.\2", "linear"),
+    (r"block(\d+)/mlp_lin([12])", r"blocks.\1.mlp.lin\2", "linear"),
+    (r"neck_conv1", "neck.0", "conv"), (r"neck_ln1", "neck.1", "linear"),
+    (r"neck_conv2", "neck.2", "conv"), (r"neck_ln2", "neck.3", "linear"),
+]
+_VIT_TENSORS = [(r"pos_embed", "pos_embed"), (r"block(\d+)/attn/(rel_pos_[hw])", r"blocks.\1.attn.\2")]
+
+_VIM_RULES: _Rules = [
+    (r"patch_embed", "patch_embed.proj", "conv"),
+    (r"norm_f", "norm_f", "linear"),
+    # variant "hustvl": hustvl/Vim's Block(norm, mixer)
+    (r"block(\d+)/norm", r"layers.\1.norm", "linear"),
+    (r"block(\d+)/(in_proj|out_proj|x_proj|x_proj_b|dt_proj|dt_proj_b)", r"layers.\1.mixer.\2", "linear"),
+]
+_VIM_TENSORS = [
+    (r"pos_embed", "pos_embed"), (r"cls_token", "cls_token"),
+    (r"block(\d+)/(A_log|D|D_b)", r"layers.\1.mixer.\2"), (r"block(\d+)/A_log_b", r"layers.\1.mixer.A_b_log"),
+    (r"block(\d+)/conv1d(_b)?_bias", r"layers.\1.mixer.conv1d\2.bias"),
+]
+_VIM_DEPTHWISE = [(r"block(\d+)/conv1d(_b)?_kernel", r"layers.\1.mixer.conv1d\2.weight")]
+# variant "native": the JAX package's MambaBlock, one set of direction parameters
+_VIM_NATIVE_RULES: _Rules = [
+    (r"patch_embed", "patch_embed.proj", "conv"),
+    (r"norm_f", "norm_f", "linear"),
+    (r"block(\d+)/(norm|in_proj|out_proj|x_proj)", r"layers.\1.\2", "linear"),
+]
+_VIM_NATIVE_TENSORS = [(r"pos_embed", "pos_embed"), (r"block(\d+)/(A_log|D|dt_bias)", r"layers.\1.\2")]
+_VIM_NATIVE_DEPTHWISE = [(r"block(\d+)/conv_kernel", r"layers.\1.conv1d.weight")]
+
+
+def _convert(value, kind: str, spatial_rank: int) -> np.ndarray:
+    value = np.asarray(value, dtype=np.float32)
+    if kind == "tensor" or value.ndim < 2:
+        return value
+    if kind == "linear":
+        return value.T
+    if kind == "depthwise":
+        return value.transpose(2, 1, 0)
+    return _conv_weight(value, spatial_rank)
+
+
+def _map(flat: Dict[str, np.ndarray], rules: _Rules, tensors=(), depthwise=(), spatial_rank: int = 2,
+         prefix: str = "") -> Dict[str, np.ndarray]:
+    """Rename every entry of ``flat`` (``/``-joined flax keys) by the first rule that matches it
+    whole; an entry that no rule matches raises."""
+    state = {}
+    for key, value in flat.items():
+        module, _, leaf = key.rpartition("/")
+        candidates = [(p, t, "tensor", key, "") for p, t in tensors] + \
+                     [(p, t, "depthwise", key, "") for p, t in depthwise]
+        if leaf in _LEAF:
+            candidates += [(p, t, kind if leaf == "kernel" else "linear", module, "." + _LEAF[leaf])
+                           for p, t, kind in rules]
+        for pattern, target, kind, subject, suffix in candidates:
+            match = re.fullmatch(pattern, subject)
+            if match:
+                state[prefix + match.expand(target) + suffix] = _convert(value, kind, spatial_rank)
+                break
+        else:
+            raise ValueError(f"Unmapped parameter: {key}")
+    return state
+
+
+def _tensors(state: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    result = {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in state.items()}
+    for key in [k for k in result if k.endswith(".running_mean")]:  # torch's counter, which flax does not keep
+        result[key.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
+    return result
+
+
+def _subtree(flat: Dict[str, np.ndarray], top: str) -> Dict[str, np.ndarray]:
+    return {k[len(top) + 1:]: v for k, v in flat.items() if k.startswith(top + "/")}
+
+
+def vit_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``ViT``'s flattened ``params`` onto the port's ``ViT`` (segment-anything's names)."""
+    return _tensors(_map(flat, _VIT_RULES, _VIT_TENSORS))
+
+
+def _vim_state(flat: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    if any(re.fullmatch(r"block\d+/conv_kernel", k) for k in flat):
+        return _map(flat, _VIM_NATIVE_RULES, _VIM_NATIVE_TENSORS, _VIM_NATIVE_DEPTHWISE, prefix=prefix)
+    return _map(flat, _VIM_RULES, _VIM_TENSORS, _VIM_DEPTHWISE, prefix=prefix)
+
+
+def vim_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``ViM``'s flattened ``params`` (either variant) onto the port's ``ViM``
+    (hustvl/Vim's names for the ``"hustvl"`` variant)."""
+    return _tensors(_vim_state(flat))
+
+
+def _deconv_rules(top: str, dst: str) -> _Rules:
+    """torch-em's ``Deconv2DBlock``: upsampler ``block.0.conv``, conv ``block.1.block``, norm ``block.2``."""
+    return [(f"{top}/up/conv", f"{dst}.block.0.conv", "conv"), (f"{top}/conv", f"{dst}.block.1.block", "conv"),
+            (f"{top}/bn", f"{dst}.block.2", "conv")]
+
+
+def _conv_block_rules(top: str, dst: str) -> _Rules:
+    return [(f"{top}/conv0", f"{dst}.block.1", "conv"), (f"{top}/conv1", f"{dst}.block.4", "conv")]
+
+
+def unetr_state_dict_from_jax_params(
+    flat: Dict[str, np.ndarray], batch_stats: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A flax ``UNETRModule``'s flattened ``params`` and ``batch_stats`` (its deconvolutions'
+    batch norms) onto the port's ``UNETRModule``: the ViT encoder (``encoder/``) or the ViM of
+    a ViM-UNet (``encoder_module/``), then the decoder with torch-em's names."""
+    # the JAX module keeps an encoder given to it under "encoder_module"
+    top = "encoder_module" if any(k.startswith("encoder_module/") for k in flat) else "encoder"
+    encoder = _subtree(flat, top)
+    if any(re.fullmatch(r"block\d+/attn/.*", k) for k in encoder):
+        state = _map(encoder, _VIT_RULES, _VIT_TENSORS, prefix="encoder.")
+    else:
+        state = _vim_state(encoder, prefix="encoder.")
+    skip = any(k.startswith("deconv2_1/") for k in flat)
+    rules = _deconv_rules("deconv1", "deconv1")
+    if skip:
+        for stage, n in ((2, 2), (3, 3)):
+            for j in range(n):
+                rules += _deconv_rules(f"deconv{stage}_{j}", f"deconv{stage}.{j}")
+        rules += _conv_block_rules("deconv4", "deconv4")
+    else:
+        rules += _deconv_rules("deconv2_0", "deconv2") + _deconv_rules("deconv3_0", "deconv3")
+        rules += _deconv_rules("deconv4", "deconv4")
+    rules += _conv_block_rules("base_block", "base") + _conv_block_rules("decoder_head", "decoder_head")
+    rules += [(r"decoder_blocks_(\d+)/conv0", r"decoder.blocks.\1.block.1", "conv"),
+              (r"decoder_blocks_(\d+)/conv1", r"decoder.blocks.\1.block.4", "conv"),
+              (r"decoder_samplers_(\d+)/conv", r"decoder.samplers.\1.conv", "conv"),
+              ("deconv_out/conv", "deconv_out.conv", "conv"), ("out_conv", "out_conv", "conv")]
+    decoder = {k: v for k, v in flat.items() if not k.startswith(("encoder/", "encoder_module/"))}
+    state.update(_map(decoder, rules))
+    state.update(_map(batch_stats or {}, rules))
+    return _tensors(state)
+
+
+def unetr3d_state_dict_from_jax_params(
+    flat: Dict[str, np.ndarray], batch_stats: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A flax ``UNETR3DModule``'s flattened ``params`` and ``batch_stats`` (the strip
+    poolings' batch norms) onto the port's ``UNETR3DModule``."""
+    encoder_top = next(k.split("/")[0] for k in flat if k.startswith("ViT_"))
+    state = _map(_subtree(flat, encoder_top), _VIT_RULES, _VIT_TENSORS, prefix="encoder.")
+
+    def with_strip(top, dst):
+        return [(f"{top}/conv/conv0", f"{dst}.conv.block.1", "conv"), (f"{top}/conv/conv1", f"{dst}.conv.block.4", "conv"),
+                (f"{top}/strip/conv1", f"{dst}.strip.conv1", "conv"), (f"{top}/strip/bn1", f"{dst}.strip.bn1", "conv"),
+                (f"{top}/strip/conv2", f"{dst}.strip.conv2", "conv")]
+
+    rules = []
+    for top in ("deconv1", "deconv2", "deconv3", "deconv4", "deconv_out"):
+        rules += [(f"{top}/up/conv", f"{top}.up.conv", "conv")] + with_strip(f"{top}/conv", f"{top}.conv")
+    rules += with_strip("base", "base") + with_strip("decoder_head", "decoder_head")
+    rules += with_strip(r"decoder(\d+)", r"decoders.\1")
+    rules += [(r"sampler(\d+)/conv", r"samplers.\1.conv", "conv"), ("out_conv", "out_conv", "conv")]
+    decoder = {k: v for k, v in flat.items() if not k.startswith(encoder_top + "/")}
+    state.update(_map(decoder, rules, spatial_rank=3))
+    state.update(_map(batch_stats or {}, rules, spatial_rank=3))
+    return _tensors(state)
