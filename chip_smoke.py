@@ -34,7 +34,7 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    batch 1, over ``SegmentationDataset``s of a seeded raw volume and its
    instance labels (connected components of a threshold) written as
    ``.npy`` files to a temporary directory, with the affinity target of
-   ``DeviceAffinityTransform`` computed inside the step; fits 32 iterations
+   ``DeviceAffinityTransform`` computed inside the step; fits 24 iterations
    over 2 epochs, rebuilds the trainer with ``DefaultTrainer.from_checkpoint``
    (the transform included) and resumes for 8 more; checks iteration
    counts, a finite and falling loss, both kernels' launch counts and the
@@ -96,16 +96,36 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    shrinking); trained by ``default_segmentation_trainer`` (AdamW 1e-4, bf16,
    batch 4 of 512x512 patches of 8 seeded 704x520 grayscale images through
    ``default_segmentation_loader`` with ``BoundaryTransform(add_binary_target=True)``
-   targets) for 16 iterations with ``fit(profile_dir=..., log_mfu=True)`` and 4
+   targets) for 12 iterations with ``fit(profile_dir=..., log_mfu=True)`` and 4
    more after ``from_checkpoint``; the bare step timed as called and on the
    device, broken down by the profiler (attention, norms, convs), its peak
    memory and MFU, the SDPA backends that take the float bias and the bias's
    bf16 rounding against float64 (UNETR), one Mamba layer's scan timed forward
    and backward (ViM-UNet); then a 1536x1536 image served in 448x448 blocks with
    a 32 px halo through both paths in bf16; last, ``UNETR3D`` at a small depth
-   and width on the card against the CPU.
+   and width on the card against the CPU;
+13. self-training at DSB width (``UNet2d(1, 2, f=64)``, batch 8 of 256x256,
+   bf16, AdamW at lr 1e-4) on phase 9's images: the labelled source through
+   ``default_segmentation_loader`` with ``BoundaryTransform`` targets, the
+   unlabelled target as two views through
+   ``get_default_mean_teacher_augmentations``. ``MeanTeacherTrainer``
+   semi-supervised with a fresh teacher, then, from its student,
+   ``MeanTeacherTrainer`` unsupervised, ``FixMatchTrainerWithInvertible
+   Augmentations`` and ``UniMatchv2Trainer`` (``DefaultPseudoLabeler`` at
+   confidence 0.9), then ``ProbabilisticUNetTrainer`` on the factory's
+   defaults (binary targets, 16 prior samples) and ``FlashOptimTrainer``:
+   each 16 iterations with ``fit(log_mfu=True)`` and 4 more after
+   ``from_checkpoint`` (the teacher restored bitwise); each bare step timed
+   as called and on the device, broken down by the profiler with the norms'
+   and the teacher forward's shares, its peak memory and MFU; the teacher's
+   moving average, the invertible augmenters (the 16 geometric draws undone
+   bitwise, blur and noise against the CPU), the pseudo-labels and the
+   Probabilistic U-Net (float32, TF32 off, a given noise draw) on the card
+   against the CPU; FlashOptim's parameters and moments bf16.
 
-Phases 3 and 5 also hold both kernels at the DSB and SPOCO steps' shapes
+Phases 3 and 5 also hold both kernels at the self-training steps' shapes
+(UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
+U-Net's U-Net, widths 32 to 384, at batch 8), and at the DSB and SPOCO steps' shapes
 (batch 8, rows 8 x C from 8 x 1 to 8 x 1024 and 8 x 512, 65536 down to 256
 elements), and phase 5 times them there. Phase 3 also holds the forward kernel at the SNEMI
 recipe's serving blocks (40x320x320 with the halo) and validation blocks
@@ -122,6 +142,7 @@ device, or when any phase fails, it exits nonzero and prints no result line.
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -169,8 +190,8 @@ GRAPH_CALLS = 20
 # the training path
 TRAIN_VOLUME = (48, 384, 384)
 TRAIN_PATCH = (32, 256, 256)
-TRAIN_SAMPLES, VAL_SAMPLES = 16, 2
-FIT_ITERATIONS, RESUME_ITERATIONS = 32, 8
+TRAIN_SAMPLES, VAL_SAMPLES = 12, 2
+FIT_ITERATIONS, RESUME_ITERATIONS = 24, 8
 LEARNING_RATE = 1e-4
 # the tracked benchmark's affinity offset (one output channel)
 OFFSETS = [[-1, 0, 0]]
@@ -229,7 +250,7 @@ VIT_RECIPES = (
                                            final_activation="Sigmoid")),
 )
 LIVECELL_SHAPE, VIT_IMAGES = (520, 704), 10  # 8 to train on, 2 to validate on
-VIT_PATCH, VIT_BATCH, VIT_FIT, VIT_RESUME = (1, 512, 512), 4, 16, 4
+VIT_PATCH, VIT_BATCH, VIT_FIT, VIT_RESUME = (1, 512, 512), 4, 12, 4
 VIT_SERVE, VIT_BLOCK, VIT_HALO = (1536, 1536), (448, 448), (32, 32)
 # the same weights on the CPU and on the card in float32 (TF32 off): sigmoid outputs within 1e-3,
 # encoder features within 1e-3 of their largest magnitude; float32 sums in another order drift
@@ -240,6 +261,16 @@ VIT_CPU_ATOL, VIT_FEATURE_RTOL = 1e-3, 1e-3
 UNETR3D_SMALL = dict(img_size=64, encoder="vit_t", out_channels=2, embed_dim=96, depth=4, num_heads=3,
                      global_attn_indexes=(1, 3))
 ATTENTION_KERNELS = re.compile(r"fmha|flash|attention|sdpa", re.I)
+# self-training (phase 13): the DSB model and batch on phase 9's images, AdamW at lr 1e-4, bf16 compute; the
+# labelled source takes BoundaryTransform targets, the unlabelled target the same images through
+# get_default_mean_teacher_augmentations as two views; 16 iterations and 4 more after from_checkpoint per
+# trainer. The Probabilistic U-Net at the JAX factory's defaults on binary foreground targets.
+ST_FIT, ST_RESUME, ST_CT = 16, 4, 0.9
+PUNET_FILTERS, PUNET_PRIOR_SAMPLES = [32, 64, 128, 192], 16
+# card against CPU: the strong augmenter's blur and noise with given parameters within 1e-6 (float32 sums of
+# three taps); the Probabilistic U-Net's forward and ELBO in float32 with TF32 off, with a given noise draw,
+# within 1e-4 of the largest value; pseudo-labels and masks equal
+ST_AUG_ATOL, PUNET_RTOL, PUNET_CHECK_BATCH = 1e-6, 1e-4, 2
 VARIANT_FACTOR, VARIANT_SLACK = 4.0, {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # one float32 training step (TF32 off), kernels against plain versions, both
 # held against the same step in float64 with the plain versions. The float32
@@ -270,9 +301,14 @@ def nvidia_smi():
     return proc.stdout.strip().splitlines()[0]
 
 
-def norm_shapes(block, scale_factors, initial_features, in_channels=1, gain=2):
-    """(channels, spatial shape) of the instance norms of one U-Net forward, in order."""
-    feats = [initial_features * gain ** i for i in range(len(scale_factors))]
+def widths(initial_features, depth, gain=2):
+    """A U-Net factory's encoder widths: ``initial_features * gain ** level``."""
+    return [initial_features * gain ** i for i in range(depth)]
+
+
+def norm_shapes(block, scale_factors, feats, in_channels=1, gain=2):
+    """(channels, spatial shape) of the instance norms of one U-Net forward, in order; ``feats``
+    are the encoder's widths, one per level, and the base has ``gain`` times the last."""
     shapes, skips, sp, cin = [], [], tuple(block), in_channels
     for f, sf in zip(feats, scale_factors):
         shapes += [(cin, sp), (f, sp)]
@@ -452,12 +488,12 @@ def dsb_paths(inorm, dsb_shapes, dtype, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes):
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes, st_shapes):
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
-    shapes}, and the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
-    1, ``vit_shapes`` {name: shapes}) and time it at the serving path's; returns its entry of
-    the kernels line."""
+    shapes}, the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
+    1, ``vit_shapes`` {name: shapes}, and the self-training steps', ``st_shapes`` {name: (batch,
+    shapes)}) and time it at the serving path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -477,13 +513,13 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
         for x in layout_cases(rand, dtype):
             max_err = max(max_err, check_kernel(inorm.instance_norm, inorm.instance_norm_reference, x))
         log(f"  norm {dtype}: ragged, odd-length, misaligned, strided and channels-last inputs agree")
-        for recipe, batch_shapes in (("DSB", dsb_shapes), ("SPOCO", spoco_shapes)):
+        for recipe, batch, batch_shapes in (("DSB", DSB_BATCH, dsb_shapes), ("SPOCO", DSB_BATCH, spoco_shapes),
+                                            *((name, b, s) for name, (b, s) in st_shapes.items())):
             for c, sp in sorted(set(batch_shapes)):
-                err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
-                                   rand((DSB_BATCH, c) + sp, dtype))
+                err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference, rand((batch, c) + sp, dtype))
                 max_err = max(max_err, err)
-                log(f"  norm {dtype} {recipe} ({DSB_BATCH}, {c}) {sp} path "
-                    f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+                log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
+                    f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
         for recipe, recipe_shapes in vit_shapes.items():
             for batch in (VIT_BATCH, 1):
                 for c, sp in sorted(set(recipe_shapes)):
@@ -543,7 +579,9 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                   **{f"{name}_training": path_counts(inorm, [(VIT_BATCH * c, sp) for c, sp in s], torch.bfloat16,
                                                      "forward") for name, s in vit_shapes.items()},
                   **{f"{name}_serving": path_counts(inorm, s, torch.bfloat16, "forward")
-                     for name, s in vit_shapes.items()}},
+                     for name, s in vit_shapes.items()},
+                  **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.bfloat16, "forward")
+                     for name, (b, s) in st_shapes.items()}},
     }
 
 
@@ -736,10 +774,10 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes):
+def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes):
     """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
-    DSB_BATCH, the UNETR and ViM-UNet steps' at VIT_BATCH) and time both kernels at the
-    training paths' shapes.
+    DSB_BATCH, the UNETR and ViM-UNet steps' at VIT_BATCH, the self-training steps' at their
+    batch) and time both kernels at the training paths' shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
@@ -769,13 +807,14 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
         max_err = max(max_err, check_backward(inorm, rand(g.shape, dtype), g))
         log(f"  backward {dtype}: ragged, odd-length, misaligned, strided, channels-last and "
             f"non-contiguous-gradient cases agree")
-        for recipe, batch_shapes in (("DSB", dsb_shapes), ("SPOCO", spoco_shapes)):
+        for recipe, batch, batch_shapes in (("DSB", DSB_BATCH, dsb_shapes), ("SPOCO", DSB_BATCH, spoco_shapes),
+                                            *((name, b, s) for name, (b, s) in st_shapes.items())):
             for c, sp in sorted(set(batch_shapes)):
-                shape = (DSB_BATCH, c) + sp
+                shape = (batch, c) + sp
                 err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
                 max_err = max(max_err, err)
                 log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
-                    f"{path_of(inorm, (DSB_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+                    f"{path_of(inorm, (batch * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
         for recipe, recipe_shapes in vit_shapes.items():
             for c, sp in sorted(set(recipe_shapes)):
                 shape = (VIT_BATCH, c) + sp
@@ -801,8 +840,9 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
     dsb_fwd, dsb_bwd = time_step_norms(inorm, rand, dsb_shapes, DSB_BATCH, "DSB")
     spoco_fwd, spoco_bwd = time_step_norms(inorm, rand, spoco_shapes, DSB_BATCH, "SPOCO")
     # the ViM-UNet's first norm reads the encoder's features, which need a gradient
-    vit_times = {name: time_step_norms(inorm, rand, s, VIT_BATCH, name, first_has_grad=name == "vimunet")
+    recipe_times = {name: time_step_norms(inorm, rand, s, VIT_BATCH, name, first_has_grad=name == "vimunet")
                  for name, s in vit_shapes.items()}
+    recipe_times.update({name: time_step_norms(inorm, rand, s, b, name) for name, (b, s) in st_shapes.items()})
     for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
                        f"C={c} {sp}")
@@ -827,11 +867,13 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes[1:]],
                                               torch.bfloat16, "backward"),
                   "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes[1:]],
-                                                torch.bfloat16, "backward")},
+                                                torch.bfloat16, "backward"),
+                  **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s[1:]], torch.bfloat16,
+                                                     "backward") for name, (b, s) in st_shapes.items()}},
         "dsb_training": dsb_bwd,
         "spoco_training": spoco_bwd,
-        **{f"{name}_training": b for name, (f, b) in vit_times.items()},
-    }, fwd, dsb_fwd, spoco_fwd, {f"{name}_training": f for name, (f, b) in vit_times.items()}
+        **{f"{name}_training": b for name, (f, b) in recipe_times.items()},
+    }, fwd, dsb_fwd, spoco_fwd, {f"{name}_training": f for name, (f, b) in recipe_times.items()}
 
 
 def time_step_norms(inorm, rand, shapes, batch, label, first_has_grad=False):
@@ -1087,12 +1129,14 @@ def check_training_gradients(port, inorm, x, y):
 
 
 def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_patches, label, forwards=1,
-                   check_resumed=None, norms=(NORMS_PER_FORWARD, NORMS_PER_FORWARD - 1), **fit_kwargs):
+                   check_resumed=None, norms=(NORMS_PER_FORWARD, NORMS_PER_FORWARD - 1), val_forwards=None,
+                   backwards=1, falling=True, **fit_kwargs):
     """Fit (with ``fit_kwargs``), rebuild with ``from_checkpoint`` (then
-    ``check_resumed(resumed)``), fit on; check iteration counts, a finite and falling loss, the
-    checkpoints and both kernels' launches (counted from 0 here; ``forwards`` model forwards
-    per step and validation batch, ``norms`` the forward norms of a forward and the backward
-    ones of a step). Returns the resumed trainer and the launches."""
+    ``check_resumed(resumed)``), fit on; check iteration counts, a finite (and, with ``falling``,
+    falling) loss, the checkpoints and both kernels' launches (counted from 0 here; ``forwards``
+    model forwards per step, ``val_forwards`` per validation batch (``forwards`` when None),
+    ``backwards`` backward passes per step, ``norms`` the forward norms of a forward and the
+    backward ones of a pass). Returns the resumed trainer and the launches."""
     folder = trainer.checkpoint_folder
     torch.cuda.synchronize()
     inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
@@ -1112,7 +1156,8 @@ def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_
     if trainer.iteration != fit_iterations or resumed.iteration != steps:
         raise AssertionError(f"{label}: iterations {trainer.iteration}, resumed {resumed.iteration}")
     validations = len(trainer.logger.metrics) + len(resumed.logger.metrics)
-    expected = (forwards * norms[0] * (steps + val_patches * validations), norms[1] * steps)
+    val_forwards = forwards if val_forwards is None else val_forwards
+    expected = (norms[0] * (forwards * steps + val_forwards * val_patches * validations), backwards * norms[1] * steps)
     log(f"{label}: launches forward {launches[0]}, backward {launches[1]} for {steps} steps and "
         f"{validations} validations of {val_patches} patch(es) (expected {expected})")
     if launches != expected:
@@ -1121,7 +1166,7 @@ def fit_and_resume(port, inorm, trainer, fit_iterations, resume_iterations, val_
     first, last = float(np.mean(losses[:4])), float(np.mean(losses[fit_iterations - 4:fit_iterations]))
     log(f"{label}: loss over {len(losses)} steps: first four {first:.4f}, last four of the first fit "
         f"{last:.4f}, last {losses[-1]:.4f}; fit {fit_iterations} iterations in {fit_s:.2f} s wall")
-    if len(losses) != steps or not np.all(np.isfinite(losses)) or not last < first:
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or (falling and not last < first):
         raise AssertionError(f"{label}: the training loss is not finite or does not fall")
     if not {"best.ckpt", "latest.ckpt"} <= set(os.listdir(folder)):
         raise AssertionError(f"{label}: checkpoints {os.listdir(folder)}")
@@ -1578,7 +1623,7 @@ def phase_spoco(port, inorm):
 
         resumed, launches = fit_and_resume(port, inorm, trainer, SPOCO_FIT, SPOCO_RESUME, 1, "SPOCO recipe",
                                            forwards=2, check_resumed=model2_restored)
-        check_ema(resumed, stats)
+        check_ema(resumed.model2, resumed.model, resumed.ema_update, resumed.momentum, stats)
 
         rate = loader_rate(resumed, loader(DSB_BATCH * (LOADER_STEPS + 2)), steps=LOADER_STEPS)
         stats["loader_patches_per_s"] = rate
@@ -1649,21 +1694,21 @@ def phase_spoco(port, inorm):
     return launches[0] + predicted, launches[1]
 
 
-def check_ema(trainer, stats):
-    """One EMA update of ``trainer.model2`` on the card against t * m + s * (1 - m) on the CPU."""
-    m = trainer.momentum
-    before = {k: v.detach().cpu().clone() for k, v in trainer.model2.state_dict().items()}
-    source = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
-    trainer.ema_update()
+def check_ema(target, source_model, update, m, stats):
+    """One moving-average update (``update()``) of ``target`` on the card against t * m + s * (1 - m)
+    on the CPU from the same tensors, s those of ``source_model``."""
+    before = {k: v.detach().cpu().clone() for k, v in target.state_dict().items()}
+    source = {k: v.detach().cpu() for k, v in source_model.state_dict().items()}
+    update()
     torch.cuda.synchronize()
     err = 0.0
-    for name, value in trainer.model2.state_dict().items():
+    for name, value in target.state_dict().items():
         expected = before[name] * m + source[name] * (1.0 - m)
         got = value.cpu()
         if not torch.allclose(got, expected, rtol=EMA_RTOL, atol=EMA_ATOL):
             raise AssertionError(f"EMA update of {name} on the card differs from the CPU's")
         err = max(err, float((got - expected).abs().max()))
-    stats["ema_ms"] = time_ms(trainer.ema_update, iters=10, repeats=3)
+    stats["ema_ms"] = time_ms(update, iters=10, repeats=3)
     log(f"EMA update on the card of {len(before)} tensors: max abs err {err:.3g} against the CPU (rtol "
         f"{EMA_RTOL}, atol {EMA_ATOL}); {stats['ema_ms']:.3f} ms as called")
 
@@ -1976,6 +2021,285 @@ def phase_vit_recipes(port, inorm):
     return fwd, bwd
 
 
+class SelfTrainingLog:
+    """LossLog for the self-training trainers: a step's loss is its combined loss where there is
+    one (semi-supervised), else its unsupervised loss; one metric per validation."""
+
+    def __init__(self, trainer, save_root, **kwargs):
+        self.by_step, self.metrics = {}, []
+
+    @property
+    def losses(self):
+        return list(self.by_step.values())
+
+    def log_train(self, step, loss, lr, x, y, prediction, log_gradients=False):
+        self.by_step[step] = loss
+
+    def log_train_unsupervised(self, step, loss, *args):
+        self.by_step.setdefault(step, loss)
+
+    def log_combined_loss(self, step, loss):
+        self.by_step[step] = loss
+
+    def log_train_supervised(self, *args):
+        pass
+
+    def log_lr(self, *args):
+        pass
+
+    def log_ct(self, *args):
+        pass
+
+    def log_validation(self, step, metric, *args):
+        self.metrics.append(metric)
+
+    log_validation_supervised = log_validation_unsupervised = log_validation
+
+
+def check_augmenters(port, shape):
+    """The invertible augmenters on the card: each of the 16 geometric draws of the weak augmenter
+    undone bitwise; the strong augmenter's blur and noise with given parameters against the CPU."""
+    from torch_em_tpu_torch.transforms.invertible_augmentations import InvertibleAugmenter
+
+    x = card_rand(card_generator(20), shape, torch.float32)
+    weak, strong = InvertibleAugmenter("weak"), InvertibleAugmenter("strong")
+    for k in (-1, 0, 1, 2):
+        for hflip in (False, True):
+            for vflip in (False, True):
+                params = {"hflip": hflip, "vflip": vflip, "k": k}
+                if not torch.equal(weak.inverse(weak.apply(x, params), params), x):
+                    raise AssertionError(f"the weak augmenter's inverse does not undo {params} on the card")
+    noise = torch.randn(shape, generator=torch.Generator().manual_seed(21)) * strong.noise_std
+    err = 0.0
+    for sigma in (1e-4, 0.1, 0.55, 1.0):
+        params = {"hflip": True, "vflip": False, "k": -1, "sigma": sigma, "noise": noise}
+        got = strong.apply(x, {**params, "noise": noise.cuda()}).cpu()
+        expected = strong.apply(x.cpu(), params)
+        err = max(err, float((got - expected).abs().max()))
+    draws = [strong.draw(x, torch.Generator().manual_seed(s), card_generator(s)) for s in range(8)]
+    if not (err <= ST_AUG_ATOL and all(d["noise"] is None or d["noise"].device == x.device for d in draws)):
+        raise AssertionError(f"the strong augmenter on the card differs from the CPU by {err}")
+    log(f"invertible augmenters on the card, {shape}: 16 geometric draws undone bitwise; blur and noise with "
+        f"given parameters {err:.3g} from the CPU (limit {ST_AUG_ATOL}); noise drawn on the card")
+
+
+def check_pseudo_labels(st, teacher_out, align):
+    """Pseudo-labels and masks of a teacher output on the card equal the CPU's; so does FixMatch's
+    distribution alignment (``align``, a trainer's), within float32 rounding."""
+    cpu_out = teacher_out.cpu()
+    for labeler in (st.DefaultPseudoLabeler(confidence_threshold=ST_CT),
+                    st.DefaultPseudoLabeler(confidence_threshold=ST_CT, mask_channel=1),
+                    st.DefaultPseudoLabeler(confidence_threshold=ST_CT, threshold_from_both_sides=False)):
+        card, cpu = labeler(lambda t: t, teacher_out), labeler(lambda t: t, cpu_out)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+            raise AssertionError(f"pseudo-labels of {labeler.init_kwargs} on the card differ from the CPU's")
+    aligned, expected = align(teacher_out).cpu(), align(cpu_out)
+    if not torch.allclose(aligned, expected, rtol=1e-6, atol=1e-7):
+        raise AssertionError("FixMatch's distribution alignment on the card differs from the CPU's")
+    share = float(st.DefaultPseudoLabeler(confidence_threshold=ST_CT)(lambda t: t, teacher_out)[1].mean())
+    log(f"pseudo-labels of a teacher output {tuple(teacher_out.shape)}: labels and masks equal to the CPU's "
+        f"(both sides, mask channel, one side), {share:.1%} of the pixels confident at {ST_CT}; "
+        f"the distribution alignment within float32 rounding")
+
+
+def check_punet(port, batch):
+    """The Probabilistic U-Net at its defaults, float32 with TF32 off: the forward and the ELBO on the
+    card, with a given noise draw, against the CPU from the same seed."""
+    x, y = batch[0][:PUNET_CHECK_BATCH].float().cpu(), batch[1][:PUNET_CHECK_BATCH].float().cpu()
+    cpu_model = port.models.ProbabilisticUNet(device="cpu", seed=0)
+    card_model = port.models.ProbabilisticUNet(device="cuda", seed=0)
+    noise = torch.randn(x.shape[0], 6, generator=torch.Generator().manual_seed(22))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            expected = (cpu_model(x), cpu_model.elbo(x, y, noise=noise))
+            got = (card_model(x.cuda()).cpu(), card_model.elbo(x.cuda(), y.cuda(), noise=noise.cuda()).cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, expected)]
+    log(f"Probabilistic U-Net {tuple(x.shape)} float32 (TF32 off), card against CPU: forward {errs[0]:.3g}, "
+        f"ELBO {errs[1]:.3g} of the largest value ({float(expected[1]):.1f}; limit {PUNET_RTOL})")
+    if got[0].shape != x.shape or not max(errs) <= PUNET_RTOL:
+        raise AssertionError(f"the Probabilistic U-Net on the card disagrees with the CPU: {errs}")
+    return errs
+
+
+def st_step_report(label, trainer, batch, fit_flops, teacher=None):
+    """The bare step on a device-resident batch: as called (CUDA events), wall, device (profiler), idle,
+    peak memory, FLOPs and MFU, the top kernels with the norms' share and (``teacher``, a callable) the
+    teacher forward's; ``fit_flops`` is what ``fit(log_mfu=True)`` counted."""
+    from torch_em_tpu_torch.utils import profiling
+
+    def step():
+        trainer._train_step(*batch)
+
+    stats = {"step_ms_as_called": time_ms(step, iters=5, repeats=3)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t) / 5
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    stats["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = profiling.estimate_step_flops(step)
+    breakdown = device_breakdown(f"{label} training step", step)
+    device = breakdown["device_ms"]
+    stats.update(step_wall_ms=wall_s * 1e3, step_device_ms=device, device_idle=max(0.0, 1 - device / (wall_s * 1e3)),
+                 norm_share=breakdown["norm_ms"] / device, conv_share=breakdown["conv_ms"] / device,
+                 step_gflop=flops / 1e9, fit_gflop=fit_flops / 1e9, mfu=profiling.mfu(flops, wall_s))
+    if teacher is not None:
+        with torch.no_grad():
+            stats["teacher_ms"] = sum(profiled_kernels(teacher, 2).values())
+        stats["teacher_share"] = stats["teacher_ms"] / device
+    log(f"{label} step: {stats['step_ms_as_called']:.2f} ms as called (CUDA events), {wall_s * 1e3:.2f} ms wall, "
+        f"{device:.2f} ms of device kernels (idle {stats['device_idle']:.1%}); {flops / 1e9:.1f} GFLOP, MFU "
+        f"{'not known' if stats['mfu'] is None else format(stats['mfu'], '.2%')}; peak memory "
+        f"{stats['peak_memory_gib']:.2f} GiB; norms {stats['norm_share']:.1%}"
+        + ("" if teacher is None else f", the teacher's forward {stats['teacher_share']:.1%}")
+        + f" of the device time; {nvidia_smi()}")
+    return stats
+
+
+def phase_self_training(port, inorm):
+    """Self-training at DSB width: MeanTeacher (unsupervised; semi-supervised with a fresh teacher),
+    FixMatch with its augmenters, UniMatch v2, the Probabilistic U-Net at its defaults and the bf16
+    FlashOptimTrainer, each fitted, resumed from its checkpoint and its bare step measured; the
+    moving average, the augmenters, the pseudo-labels and the Probabilistic U-Net on the card against
+    the CPU. Returns the kernels' launches of the six fits."""
+    from torch_em_tpu_torch import self_training as st
+    from torch_em_tpu_torch.data import RawImageCollectionDataset
+    from torch_em_tpu_torch.transforms import BoundaryTransform, get_default_mean_teacher_augmentations
+
+    check_augmenters(port, (DSB_BATCH,) + DSB_PATCH)
+    stats, launches = {}, [0, 0]
+    adamw = port.OptimizerSpec("adamw", lr=LEARNING_RATE)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_files, label_files = dsb_images(tmp)
+        views = get_default_mean_teacher_augmentations()
+        binary = port.transforms.labels_to_binary
+
+        def labelled(n_samples, shuffle=True, label_transform=BoundaryTransform(add_binary_target=True)):
+            return port.default_segmentation_loader(
+                raw_files, None, label_files, None, batch_size=DSB_BATCH, patch_shape=DSB_PATCH, ndim=2,
+                is_seg_dataset=False, label_transform=label_transform, num_workers=LOADER_THREADS, shuffle=shuffle,
+                n_samples=n_samples)
+
+        def unlabelled(n_samples, shuffle=True):
+            dataset = RawImageCollectionDataset(raw_files, DSB_PATCH[1:], augmentations=(views, views),
+                                                n_samples=n_samples)
+            return port.DataLoader(dataset, batch_size=DSB_BATCH, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+        unsupervised = dict(
+            unsupervised_train_loader=unlabelled(DSB_BATCH * ST_FIT),
+            unsupervised_val_loader=unlabelled(DSB_BATCH, False), unsupervised_loss=st.DefaultSelfTrainingLoss(),
+            unsupervised_loss_and_metric=st.DefaultSelfTrainingLossAndMetric(),
+            pseudo_labeler=st.DefaultPseudoLabeler(confidence_threshold=ST_CT))
+        common = dict(optimizer=adamw, mixed_precision=True, device="cuda", logger=SelfTrainingLog, save_root=tmp)
+        teacher_batch = next(iter(unlabelled(DSB_BATCH, False)))[0].cuda()
+        recipes = [
+            # label, the trainer's class and arguments, fit_and_resume's counts (forwards per step and per
+            # validation batch, backward passes per step) and whether the loss must fall: the supervised losses
+            # must, the unsupervised ones chase a moving teacher and are held finite. The semi-supervised run
+            # comes first: its student,
+            # trained on the labelled source, starts the unsupervised adaptations, as a user adapts a network
+            # to a target that has no labels
+            ("MeanTeacher semi-supervised", st.MeanTeacherTrainer, dict(
+                name="mean_teacher_semi", reinit_teacher=True, supervised_train_loader=labelled(DSB_BATCH * ST_FIT),
+                supervised_val_loader=labelled(DSB_BATCH, False), supervised_loss=st.DefaultSelfTrainingLoss(),
+                supervised_loss_and_metric=st.DefaultSelfTrainingLossAndMetric(),
+                **{k: v for k, v in unsupervised.items() if k != "unsupervised_val_loader"}),
+             dict(forwards=3, val_forwards=1, backwards=2)),
+            ("MeanTeacher", st.MeanTeacherTrainer, dict(name="mean_teacher", **unsupervised),
+             dict(forwards=2, falling=False)),
+            ("FixMatch", st.FixMatchTrainerWithInvertibleAugmentations, dict(
+                name="fix_match", augmenter=st.FixMatchAugmenters(ndim=2), **unsupervised),
+             dict(forwards=2, falling=False)),
+            ("UniMatch v2", st.UniMatchv2Trainer, dict(
+                name="unimatch", augmenter=st.UniMatchv2Augmenters(ndim=2),
+                **{**unsupervised, "unsupervised_loss": st.DefaultUnimatchLoss(),
+                   "unsupervised_loss_and_metric": st.DefaultUnimatchLossAndMetric()}),
+             dict(forwards=2, falling=False)),
+            ("Probabilistic U-Net", st.ProbabilisticUNetTrainer, dict(
+                name="punet", model=None, train_loader=labelled(DSB_BATCH * ST_FIT, label_transform=binary),
+                val_loader=labelled(DSB_BATCH, False, label_transform=binary), loss=st.ProbabilisticUNetLoss(),
+                loss_and_metric=st.ProbabilisticUNetLossAndMetric(prior_samples=PUNET_PRIOR_SAMPLES)), dict()),
+            ("FlashOptim", port.trainer.FlashOptimTrainer, dict(
+                name="flashoptim", train_loader=labelled(DSB_BATCH * ST_FIT), val_loader=labelled(DSB_BATCH, False),
+                loss=port.DiceLoss(), metric=port.DiceLoss()), dict()),
+        ]
+        source = None
+        for label, trainer_class, kwargs, counts in recipes:
+            np.random.seed(13)
+            torch.manual_seed(13)
+            model = port.UNet2d(**DSB_MODEL, depth=DSB_DEPTH, device="cuda", seed=0) if "model" not in kwargs \
+                else port.models.ProbabilisticUNet(device="cuda", seed=0)
+            if "pseudo_labeler" in kwargs and source is not None:
+                model.load_state_dict(source)
+            trainer = trainer_class(**{**kwargs, "model": model}, **common)
+
+            def teacher_restored(resumed, trainer=trainer, label=label):
+                if getattr(trainer, "teacher", None) is None:
+                    return
+                saved = torch.load(os.path.join(trainer.checkpoint_folder, "latest.ckpt"), map_location="cpu",
+                                   weights_only=True)["teacher_state"]
+                restored = resumed.teacher.state_dict()
+                if not (type(resumed) is type(trainer) and restored.keys() == saved.keys()
+                        and all(torch.equal(restored[k].cpu(), saved[k]) for k in saved)):
+                    raise AssertionError(f"{label}: from_checkpoint did not restore the teacher bitwise")
+                log(f"{label}: from_checkpoint restored the teacher bitwise ({len(saved)} tensors)")
+
+            initial = {k: v.detach().to(torch.bfloat16).clone() for k, v in model.named_parameters()}
+            resumed, (fwd, bwd) = fit_and_resume(port, inorm, trainer, ST_FIT, ST_RESUME, 1, label,
+                                                 check_resumed=teacher_restored, log_mfu=True, **counts)
+            # the share of the weights that the fit and the resume moved from their initial bf16 values; in
+            # FlashOptim's bf16 parameters, an AdamW step of about lr is below half an ulp of every weight
+            # with |w| >= 2^-5, which then never moves, but most of the network's weights are smaller
+            after = dict(resumed.model.named_parameters())
+            moved = sum(int((after[k].to(torch.bfloat16) != v).sum()) for k, v in initial.items()) / \
+                sum(v.numel() for v in initial.values())
+            log(f"{label}: {moved:.1%} of the weights moved from their initial bf16 values")
+            if not moved > 0.5:
+                raise AssertionError(f"{label}: only {moved:.1%} of the weights moved in {ST_FIT + ST_RESUME} steps")
+            del initial, after
+            launches[0] += fwd
+            launches[1] += bwd
+            if label == "MeanTeacher semi-supervised":
+                source = {k: v.detach().clone() for k, v in resumed.model.state_dict().items()}
+            teacher = getattr(resumed, "_teacher_forward", None)
+            batch = next(resumed._train_batches())
+            stats[label] = st_step_report(label, resumed, batch, trainer._step_flops,
+                                          None if teacher is None else lambda: teacher(teacher_batch))
+            stats[label]["moved_share"] = moved
+            if teacher is not None:
+                with torch.no_grad():
+                    labels = resumed._pseudo_labels(teacher_batch)
+                stats[label]["confident_share"] = float(labels[1].mean())
+                log(f"{label}: {stats[label]['confident_share']:.1%} of the pseudo-labels confident at {ST_CT}")
+            if label == "MeanTeacher":
+                check_ema(resumed.teacher, resumed.model, resumed.ema_update,
+                          float(np.float32(resumed._current_momentum())), stats[label])
+            elif label == "FixMatch":
+                with torch.no_grad():
+                    check_pseudo_labels(st, teacher(teacher_batch), resumed._distribution_alignment)
+            elif label == "Probabilistic U-Net":
+                stats[label]["card_against_cpu"] = check_punet(port, batch)
+            elif label == "FlashOptim":
+                moments = {v.dtype for s in resumed.torch_optimizer.state.values() for k, v in s.items() if k != "step"}
+                params = {p.dtype for p in resumed.model.parameters()}
+                if params != {torch.bfloat16} or moments != {torch.bfloat16}:
+                    raise AssertionError(f"FlashOptim: parameters {params}, AdamW moments {moments}")
+                log("FlashOptim: parameters and AdamW moments are bfloat16 after the fit and the resume")
+            shutil.rmtree(trainer.checkpoint_folder)
+            del trainer, resumed, batch, teacher, model
+            torch.cuda.empty_cache()
+        log(f"self-training: {json.dumps(stats)}")
+    return launches
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -2006,28 +2330,35 @@ def main():
 
         def tracked_shapes(block, halo=(0, 0, 0)):
             block = tuple(b + 2 * h for b, h in zip(block, halo))
-            return norm_shapes(block, TRACKED["scale_factors"], TRACKED["initial_features"])
+            return norm_shapes(block, TRACKED["scale_factors"],
+                               widths(TRACKED["initial_features"], len(TRACKED["scale_factors"])))
 
         shapes = tracked_shapes(BLOCK_SHAPE, HALO)
         train_shapes = tracked_shapes(TRAIN_PATCH)
-        dsb_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * DSB_DEPTH, DSB_MODEL["initial_features"])
-        spoco_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * SPOCO_DEPTH, SPOCO_MODEL["initial_features"])
+        dsb_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * DSB_DEPTH, widths(DSB_MODEL["initial_features"], DSB_DEPTH))
+        spoco_shapes = norm_shapes(DSB_PATCH[1:], [[2, 2]] * SPOCO_DEPTH,
+                                   widths(SPOCO_MODEL["initial_features"], SPOCO_DEPTH))
+        # the self-training steps (phase 13): UniMatch v2's student takes both strong views of a DSB batch
+        # at once, the Probabilistic U-Net's U-Net has the widths 32/64/128/192 and a base of 384
+        st_shapes = {"unimatch": (2 * DSB_BATCH, dsb_shapes),
+                     "punet": (DSB_BATCH, norm_shapes(DSB_PATCH[1:], [[2, 2]] * len(PUNET_FILTERS), PUNET_FILTERS))}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
-        assert all(len(s) == NORMS_PER_FORWARD
-                   for s in (shapes, train_shapes, dsb_shapes, spoco_shapes, *snemi_shapes.values()))
+        assert all(len(s) == NORMS_PER_FORWARD for s in (shapes, train_shapes, dsb_shapes, spoco_shapes,
+                                                         *snemi_shapes.values(), *(s for _, s in st_shapes.values())))
         # the recipe's UNETR (vit_b, skip connections) and ViM-UNet (vim_t) decoders at 512x512
         vit_shapes = {"unetr": unetr_norm_shapes(768, True), "vimunet": unetr_norm_shapes(192, False)}
-        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes)
+        forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes,
+                                    st_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
-        backward, forward["training"], forward["dsb_training"], forward["spoco_training"], vit_step_fwd = \
-            phase_backward_kernel(inorm, train_shapes, shapes, dsb_shapes, spoco_shapes, vit_shapes)
-        forward.update(vit_step_fwd)
+        backward, forward["training"], forward["dsb_training"], forward["spoco_training"], recipe_step_fwd = \
+            phase_backward_kernel(inorm, train_shapes, shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes)
+        forward.update(recipe_step_fwd)
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm, device_ops)
@@ -2050,12 +2381,18 @@ def main():
 
         log("phase 12: the ViM-UNet / UNETR recipe, UNETR vit_b and ViM-UNet vim_t at 512x512; UNETR3D")
         vit_fwd, vit_bwd = phase_vit_recipes(port, inorm)
-        forward["launches"] = serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd
+
+        log("phase 13: self-training at DSB width: MeanTeacher, FixMatch, UniMatch v2, the Probabilistic U-Net, "
+            "FlashOptim")
+        st_fwd, st_bwd = phase_self_training(port, inorm)
+        forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
+                               + st_fwd)
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
-            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet; "
-            f"backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + "
-            f"{snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet")
+            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
+            f"{st_fwd} self-training; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + "
+            f"{dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} "
+            f"self-training")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -8,8 +8,8 @@ subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
 reads an HDF5 path and a PNG file, writes HDF5 test data, clusters with
-``HDBScan``, shows a validation sample and builds the tensorboard and wandb
-loggers, which must raise an ImportError that names h5py, PIL, sklearn,
+``HDBScan``, shows a validation sample and builds the tensorboard (the
+trainer's and self-training's) and wandb loggers, which must raise an ImportError that names h5py, PIL, sklearn,
 napari, tensorboardX and wandb. Those packages may be imported inside a
 function, never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
@@ -47,6 +47,7 @@ runpy.run_path("scripts/torch_spoco2d.py", run_name="probe")
 import types
 import numpy as np
 from torch_em_tpu_torch.metric import HDBScan
+from torch_em_tpu_torch.self_training import SelfTrainingTensorboardLogger
 from torch_em_tpu_torch.trainer import TensorboardLogger, WandbLogger
 from torch_em_tpu_torch.utils import io, test, validation
 trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
@@ -55,6 +56,7 @@ for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "ra
                       (lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
                       (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
                       (lambda: TensorboardLogger(trainer, None), "tensorboardX"),
+                      (lambda: SelfTrainingTensorboardLogger(trainer, None), "tensorboardX"),
                       (lambda: WandbLogger(trainer, None), "wandb")):
     try:
         call()

@@ -200,6 +200,13 @@ DSB_ROWS = {65536: (8, 512, 1024), 16384: (512, 1024), 4096: (1024, 2048), 1024:
 # 512x512): rows are C at serving batch 1 and 4 x C at training batch 4
 UNETR_ROWS = {1024: (192, 512, 768, 768, 2048, 3072), 4096: (256, 512, 1024, 2048),
               16384: (128, 256, 512, 1024), 65536: (64, 128, 256, 512), 262144: (3, 64, 128, 12, 256, 512)}
+# the self-training steps: UniMatch v2's student on both strong views of a DSB batch (batch 16, rows
+# 16 x C of the DSB U-Net), and the Probabilistic U-Net's U-Net (widths 32/64/128/192, base 384) at
+# batch 8 of 256x256
+UNIMATCH_ROWS = {65536: (16, 1024, 2048), 16384: (1024, 2048, 4096), 4096: (2048, 4096, 8192),
+                 1024: (4096, 8192, 16384), 256: (8192, 16384)}
+PUNET_ROWS = {65536: (8, 256, 512), 16384: (256, 512, 1024), 4096: (512, 1024, 2048), 1024: (1024, 1536, 3072),
+              256: (1536, 3072)}
 # length -> path: A up to 16384 elements; B where the row's inputs fit 8
 # blocks of shared memory; C beyond.
 EXPECTED_PATH = {
@@ -221,8 +228,8 @@ def _expected_path(length, itemsize, direction):
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS],
-                         ids=["training", "serving", "dsb", "unetr"])
+@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS],
+                         ids=["training", "serving", "dsb", "unetr", "unimatch", "punet"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize
@@ -329,3 +336,25 @@ def test_second_derivative_on_card_matches_reference():
     x = x0.clone().requires_grad_()
     instance_norm(x).backward(g)
     assert instance_norm_backward.launches == before + 1
+
+
+# (batch, channels, side) of the self-training steps' norms, one per row length and width class:
+# UniMatch v2's batch of 16 and the Probabilistic U-Net's 8 with its widths
+SELF_TRAINING_SHAPES = [(16, 1, 256), (16, 64, 256), (16, 128, 128), (16, 512, 32), (16, 1024, 16),
+                        (8, 32, 256), (8, 64, 128), (8, 192, 32), (8, 384, 16), (8, 384, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", SELF_TRAINING_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_kernels_at_self_training_shapes_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch, channels, side = case
+    x = _card_inputs((batch, channels, side, side), dtype, 19)
+    g = _card_inputs(x.shape, dtype, 20)
+    ref = instance_norm_reference(x).float()
+    assert bool(((instance_norm(x).float() - ref).abs() <= _output_tol(ref, dtype)).all())
+    _, mean, rstd = instance_norm_forward_reference(x)
+    _assert_dx_close(instance_norm_backward(x, g, mean, rstd),
+                     instance_norm_backward_reference(x, g, mean, rstd), dtype)

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of torch_em_tpu for NVIDIA Hopper.
 
 The same U-Net family, UNETR (2D and 3D, with a SAM-geometry ViT encoder)
-and ViM-UNet (a Vision Mamba encoder), training loop (with its profiling), losses, data path (datasets, the
+and ViM-UNet (a Vision Mamba encoder), the Probabilistic U-Net, training loop (with its profiling), the
+self-training trainers (MeanTeacher, FixMatch, UniMatch v2), losses, data path (datasets, the
 dataset and loader factories, augmentations on the host and on the card),
 tiled prediction, instance decodings (watersheds, mutex watershed,
 multicut) and their metrics, checkpoint validation, command line interface
@@ -12,7 +13,7 @@ versions on the CPU. Entry points run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``.
 """
 
-from . import data, loss, metric, models, trainer, transforms, utils
+from . import data, loss, metric, models, self_training, trainer, transforms, utils
 from .data import DataLoader, SegmentationDataset
 from .loss import DiceLoss
 from .models import UNETR, UNETR2D, UNETR3D, AnisotropicUNet, UNet2d, UNet3d, get_vimunet_model
@@ -25,7 +26,7 @@ from .transforms import standardize
 from .utils import Blocking, predict_with_halo, predict_with_padding, state_dict_from_jax_params
 
 __all__ = [
-    "data", "loss", "metric", "models", "trainer", "transforms", "utils",
+    "data", "loss", "metric", "models", "self_training", "trainer", "transforms", "utils",
     "AnisotropicUNet", "UNet2d", "UNet3d", "UNETR", "UNETR2D", "UNETR3D", "get_vimunet_model", "instance_norm", "instance_norm_reference",
     "standardize", "Blocking", "predict_with_halo", "predict_with_padding",
     "state_dict_from_jax_params", "DataLoader", "SegmentationDataset", "DiceLoss",

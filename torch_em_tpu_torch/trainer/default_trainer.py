@@ -365,11 +365,28 @@ class DefaultTrainer:
             torch.cuda.synchronize(self.device)
 
     def _flush(self, buffer):
-        """Hand buffered training losses to the logger; reading them waits for the device."""
-        for step, loss, lr, images in buffer:
-            x, y, pred = images if images is not None else (None, None, None)
-            self.logger.log_train(step, float(loss), lr, x, y, pred)
+        """Make the buffered calls to the logger; reading their losses waits for the device."""
+        for write in buffer:
+            write()
         buffer.clear()
+
+    def _buffer_log(self, buffer, write, images: bool):
+        """Keep ``write``, a call to the logger, until 50 are kept or a step logs images."""
+        buffer.append(write)
+        if len(buffer) >= 50 or images:
+            self._flush(buffer)
+
+    def _train_batches(self):
+        """The batches of one epoch, on the device, as the arguments of ``_train_step``."""
+        for x, y in self.train_loader:
+            yield self._to_device(x), self._to_device(y)
+
+    def _log_train_step(self, batch, out, lr, buffer):
+        """Buffer a step's loss, and every ``log_image_interval`` steps its images, for the logger."""
+        (x, y), (loss, pred) = batch, out
+        step, images = self._iteration, self._iteration % self.log_image_interval == 0
+        x, y, pred = (x, y, pred) if images else (None, None, None)
+        self._buffer_log(buffer, lambda: self.logger.log_train(step, float(loss), lr, x, y, pred), images)
 
     def _train_epoch(self, progress=None, profile_dir: Optional[str] = None, log_mfu: bool = False):
         self.model.train()
@@ -378,8 +395,7 @@ class DefaultTrainer:
         lr = get_learning_rate(self.torch_optimizer)
         buffer = []
         tracing = None
-        for x, y in self.train_loader:
-            x, y = self._to_device(x), self._to_device(y)
+        for batch in self._train_batches():
             if profile_dir is not None:
                 # trace steps [3, 8) of the epoch, after the first steps' warm-up
                 if n_iter == 3 and tracing is None:
@@ -389,15 +405,15 @@ class DefaultTrainer:
                     tracing = None
             if log_mfu and self._step_flops is None:
                 result = []
-                self._step_flops = profiling.estimate_step_flops(lambda: result.append(self._train_step(x, y))) or 0.0
-                loss, pred = result[0]
+                self._step_flops = profiling.estimate_step_flops(
+                    lambda: result.append(self._train_step(*batch))) or 0.0
+                out = result[0]
             else:
-                loss, pred = self._train_step(x, y)
+                out = self._train_step(*batch)
+            if out is None:  # a batch that the step turned down (the self-training trainers' sampler)
+                continue
             if self.logger is not None:
-                want_images = self._iteration % self.log_image_interval == 0
-                buffer.append((self._iteration, loss, lr, (x, y, pred) if want_images else None))
-                if len(buffer) >= 50 or want_images:
-                    self._flush(buffer)
+                self._log_train_step(batch, out, lr, buffer)
             self._iteration += 1
             n_iter += 1
             if progress is not None:

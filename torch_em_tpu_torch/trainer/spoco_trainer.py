@@ -9,11 +9,9 @@ Counterpart of ``torch_em_tpu/trainer/spoco_trainer.py`` (torch-em's
   the model's;
 - the loss is called as ``loss((pred, pred2), y)``, with the trainer's
   ``generator`` where the loss draws random numbers (``needs_rng``);
-- after each optimizer step, every parameter and floating buffer of
-  ``model2`` becomes ``t * momentum + s * (1 - momentum)`` of itself (t) and
-  the model (s), as the JAX package's ``tree_map`` over all variables. The
-  update runs on the device with ``torch._foreach_*``, so it waits for
-  nothing; integer buffers are copied;
+- after each optimizer step, ``model2`` takes the moving average of the
+  model (``ema.MovingAverage``: every parameter and floating buffer, as the
+  JAX package's ``tree_map`` over all variables);
 - an optional semi-supervised pass after each epoch's training steps
   (``semisupervised_loss(pred, pred2)`` over ``semisupervised_loader``);
 - checkpoints carry ``model2_state``, which ``load_checkpoint`` and
@@ -26,11 +24,12 @@ in the step (the JAX package's SPOCO steps skip it).
 """
 
 import copy
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from .default_trainer import DefaultTrainer
+from .ema import MovingAverage
 from .tensorboard_logger import TensorboardLogger
 
 __all__ = ["SPOCOTrainer"]
@@ -56,7 +55,7 @@ class SPOCOTrainer(DefaultTrainer):
         self.semisupervised_loader = semisupervised_loader
         self.semisupervised_loss = semisupervised_loss
         self.model2: Optional[torch.nn.Module] = None
-        self._ema_pairs = None
+        self._ema: Optional[MovingAverage] = None
         self._explicit_init_kwargs.update(
             momentum=momentum, semisupervised_loss=semisupervised_loss,
             semisupervised_loader=semisupervised_loader)
@@ -67,35 +66,18 @@ class SPOCOTrainer(DefaultTrainer):
     def _ensure_model2(self):
         if self.model2 is None:
             self.model2 = copy.deepcopy(self.model).to(self.device).requires_grad_(False).eval()
-            self._ema_pairs = None
+            self._ema = None
 
     def _initialize(self, iterations, load_from_checkpoint, epochs=None):
         best_metric = super()._initialize(iterations, load_from_checkpoint, epochs)
         self._ensure_model2()
         return best_metric
 
-    def _ema_tensors(self):
-        """(model2's floating tensors, the model's) and (integer pairs), in state-dict order."""
-        if self._ema_pairs is None:
-            target = self.model2.state_dict(keep_vars=True)
-            source = self.model.state_dict(keep_vars=True)
-            floats: List[List[torch.Tensor]] = [[], []]
-            ints: List[List[torch.Tensor]] = [[], []]
-            for name, t in target.items():
-                pair = floats if t.is_floating_point() else ints
-                pair[0].append(t.data)
-                pair[1].append(source[name].data)
-            self._ema_pairs = (floats, ints)
-        return self._ema_pairs
-
-    @torch.no_grad()
     def ema_update(self):
         """model2 <- model2 * momentum + model * (1 - momentum), on the device."""
-        (target, source), (int_target, int_source) = self._ema_tensors()
-        torch._foreach_mul_(target, self.momentum)
-        torch._foreach_add_(target, source, alpha=1.0 - self.momentum)
-        for t, s in zip(int_target, int_source):
-            t.copy_(s)
+        if self._ema is None:
+            self._ema = MovingAverage(self.model2, self.model)
+        self._ema.update(self.momentum)
 
     def _forward_both(self, x):
         with self._compute_precision():

@@ -16,6 +16,15 @@ child (``GroupNorm_0``, ``BatchNorm_0``, ``_InstanceNormTrackStats_0``)
 become ``weight`` and ``bias``, and the ``mean`` and ``var`` of the
 ``batch_stats`` collection ``running_mean`` and ``running_var``.
 
+The Probabilistic U-Net (``probabilistic_unet_state_dict_from_jax_params``):
+its ``unet`` subtree takes the U-Net rules under ``unet.``; the prior's and
+the posterior's ``conv<level>_<i>`` go to torch-em's positions in
+``<encoder>.encoder.layers`` (a pool before each level past the first, then
+conv/ReLU pairs), ``mu_log_sigma`` to ``<encoder>.conv_layer``, and
+``fcomb<i>`` and ``last_layer`` to ``fcomb.layers.<2i>`` and
+``fcomb.last_layer``. Their kernels are flax ``Conv``s, channels-last HWIO,
+and become OIHW.
+
 Transformer models (``vit_state_dict_from_jax_params``,
 ``vim_state_dict_from_jax_params``, ``unetr_state_dict_from_jax_params``,
 ``unetr3d_state_dict_from_jax_params``): the port's names are
@@ -36,6 +45,7 @@ import torch
 __all__ = [
     "state_dict_from_jax_params", "vit_state_dict_from_jax_params", "vim_state_dict_from_jax_params",
     "unetr_state_dict_from_jax_params", "unetr3d_state_dict_from_jax_params",
+    "probabilistic_unet_state_dict_from_jax_params",
 ]
 
 
@@ -292,3 +302,39 @@ def unetr3d_state_dict_from_jax_params(
     state.update(_map(decoder, rules, spatial_rank=3))
     state.update(_map(batch_stats or {}, rules, spatial_rank=3))
     return _tensors(state)
+
+
+def probabilistic_unet_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``ProbabilisticUNetModule``'s flattened ``params`` onto the port's
+    ``ProbabilisticUNetModule`` (torch-em's names for the encoders and fcomb)."""
+    state = {f"unet.{k}": v for k, v in state_dict_from_jax_params(_subtree(flat, "unet")).items()}
+    rest = {}
+    for encoder in ("prior", "posterior"):
+        tree = _subtree(flat, encoder)
+        per_block = 1 + max(int(m.group(2)) for m in (re.fullmatch(r"conv(\d+)_(\d+)/kernel", k) for k in tree) if m)
+        for key, value in tree.items():
+            module, _, leaf = key.rpartition("/")
+            match = re.fullmatch(r"conv(\d+)_(\d+)", module)
+            if match:
+                level, conv = int(match.group(1)), int(match.group(2))
+                target = f"{encoder}.encoder.layers.{level * (2 * per_block + 1) + 2 * conv}"
+            elif module == "mu_log_sigma":
+                target = f"{encoder}.conv_layer"
+            else:
+                raise ValueError(f"Unmapped parameter: {encoder}/{key}")
+            rest[f"{target}.{_LEAF[leaf]}"] = _convert(value, "conv", 2)
+    for key, value in _subtree(flat, "fcomb").items():
+        module, _, leaf = key.rpartition("/")
+        match = re.fullmatch(r"fcomb(\d+)", module)
+        if match:
+            target = f"fcomb.layers.{2 * int(match.group(1))}"
+        elif module == "last_layer":
+            target = "fcomb.last_layer"
+        else:
+            raise ValueError(f"Unmapped parameter: fcomb/{key}")
+        rest[f"{target}.{_LEAF[leaf]}"] = _convert(value, "conv", 2)
+    unmapped = [k for k in flat if k.split("/")[0] not in ("unet", "prior", "posterior", "fcomb")]
+    if unmapped:
+        raise ValueError(f"Unmapped parameters: {unmapped}")
+    state.update(_tensors(rest))
+    return state
