@@ -96,7 +96,7 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    shrinking); trained by ``default_segmentation_trainer`` (AdamW 1e-4, bf16,
    batch 4 of 512x512 patches of 8 seeded 704x520 grayscale images through
    ``default_segmentation_loader`` with ``BoundaryTransform(add_binary_target=True)``
-   targets) for 12 iterations with ``fit(profile_dir=..., log_mfu=True)`` and 4
+   targets) for 8 iterations with ``fit(profile_dir=..., log_mfu=True)`` and 2
    more after ``from_checkpoint``; the bare step timed as called and on the
    device, broken down by the profiler (attention, norms, convs), its peak
    memory and MFU, the SDPA backends that take the float bias and the bias's
@@ -121,7 +121,24 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    moving average, the invertible augmenters (the 16 geometric draws undone
    bitwise, blur and noise against the CPU), the pseudo-labels and the
    Probabilistic U-Net (float32, TF32 off, a given noise draw) on the card
-   against the CPU; FlashOptim's parameters and moments bf16.
+   against the CPU; FlashOptim's parameters and moments bf16;
+14. the other encoder families in UNETR, each at its published width with 2
+   Sigmoid outputs and ``resize_input`` on phase 12's images (512x512 patches,
+   BoundaryTransform targets, bf16, AdamW 1e-4): SAM2 hvit_b at 1024 without
+   skips and DINOv2 vit_b at 518 (batch 2 and 4) through
+   ``default_segmentation_trainer`` (8 iterations, ``from_checkpoint``, 2 more;
+   a falling loss, weights that move) and 1536x1536 served through both paths;
+   DINOv3 vit_b at 512, MAE vit_b at 224, ScaleMAE vit_l at 224 (batch 4) and
+   SAM3 vit_pe at 1008 (batch 2) each with a trainer for the step. For each:
+   card against CPU in float32 (TF32 off) at a reduced depth and size (outputs
+   and encoder features within 1e-4 of the largest value), one training step
+   with its norm launches counted, timed as called and on the device, profiled
+   (attention, norm and conv shares, idle), its FLOPs, MFU and peak memory, and
+   a bf16 forward. Then ``resnet3d_50(1, 4)`` through
+   ``default_classification_loader`` over seeded 1x64x64x64 volumes of 4
+   classes and ``default_classification_trainer(logger=None)``: 8 iterations,
+   ``from_checkpoint``, 4 more, the accuracy error of the numpy metric, the
+   step's time, MFU and peak memory.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -131,8 +148,11 @@ elements), and phase 5 times them there. Phase 3 also holds the forward kernel a
 recipe's serving blocks (40x320x320 with the halo) and validation blocks
 (24x192x192), whose norms phase 10 launches, and both kernels at the UNETR
 and ViM-UNet decoders' shapes (phase 12: 3 to 768 channels, 32x32 to
-512x512; the forward at batch 4 and 1, the backward at batch 4), where
-phase 5 also times them per training step.
+512x512; the forward at batch 4 and 1, the backward at batch 4) and the
+encoder families' decoders (phase 14: 14x14 to 1152x1152, among them the rows
+of 1369, 5476 and 268324 elements off the 16-byte grid and SAM3's path-C head;
+the forward at their training batch and 1, the backward at their training
+batch), where phase 5 also times them per training step.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -250,7 +270,7 @@ VIT_RECIPES = (
                                            final_activation="Sigmoid")),
 )
 LIVECELL_SHAPE, VIT_IMAGES = (520, 704), 10  # 8 to train on, 2 to validate on
-VIT_PATCH, VIT_BATCH, VIT_FIT, VIT_RESUME = (1, 512, 512), 4, 12, 4
+VIT_PATCH, VIT_BATCH, VIT_FIT, VIT_RESUME = (1, 512, 512), 4, 8, 2
 VIT_SERVE, VIT_BLOCK, VIT_HALO = (1536, 1536), (448, 448), (32, 32)
 # the same weights on the CPU and on the card in float32 (TF32 off): sigmoid outputs within 1e-3,
 # encoder features within 1e-3 of their largest magnitude; float32 sums in another order drift
@@ -261,6 +281,39 @@ VIT_CPU_ATOL, VIT_FEATURE_RTOL = 1e-3, 1e-3
 UNETR3D_SMALL = dict(img_size=64, encoder="vit_t", out_channels=2, embed_dim=96, depth=4, num_heads=3,
                      global_attn_indexes=(1, 3))
 ATTENTION_KERNELS = re.compile(r"fmha|flash|attention|sdpa", re.I)
+# the other encoder families in UNETR (phase 14), each at its published width: (name, UNETR arguments, training
+# batch, the encoder features' channels, their grid). 2 Sigmoid outputs, resize_input, bf16, AdamW at lr 1e-4,
+# BoundaryTransform targets of phase 12's LIVECell-sized images in 512x512 patches (resized to img_size and
+# back); batch 4 at 224-518 px, 2 at 1008-1024 px. ScaleMAE resizes its input to 448 (a 56x56 grid of patch 8).
+FAMILY_RECIPES = (
+    ("sam2", dict(img_size=1024, backbone="sam2", encoder="hvit_b", use_skip_connection=False), 2, 256, 64),
+    ("dinov2", dict(img_size=518, backbone="dinov2", encoder="vit_b", use_dino_stats=True), 4, 768, 37),
+    ("dinov3", dict(img_size=512, backbone="dinov3", encoder="vit_b", use_dino_stats=True), 4, 768, 32),
+    ("mae", dict(img_size=224, backbone="mae", encoder="vit_b", use_mae_stats=True), 4, 768, 14),
+    ("scalemae", dict(img_size=224, backbone="scalemae", encoder="vit_l", use_mae_stats=True), 4, 1024, 56),
+    ("sam3", dict(img_size=1008, backbone="sam3", encoder="vit_pe"), 2, 1024, 72),
+)
+FAMILY_COMMON = dict(out_channels=2, final_activation="Sigmoid", resize_input=True)
+# the two that also train through default_segmentation_trainer (fit, from_checkpoint, resume) and serve
+# 1536x1536 through predict_with_halo (both paths)
+FAMILY_ENTRY, FAMILY_FIT, FAMILY_RESUME = ("sam2", "dinov2"), 8, 2
+# UNETR without skip connections: the first norm reads the encoder's features, which need a gradient
+NO_SKIP = ("vimunet", "sam2")
+# card against CPU (float32, TF32 off), each family at a reduced depth and size: outputs and encoder features
+# within 1e-4 of their largest value
+FAMILY_SMALL = {
+    "sam2": dict(img_size=128, stages=(1, 1, 2, 1), global_att_blocks=(3,)),
+    "dinov2": dict(img_size=112, depth=9),
+    "dinov3": dict(img_size=128, depth=9),
+    "mae": dict(img_size=64, depth=4),
+    "scalemae": dict(img_size=64, depth=4, input_size=112),
+    "sam3": dict(img_size=168, depth=6, global_attn_indexes=(1, 3, 5)),
+}
+FAMILY_CPU_RTOL = 1e-4
+# classification (phase 14): resnet3d_50(1, 4) through default_classification_loader / _trainer on seeded
+# 1x64x64x64 volumes of 4 classes (smoothed noise, the smoothing by class), batch 4, bf16, AdamW at lr 1e-3
+CLS_SHAPE, CLS_CLASSES, CLS_BATCH, CLS_TRAIN, CLS_VAL = (1, 64, 64, 64), 4, 4, 16, 8
+CLS_FIT, CLS_RESUME = 4, 4
 # self-training (phase 13): the DSB model and batch on phase 9's images, AdamW at lr 1e-4, bf16 compute; the
 # labelled source takes BoundaryTransform targets, the unlabelled target the same images through
 # get_default_mean_teacher_augmentations as two views; 16 iterations and 4 more after from_checkpoint per
@@ -320,18 +373,19 @@ def norm_shapes(block, scale_factors, feats, in_channels=1, gain=2):
     return shapes
 
 
-def unetr_norm_shapes(embed_dim, skip, size=512, initial_features=64, depth=3, in_chans=3):
+def unetr_norm_shapes(embed_dim, skip, size=512, initial_features=64, depth=3, in_chans=3, grid=None):
     """(channels, spatial shape) of the instance norms of one UNETR (or ViM-UNet) forward at a
-    ``size`` x ``size`` input, in order: the input's ConvBlock (``skip`` only), the base at
-    size / 16, the decoder's levels, the head."""
+    ``size`` x ``size`` input (after ``resize_input``), in order: the input's ConvBlock (``skip``
+    only), the base at the encoder's ``grid`` (size / 16 when None), the decoder's levels, the
+    head at 16 x grid."""
     feats = [initial_features * 2 ** i for i in range(depth + 1)][::-1]
-    full, sp = (size, size), size // 16
-    shapes = [(in_chans, full), (feats[-1], full)] if skip else []
+    sp = grid or size // 16
+    shapes = [(in_chans, (size, size)), (feats[-1], (size, size))] if skip else []
     shapes += [(embed_dim, (sp, sp)), (feats[0], (sp, sp))]
     for f in feats[1:]:
         sp *= 2
         shapes += [(2 * f, (sp, sp)), (f, (sp, sp))]
-    return shapes + [(2 * feats[-1], full), (feats[-1], full)]
+    return shapes + [(2 * feats[-1], (2 * sp, 2 * sp)), (feats[-1], (2 * sp, 2 * sp))]
 
 
 def path_of(inorm, shape, dtype, direction):
@@ -492,7 +546,7 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
     shapes}, the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
-    1, ``vit_shapes`` {name: shapes}, and the self-training steps', ``st_shapes`` {name: (batch,
+    1, ``vit_shapes`` {name: (training batch, shapes)}, and the self-training steps', ``st_shapes`` {name: (batch,
     shapes)}) and time it at the serving path's; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -520,14 +574,16 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                 max_err = max(max_err, err)
                 log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
                     f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
-        for recipe, recipe_shapes in vit_shapes.items():
-            for batch in (VIT_BATCH, 1):
-                for c, sp in sorted(set(recipe_shapes)):
+        seen = set()
+        for recipe, (train_batch, recipe_shapes) in vit_shapes.items():
+            for batch in (train_batch, 1):
+                for c, sp in sorted(set(recipe_shapes) - seen):
                     err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference,
                                        rand((batch, c) + sp, dtype))
                     max_err = max(max_err, err)
                     log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
                         f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+            seen.update(recipe_shapes)
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "forward").items()]
@@ -576,10 +632,10 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                   "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes],
                                                 torch.bfloat16, "forward"),
                   **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in snemi_shapes.items()},
-                  **{f"{name}_training": path_counts(inorm, [(VIT_BATCH * c, sp) for c, sp in s], torch.bfloat16,
-                                                     "forward") for name, s in vit_shapes.items()},
+                  **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.bfloat16,
+                                                     "forward") for name, (b, s) in vit_shapes.items()},
                   **{f"{name}_serving": path_counts(inorm, s, torch.bfloat16, "forward")
-                     for name, s in vit_shapes.items()},
+                     for name, (b, s) in vit_shapes.items()},
                   **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.bfloat16, "forward")
                      for name, (b, s) in st_shapes.items()}},
     }
@@ -776,8 +832,8 @@ def check_backward(inorm, x, g):
 
 def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes):
     """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
-    DSB_BATCH, the UNETR and ViM-UNet steps' at VIT_BATCH, the self-training steps' at their
-    batch) and time both kernels at the training paths' shapes.
+    DSB_BATCH, the UNETR and ViM-UNet steps' and the encoder families' at their training batch,
+    the self-training steps' at their batch) and time both kernels at the training paths' shapes.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
@@ -815,13 +871,15 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                 max_err = max(max_err, err)
                 log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
                     f"{path_of(inorm, (batch * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
-        for recipe, recipe_shapes in vit_shapes.items():
-            for c, sp in sorted(set(recipe_shapes)):
-                shape = (VIT_BATCH, c) + sp
+        seen = set()
+        for recipe, (batch, recipe_shapes) in vit_shapes.items():
+            for c, sp in sorted(set(recipe_shapes) - seen):
+                shape = (batch, c) + sp
                 err = check_backward(inorm, rand(shape, dtype), rand(shape, dtype))
                 max_err = max(max_err, err)
                 log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
-                    f"{path_of(inorm, (VIT_BATCH * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+                    f"{path_of(inorm, (batch * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
+            seen.update(recipe_shapes)
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "backward").items()]
@@ -839,9 +897,9 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
     fwd, bwd = time_step_norms(inorm, rand, shapes, 1, "tracked")
     dsb_fwd, dsb_bwd = time_step_norms(inorm, rand, dsb_shapes, DSB_BATCH, "DSB")
     spoco_fwd, spoco_bwd = time_step_norms(inorm, rand, spoco_shapes, DSB_BATCH, "SPOCO")
-    # the ViM-UNet's first norm reads the encoder's features, which need a gradient
-    recipe_times = {name: time_step_norms(inorm, rand, s, VIT_BATCH, name, first_has_grad=name == "vimunet")
-                 for name, s in vit_shapes.items()}
+    # without skip connections (ViM-UNet, SAM2) the first norm reads the encoder's features, which need a gradient
+    recipe_times = {name: time_step_norms(inorm, rand, s, b, name, first_has_grad=name in NO_SKIP)
+                    for name, (b, s) in vit_shapes.items()}
     recipe_times.update({name: time_step_norms(inorm, rand, s, b, name) for name, (b, s) in st_shapes.items()})
     for c, sp in sorted(repeat_shapes(inorm, shapes, "backward").values()):
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
@@ -861,8 +919,9 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
         "bound_ms": bwd["bound_ms"],
         "bound_by": "bytes",
         "library_ms": bwd["library_ms"],
-        "paths": {**{f"{name}_training": path_counts(inorm, [(VIT_BATCH * c, sp) for c, sp in s], torch.bfloat16,
-                                                     "backward") for name, s in vit_shapes.items()},
+        "paths": {**{f"{name}_training": path_counts(
+                         inorm, [(b * c, sp) for c, sp in (s if name in NO_SKIP else s[1:])], torch.bfloat16, "backward")
+                     for name, (b, s) in vit_shapes.items()},
                   "training": path_counts(inorm, step_shapes, torch.bfloat16, "backward"),
                   "dsb_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in dsb_shapes[1:]],
                                               torch.bfloat16, "backward"),
@@ -1992,14 +2051,13 @@ def vit_recipe(port, inorm, label, factory_name, kwargs, raw_files, label_files,
     return launches[0] + host_stats["launches"] + device_stats["launches"], launches[1]
 
 
-def phase_vit_recipes(port, inorm):
-    """The ViM-UNet / UNETR recipe: both models at full width (CPU against card, training with
-    resume, the step broken down, serving), then UNETR3D at a small size against the CPU.
-    Returns the kernels' launches of the two models' training and serving."""
+def phase_vit_recipes(port, inorm, raw_files, label_files):
+    """The ViM-UNet / UNETR recipe on the LIVECell-sized images (``livecell_images``): both
+    models at full width (CPU against card, training with resume, the step broken down,
+    serving), then UNETR3D at a small size against the CPU. Returns the kernels' launches of
+    the two models' training and serving."""
     fwd = bwd = 0
     with tempfile.TemporaryDirectory() as tmp:
-        raw_files, label_files = livecell_images(tmp)
-        log(f"LIVECell-sized data: {len(raw_files)} images {np.load(raw_files[0]).shape}")
         for label, factory_name, kwargs in VIT_RECIPES:
             f, b = vit_recipe(port, inorm, label, factory_name, kwargs, raw_files, label_files, tmp)
             fwd, bwd = fwd + f, bwd + b
@@ -2300,6 +2358,277 @@ def phase_self_training(port, inorm):
     return launches
 
 
+def family_norm_shapes(kwargs, channels, grid):
+    """The instance norms of one forward of an encoder family's UNETR (``FAMILY_RECIPES``)."""
+    return unetr_norm_shapes(channels, kwargs.get("use_skip_connection", True), size=kwargs["img_size"], grid=grid)
+
+
+def family_cpu_check(port, name, kwargs):
+    """The family's UNETR at a reduced depth and size (``FAMILY_SMALL``) from one seed on the CPU
+    and on the card, float32 with TF32 off: the same weights, outputs and encoder features
+    within FAMILY_CPU_RTOL of their largest value."""
+    small = dict(kwargs, **FAMILY_COMMON, **FAMILY_SMALL[name])
+    cpu_model = port.models.UNETR(**small, device="cpu", seed=0)
+    card_model = port.models.UNETR(**small, device="cuda", seed=0)
+    card_state = card_model.state_dict()
+    if not all(torch.equal(v, card_state[k].cpu()) for k, v in cpu_model.state_dict().items()):
+        raise AssertionError(f"{name}: the same seed gave other weights on the card")
+    size = small["img_size"]
+    x = torch.from_numpy(np.random.default_rng(17).normal(size=(1, 1, size, size)).astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            errors = {}
+            pairs = [("output", cpu_model(x), card_model(x.cuda()).cpu())]
+            x3 = x.repeat(1, 3, 1, 1)
+            pairs.append(("features", cpu_model.encoder(x3)[0], card_model.encoder(x3.cuda())[0].cpu()))
+            for what, expected, got in pairs:
+                err = float((got - expected).abs().max() / expected.abs().max())
+                errors[what] = err
+                if got.shape != expected.shape or not bool(torch.isfinite(got).all()) or not err <= FAMILY_CPU_RTOL:
+                    raise AssertionError(f"{name} {what}: card against CPU {err} of the largest value")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"{name} at {size}x{size}, {json.dumps(FAMILY_SMALL[name])}: float32 (TF32 off) card against CPU "
+        f"{json.dumps(errors)} of the largest value (limit {FAMILY_CPU_RTOL})")
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    return errors
+
+
+def family_step(port, inorm, name, trainer, x, y, shapes, skip):
+    """One bf16 training step of ``trainer`` on the card batch (x, y), its kernels' launches
+    counted from 0 (every norm forward, all but the input's backward), timed as called and on
+    the device, profiled (attention, norm, conv shares, idle), its FLOPs, MFU and peak memory;
+    then one bf16 forward under inference_mode, checked and counted. Returns its numbers and
+    the launches (forward, backward) of the counted step and forward."""
+    from torch_em_tpu_torch.utils import profiling
+
+    def step():
+        return trainer._train_step(x, y)
+
+    step()  # cuDNN's first calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+    loss, _ = step()
+    torch.cuda.synchronize()
+    launches = [inorm.instance_norm.launches, inorm.instance_norm_backward.launches]
+    expected = (len(shapes), len(shapes) - 1 if skip else len(shapes))
+    if tuple(launches) != expected or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{name} step: launches {launches}, expected {expected}; loss {float(loss)}")
+    stats = {"batch": list(x.shape), "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # three steps back to back: as called between CUDA events, and on the host's clock
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        step()
+    stop.record()
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t) / 3
+    stats["step_ms_as_called"] = start.elapsed_time(stop) / 3
+    flops = profiling.estimate_step_flops(step) or 0.0
+    kernels = profiled_kernels(step, 1)
+    device = sum(kernels.values())
+    if device == 0:
+        raise AssertionError(f"{name}: the profiler shows no device time")
+    attention = sum(ms for k, ms in kernels.items() if ATTENTION_KERNELS.search(k))
+    norms = sum(ms for k, ms in kernels.items() if NORM_KERNELS.search(k))
+    convs = sum(ms for k, ms in kernels.items() if CONV_KERNELS.search(k) and not NORM_KERNELS.search(k))
+    stats.update(step_device_ms=device, step_wall_ms=wall_s * 1e3, device_idle=max(0.0, 1 - device / (wall_s * 1e3)),
+                 attention_share=attention / device, norm_share=norms / device, conv_share=convs / device,
+                 step_gflop=flops / 1e9, mfu=profiling.mfu(flops, wall_s),
+                 top=[(k[:70], round(ms, 3)) for k, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]])
+
+    model = trainer.model.eval()
+    model.dtype = torch.bfloat16
+    inorm.instance_norm.launches = 0
+    with torch.inference_mode():
+        out = model(x)
+        torch.cuda.synchronize()
+        launches[0] += inorm.instance_norm.launches
+        if inorm.instance_norm.launches != len(shapes):
+            raise AssertionError(f"{name} forward: {inorm.instance_norm.launches} launches, expected {len(shapes)}")
+        if out.shape != (x.shape[0], 2) + tuple(x.shape[2:]) or not bool(torch.isfinite(out).all()) or \
+                float(out.min()) < 0 or float(out.max()) > 1:
+            raise AssertionError(f"{name} forward: {tuple(out.shape)}, range [{float(out.min())}, {float(out.max())}]")
+        stats["forward_ms_as_called"] = time_ms(model, x, iters=2, repeats=1)
+    model.dtype = torch.float32
+    mfu = "not known" if stats["mfu"] is None else f"{stats['mfu']:.2%}"
+    log(f"{name} step {tuple(x.shape)}: {stats['step_ms_as_called']:.2f} ms as called, {wall_s * 1e3:.2f} ms wall, "
+        f"{device:.2f} ms of device kernels (idle {stats['device_idle']:.1%}); {flops / 1e9:.1f} GFLOP, MFU {mfu}; "
+        f"peak {stats['peak_memory_gib']:.2f} GiB; attention {stats['attention_share']:.1%}, norms "
+        f"{stats['norm_share']:.1%}, convs {stats['conv_share']:.1%}; bf16 forward {stats['forward_ms_as_called']:.2f} "
+        f"ms; {nvidia_smi()}")
+    return stats, launches
+
+
+def family_recipe(port, inorm, name, kwargs, batch, shapes, raw_files, label_files, tmp):
+    """One encoder family at full width: CPU against card at a reduced size; for FAMILY_ENTRY
+    ``default_segmentation_trainer`` fit, ``from_checkpoint`` and a resumed fit (the weights
+    move), else a trainer built for the bare step; the step and a forward (``family_step``);
+    for FAMILY_ENTRY serving 1536x1536 through both paths. Returns its numbers and launches."""
+    from torch_em_tpu_torch.transforms import BoundaryTransform
+
+    stats = {"cpu_vs_card": family_cpu_check(port, name, kwargs)}
+    skip = kwargs.get("use_skip_connection", True)
+
+    def loader(n_samples, shuffle):
+        return port.default_segmentation_loader(
+            raw_files[:-2] if shuffle else raw_files[-2:], None, label_files[:-2] if shuffle else label_files[-2:],
+            None, batch_size=batch, patch_shape=VIT_PATCH, ndim=2, is_seg_dataset=False,
+            label_transform=BoundaryTransform(add_binary_target=True), num_workers=LOADER_THREADS, shuffle=shuffle,
+            n_samples=n_samples)
+
+    t = time.perf_counter()
+    model = port.models.UNETR(**kwargs, **FAMILY_COMMON, device="cuda", seed=0)
+    stats["build_s"] = time.perf_counter() - t
+    np.random.seed(18)
+    torch.manual_seed(18)
+    trainer = port.default_segmentation_trainer(
+        name, model, loader(batch * FAMILY_FIT, True), loader(batch, False), learning_rate=LEARNING_RATE,
+        device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+    launches = [0, 0]
+    if name in FAMILY_ENTRY:
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        norms = (len(shapes), len(shapes) - 1 if skip else len(shapes))
+        trainer, fit_launches = fit_and_resume(port, inorm, trainer, FAMILY_FIT, FAMILY_RESUME, 1,
+                                               f"{name} entry points", norms=norms)
+        launches = list(fit_launches)
+        moved = sum(int((p.detach() != start[k]).sum()) for k, p in trainer.model.named_parameters())
+        total = sum(v.numel() for v in start.values())
+        stats["weights_moved"] = moved / total
+        log(f"{name}: {moved / total:.1%} of the {total} weights moved in {FAMILY_FIT + FAMILY_RESUME} steps")
+        if not moved / total > 0.5:
+            raise AssertionError(f"{name}: only {moved / total:.1%} of the weights moved")
+        shutil.rmtree(trainer.checkpoint_folder)
+        del start
+    else:
+        trainer._build_optimizer()
+    x, y = (v.cuda() for v in next(iter(loader(batch, False))))
+    step_stats, step_launches = family_step(port, inorm, name, trainer, x, y, shapes, skip)
+    stats.update(step_stats)
+    launches = [a + b for a, b in zip(launches, step_launches)]
+    del x, y
+    torch.cuda.empty_cache()
+
+    if name in FAMILY_ENTRY:
+        from torch_em_tpu_torch.utils.test import make_image
+
+        network = trainer.model.eval()
+        network.dtype = torch.bfloat16
+        image = make_image(np.random.default_rng(14), max(VIT_SERVE))[0][:VIT_SERVE[0], :VIT_SERVE[1]]
+        host, host_stats = serve(port, inorm, network, image, "host", block_shape=VIT_BLOCK, halo=VIT_HALO,
+                                 norms=len(shapes))
+        device, device_stats = serve(port, inorm, network, image, "device", block_shape=VIT_BLOCK, halo=VIT_HALO,
+                                     norms=len(shapes))
+        full = (slice(None),) + tuple(slice(0, s // b * b) for s, b in zip(VIT_SERVE, VIT_BLOCK))
+        check_close(f"{name} {VIT_SERVE}: device-resident path vs host path over the full blocks",
+                    device[full], host[full])
+        stats["serving"] = [host_stats, device_stats]
+        launches[0] += host_stats["launches"] + device_stats["launches"]
+        del host, device
+    log(f"{name}: {json.dumps(stats)}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def classification_volumes(n, seed):
+    """``n`` seeded volumes CLS_SHAPE of classes 0..CLS_CLASSES-1 in turn: normal noise smoothed
+    with a Gaussian of sigma 0.5 + class, one (n, *CLS_SHAPE) float32 array, and the labels."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    labels = np.arange(n) % CLS_CLASSES
+    data = np.stack([ndimage.gaussian_filter(rng.normal(size=CLS_SHAPE).astype(np.float32), (0, 0.5 + k, 0.5 + k,
+                                                                                            0.5 + k))
+                     for k in labels])
+    return data, labels
+
+
+def phase_classification(port, tmp):
+    """resnet3d_50(1, 4) through ``default_classification_loader`` and
+    ``default_classification_trainer(logger=None)``: fit, ``from_checkpoint``, resumed fit (the
+    weights move, the accuracy error from the numpy metric lies in [0, 1]), then the bare step
+    timed as called and on the device, its MFU and peak memory."""
+    from torch_em_tpu_torch.utils import profiling
+
+    cls = port.classification
+    train_data, train_labels = classification_volumes(CLS_TRAIN, 19)
+    val_data, val_labels = classification_volumes(CLS_VAL, 20)
+    train = cls.default_classification_loader(train_data, train_labels, batch_size=CLS_BATCH, shuffle=True,
+                                              num_workers=LOADER_THREADS)
+    val = cls.default_classification_loader(val_data, val_labels, batch_size=CLS_BATCH, num_workers=LOADER_THREADS)
+    model = port.resnet3d_50(1, CLS_CLASSES)
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    trainer = cls.default_classification_trainer("resnet3d_50", model, train, val, logger=None, learning_rate=1e-3,
+                                                 save_root=tmp)
+    t = time.perf_counter()
+    trainer.fit(iterations=CLS_FIT)
+    fit_s = time.perf_counter() - t
+    first_metric = trainer.current_metric
+    resumed = port.DefaultTrainer.from_checkpoint(trainer.checkpoint_folder, "latest")
+    if type(resumed) is not cls.ClassificationTrainer or resumed.iteration != CLS_FIT:
+        raise AssertionError(f"classification: rebuilt {type(resumed)} at iteration {resumed.iteration}")
+    resumed.fit(iterations=CLS_RESUME)
+    moved = sum(int((p.detach() != start[k]).sum()) for k, p in resumed.model.named_parameters())
+    total = sum(v.numel() for v in start.values())
+    metric = resumed.current_metric
+    if resumed.iteration != CLS_FIT + CLS_RESUME or not 0.0 <= metric <= 1.0 or not moved / total > 0.5:
+        raise AssertionError(f"classification: iteration {resumed.iteration}, metric {metric}, moved {moved / total}")
+    x, y = (v.cuda() for v in next(iter(val)))
+
+    def step():
+        return resumed._train_step(x, y)
+
+    step()
+    stats = {"fit_s": fit_s, "accuracy_error_after_fit": first_metric, "accuracy_error_after_resume": metric,
+             "weights_moved": moved / total, "step_ms_as_called": time_ms(step, iters=3, repeats=3)}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall_s = (time.perf_counter() - t) / 3
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = step()
+    torch.cuda.synchronize()
+    flops = profiling.estimate_step_flops(step) or 0.0
+    device = sum(profiled_kernels(step, 1).values())
+    stats.update(loss=float(loss), peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 step_wall_ms=wall_s * 1e3, step_device_ms=device, device_idle=max(0.0, 1 - device / (wall_s * 1e3)), step_gflop=flops / 1e9,
+                 mfu=profiling.mfu(flops, wall_s))
+    if not np.isfinite(stats["loss"]):
+        raise AssertionError(f"classification: the loss {stats['loss']} is not finite")
+    log(f"resnet3d_50 classification {tuple(x.shape)}: accuracy error {first_metric:.3f} after {CLS_FIT} steps, "
+        f"{metric:.3f} after {CLS_RESUME} more (numpy metric); {moved / total:.1%} of the weights moved; step "
+        f"{stats['step_ms_as_called']:.2f} ms as called, {device:.2f} ms device, {flops / 1e9:.1f} GFLOP, MFU "
+        f"{stats['mfu'] if stats['mfu'] is None else format(stats['mfu'], '.2%')}, peak "
+        f"{stats['peak_memory_gib']:.2f} GiB; {json.dumps(stats)}")
+    shutil.rmtree(trainer.checkpoint_folder)
+    del trainer, resumed, model, x, y, start
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_encoder_families(port, inorm, raw_files, label_files):
+    """The other encoder families in UNETR (``family_recipe`` for each of FAMILY_RECIPES, on
+    phase 12's images) and the 3-D ResNet classification; returns the kernels' launches
+    (forward, backward)."""
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kwargs, batch, channels, grid in FAMILY_RECIPES:
+            _, family_launches = family_recipe(port, inorm, name, kwargs, batch,
+                                               family_norm_shapes(kwargs, channels, grid), raw_files, label_files,
+                                               tmp)
+            launches = [a + b for a, b in zip(launches, family_launches)]
+        phase_classification(port, tmp)
+    return launches
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -2348,7 +2677,11 @@ def main():
         assert all(len(s) == NORMS_PER_FORWARD for s in (shapes, train_shapes, dsb_shapes, spoco_shapes,
                                                          *snemi_shapes.values(), *(s for _, s in st_shapes.values())))
         # the recipe's UNETR (vit_b, skip connections) and ViM-UNet (vim_t) decoders at 512x512
-        vit_shapes = {"unetr": unetr_norm_shapes(768, True), "vimunet": unetr_norm_shapes(192, False)}
+        vit_shapes = {"unetr": (VIT_BATCH, unetr_norm_shapes(768, True)),
+                      "vimunet": (VIT_BATCH, unetr_norm_shapes(192, False)),
+                      # the encoder families' decoders (phase 14), at their training batch
+                      **{name: (batch, family_norm_shapes(kwargs, channels, grid))
+                         for name, kwargs, batch, channels, grid in FAMILY_RECIPES}}
         forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes,
                                     st_shapes)
 
@@ -2380,19 +2713,28 @@ def main():
         phase_norm_variants(port)
 
         log("phase 12: the ViM-UNet / UNETR recipe, UNETR vit_b and ViM-UNet vim_t at 512x512; UNETR3D")
-        vit_fwd, vit_bwd = phase_vit_recipes(port, inorm)
+        # phases 12 and 14 train on the same LIVECell-sized images
+        livecell_dir = tempfile.TemporaryDirectory()
+        livecell = livecell_images(livecell_dir.name)
+        log(f"LIVECell-sized data: {len(livecell[0])} images {np.load(livecell[0][0]).shape}")
+        vit_fwd, vit_bwd = phase_vit_recipes(port, inorm, *livecell)
 
         log("phase 13: self-training at DSB width: MeanTeacher, FixMatch, UniMatch v2, the Probabilistic U-Net, "
             "FlashOptim")
         st_fwd, st_bwd = phase_self_training(port, inorm)
+
+        log("phase 14: the other encoder families in UNETR (SAM2, DINOv2, DINOv3, MAE, ScaleMAE, SAM3) and the 3-D "
+            "ResNet classification")
+        fam_fwd, fam_bwd = phase_encoder_families(port, inorm, *livecell)
+        livecell_dir.cleanup()
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd)
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd
+                               + st_fwd + fam_fwd)
+        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
-            f"{st_fwd} self-training; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + "
-            f"{dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} "
-            f"self-training")
+            f"{st_fwd} self-training + {fam_fwd} encoder families; backward kernel launches: {train_bwd} training + "
+            f"{recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and "
+            f"ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -2,15 +2,17 @@
 
 The machine with the card has PyTorch, numpy and scipy but none of jax,
 flax, optax, h5py, tqdm, PIL, imageio, sklearn, napari, pandas,
-tensorboardX, tensorboard or wandb, and neither machine has timm,
+tensorboardX, tensorboard, wandb or matplotlib, and neither machine has timm,
 segment_anything or mamba_ssm, whose models the port builds itself. Here most of them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
 reads an HDF5 path and a PNG file, writes HDF5 test data, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
-trainer's and self-training's) and wandb loggers, which must raise an ImportError that names h5py, PIL, sklearn,
-napari, tensorboardX and wandb. Those packages may be imported inside a
+trainer's, self-training's and classification's) and wandb loggers and a
+classification metric from sklearn, which must raise an ImportError that
+names h5py, PIL, sklearn, napari, tensorboardX and wandb; the classification
+package's default metric, the accuracy in numpy, runs. Those packages may be imported inside a
 function, never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
@@ -29,7 +31,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
-           "tensorboard", "wandb", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm")
+           "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -50,6 +52,8 @@ from torch_em_tpu_torch.metric import HDBScan
 from torch_em_tpu_torch.self_training import SelfTrainingTensorboardLogger
 from torch_em_tpu_torch.trainer import TensorboardLogger, WandbLogger
 from torch_em_tpu_torch.utils import io, test, validation
+from torch_em_tpu_torch.classification import ClassificationLogger, ClassificationMetric
+assert ClassificationMetric()(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2])) == 0.25
 trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
 for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "raw", "labels", (4, 4), (2, 2)),
                        "h5py"),
@@ -57,6 +61,8 @@ for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "ra
                       (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
                       (lambda: TensorboardLogger(trainer, None), "tensorboardX"),
                       (lambda: SelfTrainingTensorboardLogger(trainer, None), "tensorboardX"),
+                      (lambda: ClassificationLogger(trainer, None), "tensorboardX"),
+                      (lambda: ClassificationMetric("f1_score"), "sklearn"),
                       (lambda: WandbLogger(trainer, None), "wandb")):
     try:
         call()
@@ -100,9 +106,9 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|tqdm|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard and wandb only inside the functions
-    # that need them
-    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb)",
+    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb and matplotlib only inside the
+    # functions that need them
+    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib)",
                          text, flags=re.MULTILINE)
 
 

@@ -207,12 +207,46 @@ UNIMATCH_ROWS = {65536: (16, 1024, 2048), 16384: (1024, 2048, 4096), 4096: (2048
                  1024: (4096, 8192, 16384), 256: (8192, 16384)}
 PUNET_ROWS = {65536: (8, 256, 512), 16384: (256, 512, 1024), 4096: (512, 1024, 2048), 1024: (1024, 1536, 3072),
               256: (1536, 3072)}
+
+
+def _decoder_rows(channels, skip, grid, size, batches, initial_features=64):
+    """{row length: rows} of a UNETR decoder's norms (chip_smoke.unetr_norm_shapes) over an
+    encoder grid of ``grid`` on a ``size`` input, the head at 16 x grid, at each batch."""
+    feats = [initial_features * 2 ** i for i in range(4)][::-1]
+    shapes = [(3, size), (feats[-1], size)] if skip else []
+    shapes += [(channels, grid), (feats[0], grid)]
+    for i, f in enumerate(feats[1:]):
+        shapes += [(2 * f, grid * 2 ** (i + 1)), (f, grid * 2 ** (i + 1))]
+    shapes += [(2 * feats[-1], 16 * grid), (feats[-1], 16 * grid)]
+    rows = {}
+    for c, side in shapes:
+        rows.setdefault(side * side, set()).update(b * c for b in batches)
+    return {length: tuple(sorted(r)) for length, r in rows.items()}
+
+
+# the encoder families' UNETR decoders of chip_smoke.py phase 14, at serving batch 1 and their
+# training batch: SAM2 hvit_b at 1024 without skips (d_model 256, grid 64), DINOv2 vit_b at 518
+# (grid 37: rows of 1369, 5476 and 268324 elements, off the 16-byte grid), DINOv3 vit_b at 512,
+# MAE vit_b at 224 (grid 14), ScaleMAE vit_l at 224 (its grid is 448 / 8 = 56; the head at 896)
+# and SAM3 at 1008 (grid 72; the head's 1152x1152 rows take path C)
+FAMILY_ROWS = {
+    "sam2": _decoder_rows(256, False, 64, 1024, (1, 2)),
+    "dinov2": _decoder_rows(768, True, 37, 518, (1, 4)),
+    "dinov3": _decoder_rows(768, True, 32, 512, (1, 4)),
+    "mae": _decoder_rows(768, True, 14, 224, (1, 4)),
+    "scalemae": _decoder_rows(1024, True, 56, 224, (1, 4)),
+    "sam3": _decoder_rows(1024, True, 72, 1008, (1, 2)),
+}
 # length -> path: A up to 16384 elements; B where the row's inputs fit 8
 # blocks of shared memory; C beyond.
 EXPECTED_PATH = {
     256: "A", 1024: "A", 2048: "A", 4096: "A", 12960: "A", 16384: "A", 65536: "B",
     103680: "B", 131072: "B", 262144: "B-but-float32-backward", 524288: "B-16-bit-forward",
     829440: "B-16-bit-forward", 2097152: "C", 3317760: "C", 13271040: "C",
+    196: "A", 784: "A", 1369: "A", 3136: "A", 5184: "A", 5476: "A", 12544: "A", 20736: "B", 21904: "B",
+    50176: "B", 82944: "B", 87616: "B", 200704: "B", 268324: "B-but-float32-backward",
+    331776: "B-but-float32-backward", 350464: "B-but-float32-backward", 802816: "B-16-bit-forward",
+    1016064: "C", 1048576: "C", 1327104: "C",
 }
 SMEM_PER_BLOCK = 232448  # 227 KB, the most a Hopper block may use
 
@@ -228,8 +262,9 @@ def _expected_path(length, itemsize, direction):
 
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
-@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS],
-                         ids=["training", "serving", "dsb", "unetr", "unimatch", "punet"])
+@pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS,
+                                     *FAMILY_ROWS.values()],
+                         ids=["training", "serving", "dsb", "unetr", "unimatch", "punet", *FAMILY_ROWS])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize
@@ -353,6 +388,28 @@ def test_kernels_at_self_training_shapes_on_card(case, dtype):
     batch, channels, side = case
     x = _card_inputs((batch, channels, side, side), dtype, 19)
     g = _card_inputs(x.shape, dtype, 20)
+    ref = instance_norm_reference(x).float()
+    assert bool(((instance_norm(x).float() - ref).abs() <= _output_tol(ref, dtype)).all())
+    _, mean, rstd = instance_norm_forward_reference(x)
+    _assert_dx_close(instance_norm_backward(x, g, mean, rstd),
+                     instance_norm_backward_reference(x, g, mean, rstd), dtype)
+
+
+# (batch, channels, side) of the encoder families' decoder norms (FAMILY_ROWS), one per row
+# length and path, among them the lengths off the 16-byte grid and SAM3's path-C head rows
+FAMILY_SHAPES = [(4, 768, 37), (4, 512, 74), (4, 256, 148), (4, 128, 296), (1, 3, 518), (4, 64, 592),
+                 (4, 768, 14), (4, 128, 896), (2, 1024, 72), (2, 64, 1152), (1, 3, 1008), (2, 64, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", FAMILY_SHAPES, ids=lambda c: "x".join(map(str, c)))
+def test_kernels_at_encoder_family_shapes_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    batch, channels, side = case
+    x = _card_inputs((batch, channels, side, side), dtype, 21)
+    g = _card_inputs(x.shape, dtype, 22)
     ref = instance_norm_reference(x).float()
     assert bool(((instance_norm(x).float() - ref).abs() <= _output_tol(ref, dtype)).all())
     _, mean, rstd = instance_norm_forward_reference(x)

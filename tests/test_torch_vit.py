@@ -181,8 +181,28 @@ def test_cellpose_sam_matches_jax():
 
 @pytest.mark.parametrize("backbone", ["sam2", "sam3", "mae", "scalemae", "dinov2", "dinov3"])
 def test_unported_backbones_raise(backbone):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        get_vision_transformer(backbone, "vit_b")
+    """The families that the port once refused build their own encoder class, as the JAX
+    package's ``get_vision_transformer`` routes them; an unknown model name raises its error."""
+    from torch_em_tpu_torch import models
+
+    model, cls = {"sam2": ("hvit_b", models.HieraSam2), "sam3": ("vit_pe", models.Sam3ViT),
+                  "mae": ("vit_b", models.MAEViT), "scalemae": ("vit_b", models.ScaleMAEViT),
+                  "dinov2": ("vit_b", models.DinoV2ViT), "dinov3": ("vit_b", models.DinoV3ViT)}[backbone]
+    depth = dict(stages=(1, 1, 1, 1), global_att_blocks=()) if backbone == "sam2" else dict(depth=1)
+    encoder = get_vision_transformer(backbone, model, img_size=224, **depth)
+    assert type(encoder) is cls and type(jvit.get_vision_transformer(backbone, model, img_size=224)).__name__ == \
+        cls.__name__
+    with pytest.raises(ValueError):
+        jvit.get_vision_transformer(backbone, "vit_unknown")
+    with pytest.raises(ValueError):
+        get_vision_transformer(backbone, "vit_unknown")
+
+
+def test_unknown_backbone_raises():
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        jvit.get_vision_transformer("sam4")
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        get_vision_transformer("sam4")
 
 
 def test_load_sam_weights_matches_jax(sam_encoders, tmp_path):

@@ -2,9 +2,12 @@
 
 Counterpart of ``torch_em_tpu/models/base.py`` (``ACTIVATIONS``,
 ``get_activation``). The activations take channel-first tensors.
-``resize_linear`` is ``jax.image.resize`` with the linear kernel, which the
-JAX package's transformer models use for their position tables and their
-input and output resizes.
+``resize_linear`` and ``resize_cubic`` are ``jax.image.resize`` with the
+linear and the cubic kernel, which the JAX package's transformer models use
+for their position tables and their input and output resizes. The cubic one
+is Keys' kernel with a = -0.5 at half-pixel centres, widened and
+renormalised where an axis shrinks; ``F.interpolate(mode="bicubic")`` is
+a = -0.75 without the widening, another function.
 """
 
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ACTIVATIONS", "get_activation", "resolve_device", "resize_linear"]
+__all__ = ["ACTIVATIONS", "get_activation", "resolve_device", "resize_linear", "resize_cubic"]
 
 
 ACTIVATIONS: Dict[str, Callable] = {
@@ -51,14 +54,25 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return device
 
 
-def _linear_weights(n_in: int, n_out: int) -> torch.Tensor:
-    """(n_in, n_out) weights of ``jax.image.resize``'s linear kernel along one axis: a
-    triangle filter at half-pixel sample positions, widened by the shrink factor when the
-    axis shrinks (antialiasing), renormalised where it overhangs the border."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return (1.0 - x).clamp_min(0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5, of |x|."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel: Callable) -> torch.Tensor:
+    """(n_in, n_out) weights of ``jax.image.resize`` along one axis: ``kernel`` at half-pixel
+    sample positions, widened by the shrink factor when the axis shrinks (antialiasing),
+    renormalised where it overhangs the border."""
     inv_scale = n_in / n_out
     sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
     dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / max(inv_scale, 1.0)
-    weights = (1.0 - dist).clamp_min(0.0)
+    weights = kernel(dist)
     total = weights.sum(0, keepdim=True)
     weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                           weights / torch.where(total != 0, total, torch.ones_like(total)), 0.0)
@@ -66,15 +80,25 @@ def _linear_weights(n_in: int, n_out: int) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0)
 
 
+def _resize(x: torch.Tensor, shape: Sequence[int], kernel: Callable, name: str) -> torch.Tensor:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != x.ndim:
+        raise ValueError(f"{name}: shape {shape} for a tensor of rank {x.ndim}")
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            weights = _resize_weights(n_in, n_out, kernel).to(x.device, x.dtype)
+            x = torch.matmul(x.movedim(axis, -1), weights).movedim(-1, axis)
+    return x
+
+
 def resize_linear(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.image.resize(x, shape, "linear")``: separable linear interpolation of every axis
     whose size changes, antialiased where it shrinks (``F.interpolate`` antialiases only
     bilinear and bicubic resizes of the last two axes)."""
-    shape = tuple(int(s) for s in shape)
-    if len(shape) != x.ndim:
-        raise ValueError(f"resize_linear: shape {shape} for a tensor of rank {x.ndim}")
-    for axis, (n_in, n_out) in enumerate(zip(x.shape, shape)):
-        if n_in != n_out:
-            weights = _linear_weights(n_in, n_out).to(x.device, x.dtype)
-            x = torch.matmul(x.movedim(axis, -1), weights).movedim(-1, axis)
-    return x
+    return _resize(x, shape, _triangle, "resize_linear")
+
+
+def resize_cubic(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.image.resize(x, shape, "cubic")``: separable Keys cubic (a = -0.5) interpolation
+    of every axis whose size changes, antialiased where it shrinks."""
+    return _resize(x, shape, _keys_cubic, "resize_cubic")

@@ -29,6 +29,7 @@ import torch.nn as nn
 
 from .base import get_activation, resize_linear, resolve_device
 from .unet import BatchNorm, ConvBlock, Upsampler, _Conv
+from .hiera import HieraSam2
 from .vit import ViT, at_least_f32, get_vision_transformer, load_sam_weights
 
 __all__ = ["UNETR", "UNETR2D", "UNETRModule", "UNETR3D", "UNETR3DModule", "DepthStripPooling"]
@@ -38,6 +39,16 @@ _SAM_MEAN = np.array([123.675, 116.28, 103.53]) / 255.0
 _SAM_STD = np.array([58.395, 57.12, 57.375]) / 255.0
 _IMAGENET_MEAN = np.array([0.485, 0.456, 0.406])
 _IMAGENET_STD = np.array([0.229, 0.224, 0.225])
+
+
+def encoder_channels(encoder: nn.Module) -> int:
+    """The channels of an encoder's features: a SAM-family ViT's neck where it applies it, a
+    Hiera's ``d_model``, else its ``embed_dim``."""
+    if isinstance(encoder, HieraSam2):
+        return encoder.out_chans
+    if isinstance(encoder, ViT) and encoder.neck is not None and encoder.apply_neck:
+        return encoder.neck[0].out_channels
+    return encoder.embed_dim
 
 
 def _normalize(x, mean, std):
@@ -91,9 +102,9 @@ class _Decoder(nn.Module):
 
 
 class UNETRModule(nn.Module):
-    """The 2-D UNETR on channel-first (N, C, H, W) tensors around ``encoder``: a ViT (with
-    ``apply_neck=False``, as ``UNETR`` builds it) or another encoder with the same call and an
-    ``embed_dim``, such as the ViM of ``get_vimunet_model``."""
+    """The 2-D UNETR on channel-first (N, C, H, W) tensors around ``encoder``: an encoder of
+    ``get_vision_transformer`` (a SAM-family ViT with ``apply_neck=False``, as ``UNETR`` builds
+    it) or another with the same call, such as the ViM of ``get_vimunet_model``."""
 
     def __init__(self, encoder: nn.Module, img_size: int = 1024, out_channels: int = 1, use_sam_stats: bool = False,
                  use_mae_stats: bool = False, use_dino_stats: bool = False, resize_input: bool = True,
@@ -106,7 +117,7 @@ class UNETRModule(nn.Module):
         self.final_activation = get_activation(final_activation)
         self.encoder = encoder
         self.dtype = dtype
-        embed = encoder.embed_dim
+        embed = encoder_channels(encoder)
         feats = [initial_features * 2 ** i for i in range(depth + 1)][::-1]
         self.deconv1 = _DeconvBlock(embed, feats[0])
         if use_skip_connection:
@@ -215,8 +226,9 @@ def UNETR(
     seed: int = 0,
     **encoder_kwargs,
 ) -> UNETRModule:
-    """A 2-D UNETR with a SAM-geometry ViT encoder, initialised from ``seed``; with
-    ``encoder_checkpoint`` the encoder then loads a segment-anything checkpoint.
+    """A 2-D UNETR with the ``encoder`` model of the ``backbone`` family, initialised from
+    ``seed``; with ``encoder_checkpoint`` the encoder then loads that family's checkpoint
+    (``vit.load_sam_weights``).
     ``decoder``, ``embed_dim`` and ``use_conv_transpose`` are accepted as the JAX package
     accepts them, and unused; ``encoder_kwargs`` override the encoder's configuration
     (e.g. ``depth``, ``embed_dim`` of a small test model)."""
@@ -226,9 +238,10 @@ def UNETR(
         resize_input=resize_input, encoder_checkpoint=encoder_checkpoint, final_activation=final_activation,
         use_skip_connection=use_skip_connection, in_chans=in_chans, dtype=dtype, seed=seed, **encoder_kwargs,
     )
-    # UNETR reads the last block's features, not the neck's (whose parameters exist)
+    # UNETR reads a SAM-family ViT's last block's features, not its neck's (whose parameters exist)
+    extra = {"apply_neck": False} if backbone in ("sam", "cellpose_sam") else {}
     vit = get_vision_transformer(backbone, encoder or "vit_b", img_size=img_size, in_chans=in_chans,
-                                 apply_neck=False, **encoder_kwargs)
+                                 **extra, **encoder_kwargs)
     model = UNETRModule(
         vit, img_size=img_size, out_channels=out_channels, use_sam_stats=use_sam_stats, use_mae_stats=use_mae_stats,
         use_dino_stats=use_dino_stats, resize_input=resize_input, final_activation=final_activation,
@@ -288,10 +301,11 @@ class _Deconv3DBlock(nn.Module):
 
 
 class UNETR3DModule(nn.Module):
-    """UNETR3D on channel-first (N, C, Z, H, W): ``encoder`` (a ViT with its neck) on every z-slice,
-    a 3-D decoder with depth strip pooling, the masks resized back to the input's size."""
+    """UNETR3D on channel-first (N, C, Z, H, W): ``encoder`` (of any family, a SAM ViT with its
+    neck) on every z-slice, a 3-D decoder with depth strip pooling, the masks resized back to
+    the input's size."""
 
-    def __init__(self, encoder: ViT, img_size: int = 1024, out_channels: int = 1, use_sam_stats: bool = False,
+    def __init__(self, encoder: nn.Module, img_size: int = 1024, out_channels: int = 1, use_sam_stats: bool = False,
                  resize_input: bool = True, final_activation=None, use_strip_pooling: bool = True,
                  initial_features: int = 64, depth: int = 3, in_chans: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -300,7 +314,7 @@ class UNETR3DModule(nn.Module):
         self.final_activation = get_activation(final_activation)
         self.encoder = encoder
         self.dtype = dtype
-        enc_channels = encoder.neck[0].out_channels if encoder.neck is not None else encoder.embed_dim
+        enc_channels = encoder_channels(encoder)
         feats = [initial_features * 2 ** i for i in range(depth + 1)][::-1]
         sp = use_strip_pooling
         self.deconv1 = _Deconv3DBlock(enc_channels, feats[0], sp)
@@ -372,8 +386,9 @@ def UNETR3D(
     seed: int = 0,
     **encoder_kwargs,
 ) -> UNETR3DModule:
-    """A 3-D UNETR: a shared SAM-geometry ViT per z-slice and a 3-D decoder with depth strip
-    pooling, initialised from ``seed``. It has no skip connections, as the reference."""
+    """A 3-D UNETR: a shared encoder of the ``backbone`` family per z-slice and a 3-D decoder
+    with depth strip pooling, initialised from ``seed``. It has no skip connections, as the
+    reference."""
     if use_skip_connection:
         raise NotImplementedError("UNETR3D does not support skip connections (reference parity).")
     init_kwargs = dict(

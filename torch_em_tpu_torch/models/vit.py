@@ -1,11 +1,15 @@
 """SAM-geometry vision transformer, the encoder of UNETR.
 
 Counterpart of ``torch_em_tpu/models/vit.py`` (``ViT``, ``VIT_CONFIGS``,
-``get_vision_transformer``, ``load_sam_weights``) for the ``"sam"`` and
-``"cellpose_sam"`` families: patch embedding, a learned position embedding
-resized to the input's grid, pre-norm blocks with windowed attention (global
-in the ``global_attn_indexes`` blocks), decomposed relative positions in
-every attention, and segment-anything's 256-channel neck. Tensors are
+``get_vision_transformer``, ``load_sam_weights``). ``get_vision_transformer``
+and ``load_sam_weights`` route every family of the JAX package: ``"sam2"``
+to ``hiera.py``, ``"sam3"`` to ``sam3.py``, ``"dinov2"``/``"dinov3"`` to
+``dino.py``, ``"mae"``/``"scalemae"`` to ``scalemae.py``. This file holds
+the ``"sam"`` and ``"cellpose_sam"`` families: patch embedding, a learned
+position embedding resized to the input's grid, pre-norm blocks with
+windowed attention (global in the ``global_attn_indexes`` blocks),
+decomposed relative positions in every attention, and segment-anything's
+256-channel neck. Tensors are
 channel-first at the public call, ``(N, C, H, W) -> (features,
 [global-block features])``, both float32.
 
@@ -91,15 +95,29 @@ class Conv2d(nn.Conv2d):
 
 
 class PatchEmbed(nn.Module):
-    """Non-overlapping patches to embeddings: ``proj`` is a conv with kernel and stride
-    ``patch_size``; (N, C, H, W) -> (N, H / p, W / p, embed_dim)."""
+    """Patches to embeddings: ``proj`` is a conv with kernel and stride ``patch_size`` (or
+    ``stride`` and ``padding`` of their own); (N, C, H, W) -> (N, H / s, W / s, embed_dim)."""
 
-    def __init__(self, patch_size: int, in_chans: int, embed_dim: int):
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int, bias: bool = True,
+                 stride: Optional[int] = None, padding: int = 0):
         super().__init__()
-        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv2d(in_chans, embed_dim, patch_size, stride=stride or patch_size, padding=padding, bias=bias)
 
     def forward(self, x):
         return self.proj(x).permute(0, 2, 3, 1)
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator, normal: Sequence[nn.Parameter] = ()):
+    """flax's initialisers, as the JAX package's modules get them: lecun-normal kernels and zero
+    biases of every ``Linear`` and ``Conv2d``, unit layer norms, normal(0.02) for ``normal``."""
+    for m in module.modules():
+        if isinstance(m, (Linear, Conv2d)):
+            m.reset_parameters_from(generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+    with torch.no_grad():
+        for p in normal:
+            p.normal_(0.0, 0.02, generator=generator)
 
 
 def _get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
@@ -263,16 +281,11 @@ class ViT(nn.Module):
     def reset_parameters_from(self, generator: torch.Generator):
         """flax's initialisers, as the JAX package's module: lecun-normal kernels, zero
         biases and relative-position tables, unit norms, a normal(0.02) position embedding."""
+        flax_init_(self, generator, [self.pos_embed])
         for m in self.modules():
-            if isinstance(m, (Linear, Conv2d)):
-                m.reset_parameters_from(generator)
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
-            elif isinstance(m, _Attention) and m.use_rel_pos:
+            if isinstance(m, _Attention) and m.use_rel_pos:
                 nn.init.zeros_(m.rel_pos_h)
                 nn.init.zeros_(m.rel_pos_w)
-        with torch.no_grad():
-            self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, x):
         h = self.patch_embed(x.to(self.dtype))
@@ -298,20 +311,55 @@ VIT_CONFIGS = {
     "vit_h": dict(embed_dim=1280, depth=32, num_heads=16, global_attn_indexes=(7, 15, 23, 31)),
 }
 
-# the families of the JAX package's get_vision_transformer whose encoders the port has not yet
-_NOT_PORTED = ("sam2", "sam3", "mae", "scalemae", "dinov2", "dinov3")
+BACKBONES = ("sam", "sam2", "sam3", "cellpose_sam", "mae", "scalemae", "dinov2", "dinov3")
+
+
+def _config(configs: Dict[str, dict], model: str, family: str, kwargs) -> dict:
+    if model not in configs:
+        raise ValueError(f"'{model}' is not supported by {family}. Currently, {sorted(configs)} are supported.")
+    return dict(configs[model], **kwargs)
 
 
 def get_vision_transformer(backbone: str = "sam", model: str = "vit_b", img_size: int = 1024,
-                           in_chans: int = 3, dtype: torch.dtype = torch.float32, **kwargs) -> ViT:
-    """A ViT encoder of the ``"sam"`` family (14x14 windows, relative positions, the neck) or
-    ``"cellpose_sam"`` (vit_l at patch 8, every block global, SAM's 14/64 rel-pos tables
-    resized at call time). Its parameters are uninitialised: the factories that use it
-    initialise them from a seed (``ViT.reset_parameters_from``)."""
-    if backbone in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet (ROADMAP.md Queue 1 item 6); the port has 'sam' and "
-            "'cellpose_sam'")
+                           in_chans: int = 3, dtype: torch.dtype = torch.float32, **kwargs) -> nn.Module:
+    """The encoder of a ``backbone`` family at configuration ``model``: ``"sam"`` (14x14
+    windows, relative positions, the neck), ``"cellpose_sam"`` (vit_l at patch 8, every block
+    global, SAM's 14/64 rel-pos tables resized at call time), ``"sam2"`` (``HieraSam2``,
+    hvit_*), ``"sam3"`` (``Sam3ViT``, vit_pe; an ``img_size`` other than 1024 overrides its
+    1008), ``"mae"`` (``MAEViT``), ``"scalemae"`` (``ScaleMAEViT``, whose input size is its
+    own), ``"dinov2"``/``"dinov3"``. ``kwargs`` override the configuration. Its parameters are
+    uninitialised: the factories that use it initialise them from a seed
+    (``reset_parameters_from``)."""
+    if backbone not in BACKBONES:
+        raise ValueError(f"Unknown backbone {backbone}; available: {sorted(BACKBONES)}")
+    if backbone == "sam2":
+        from .hiera import HIERA_CONFIGS, HieraSam2
+
+        return HieraSam2(img_size=img_size, in_chans=in_chans, dtype=dtype,
+                         **_config(HIERA_CONFIGS, model, "SAM2", kwargs))
+    if backbone in ("dinov2", "dinov3"):
+        from .dino import DINOV2_CONFIGS, DINOV3_CONFIGS, DinoV2ViT, DinoV3ViT
+
+        configs, cls = (DINOV2_CONFIGS, DinoV2ViT) if backbone == "dinov2" else (DINOV3_CONFIGS, DinoV3ViT)
+        return cls(img_size=img_size, in_chans=in_chans, dtype=dtype, **_config(configs, model, backbone, kwargs))
+    if backbone == "scalemae":
+        from .scalemae import SCALEMAE_CONFIGS, ScaleMAEViT
+
+        return ScaleMAEViT(in_chans=in_chans, dtype=dtype, **_config(SCALEMAE_CONFIGS, model, "scalemae", kwargs))
+    if backbone == "mae":
+        from .scalemae import MAE_CONFIGS, MAEViT
+
+        return MAEViT(img_size=img_size, in_chans=in_chans, dtype=dtype, **_config(MAE_CONFIGS, model, "MAE", kwargs))
+    if backbone == "sam3":
+        from .sam3 import SAM3_CONFIG, Sam3ViT
+
+        if model != "vit_pe":
+            raise ValueError("'sam3' does not have multiple model configurations. "
+                             "Please use 'vit_pe' as the model configuration.")
+        cfg = dict(SAM3_CONFIG, **kwargs)
+        if img_size != 1024:  # the reference's 1008 unless another size is asked for
+            cfg["img_size"] = img_size
+        return Sam3ViT(in_chans=in_chans, dtype=dtype, **cfg)
     if backbone == "cellpose_sam":
         if model != "vit_l":
             raise ValueError(f"'{model}' is not supported by CellposeSAM. Only 'vit_l' is supported.")
@@ -320,23 +368,36 @@ def get_vision_transformer(backbone: str = "sam", model: str = "vit_b", img_size
         cfg.update(use_neck=True, use_rel_pos=True, window_size=0, patch_size=8,
                    rel_pos_table_sizes=tuple(native_grid if i in cfg["global_attn_indexes"] else 14
                                              for i in range(cfg["depth"])))
-    elif backbone == "sam":
+    else:
         if model not in VIT_CONFIGS:
             raise ValueError(f"Unknown vit model {model}; available: {sorted(VIT_CONFIGS)}")
         cfg = dict(VIT_CONFIGS[model], use_neck=True, window_size=14, use_rel_pos=True)
-    else:
-        raise ValueError(f"Unknown backbone {backbone}; available: ['cellpose_sam', 'sam', *{_NOT_PORTED}]")
     cfg.update(kwargs)
     return ViT(img_size=img_size, in_chans=in_chans, dtype=dtype, **cfg)
 
 
-def load_by_name(module: nn.Module, state: Dict[str, torch.Tensor], what: str, strict: bool = True):
+def load_state(checkpoint: Union[str, Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """A checkpoint's tensors: ``torch.load`` of a path (on the CPU) or the given dict, out of
+    a ``"model"`` or ``"state_dict"`` envelope; numpy values become tensors."""
+    state = torch.load(checkpoint, map_location="cpu", weights_only=False) if isinstance(checkpoint, str) \
+        else checkpoint
+    for envelope in ("model", "state_dict"):
+        if isinstance(state.get(envelope), dict):
+            state = state[envelope]
+    return {k: torch.as_tensor(v) for k, v in state.items()}
+
+
+def load_by_name(module: nn.Module, state: Dict[str, torch.Tensor], what: str, strict: bool = True,
+                 complete: bool = False):
     """Copy the tensors of ``state`` into ``module``'s of the same name and shape; with
     ``strict`` any other tensor raises, since the module would not compute the checkpoint's
-    function, else it warns."""
+    function, else it warns. With ``complete`` a tensor of the module that ``state`` lacks
+    counts as unmatched too."""
     own = module.state_dict()
     matched = {k: v for k, v in state.items() if k in own and tuple(own[k].shape) == tuple(v.shape)}
     unmatched = sorted(set(state) - set(matched))
+    if complete:
+        unmatched += sorted(f"missing {k}" for k in set(own) - set(state))
     if unmatched:
         msg = f"{what}: {len(unmatched)} unmatched tensors (converted {len(matched)}), e.g. {unmatched[:5]}"
         if strict:
@@ -348,18 +409,37 @@ def load_by_name(module: nn.Module, state: Dict[str, torch.Tensor], what: str, s
             own[name].copy_(value.to(own[name].dtype))
 
 
-def load_sam_weights(encoder: ViT, checkpoint: Union[str, Dict[str, torch.Tensor]], backbone: str = "sam",
-                     strict: bool = True) -> ViT:
-    """Load a segment-anything checkpoint (a path or a state dict; the ``image_encoder.``
-    entries of a whole SAM model, or an encoder's own) into ``encoder`` in place, by name (the
-    port's names are segment-anything's). With ``strict`` a tensor that has no counterpart of
-    the same shape raises. Returns the encoder."""
-    if backbone in _NOT_PORTED:
-        raise NotImplementedError(f"checkpoints of backbone {backbone!r} are not ported yet (ROADMAP.md Queue 1 "
-                                  "item 6)")
-    state = torch.load(checkpoint, map_location="cpu", weights_only=False) if isinstance(checkpoint, str) else checkpoint
-    if "model" in state and isinstance(state["model"], dict):
-        state = state["model"]
+def load_sam_weights(encoder: nn.Module, checkpoint: Union[str, Dict[str, torch.Tensor]], backbone: str = "sam",
+                     strict: bool = True) -> nn.Module:
+    """Load a checkpoint (a path or a state dict) of the ``backbone`` family into ``encoder``
+    in place and return the encoder: ``"sam2"`` through ``hiera.load_sam2_weights``,
+    ``"sam3"`` through ``sam3.load_sam3_weights``, ``"dinov2"``/``"dinov3"`` through
+    ``dino.load_dino_weights``, ``"mae"``/``"scalemae"`` through
+    ``scalemae.load_mae_weights``/``load_scalemae_weights``. A segment-anything checkpoint
+    (the ``image_encoder.`` entries of a whole SAM model, or an encoder's own) loads by name,
+    the port's names being segment-anything's. With ``strict`` a tensor that has no
+    counterpart of the same shape raises."""
+    if backbone == "sam3":
+        from .sam3 import load_sam3_weights
+
+        return load_sam3_weights(encoder, checkpoint, strict=strict)
+    if backbone == "sam2":
+        from .hiera import load_sam2_weights
+
+        return load_sam2_weights(encoder, checkpoint, strict=strict)
+    if backbone in ("dinov2", "dinov3"):
+        from .dino import load_dino_weights
+
+        return load_dino_weights(encoder, checkpoint, backbone=backbone, strict=strict)
+    if backbone == "scalemae":
+        from .scalemae import load_scalemae_weights
+
+        return load_scalemae_weights(encoder, checkpoint, strict=strict)
+    if backbone == "mae":
+        from .scalemae import load_mae_weights
+
+        return load_mae_weights(encoder, checkpoint, strict=strict)
+    state = load_state(checkpoint)
     state = {k.replace("image_encoder.", ""): v for k, v in state.items()
              if k.startswith("image_encoder.") or not k.startswith(("mask_decoder", "prompt_encoder"))}
     load_by_name(encoder, state, "load_sam_weights", strict)

@@ -487,6 +487,14 @@ class AugmentationPipeline:
         self._lock = threading.Lock()
         self.halo = self.compute_halo()
 
+    def __getstate__(self):
+        """Pickled without its lock: a trainer checkpoint pickles the loaders it cannot spec."""
+        return {k: v for k, v in self.__dict__.items() if k != "_lock"}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
     def compute_halo(self):
         halo = None
         for aug in self.augmentations:

@@ -26,14 +26,24 @@ conv/ReLU pairs), ``mu_log_sigma`` to ``<encoder>.conv_layer``, and
 and become OIHW.
 
 Transformer models (``vit_state_dict_from_jax_params``,
-``vim_state_dict_from_jax_params``, ``unetr_state_dict_from_jax_params``,
-``unetr3d_state_dict_from_jax_params``): the port's names are
-segment-anything's for the ViT, hustvl/Vim's for the ViM and torch-em's for
-the UNETR decoder (the port's copy of the JAX package's
-``utils/modelzoo.py:_torch_state_dict_unetr``). Dense kernels (I, O) become
-(O, I), except the upsamplers', which become 1x1 conv weights; the Mamba
-layers' depthwise conv kernels (K, 1, E) become (E, 1, K); flax's ``scale``
-becomes ``weight``.
+``vim_state_dict_from_jax_params``, ``dino_state_dict_from_jax_params``,
+``mae_state_dict_from_jax_params``, ``scalemae_state_dict_from_jax_params``,
+``hiera_state_dict_from_jax_params``, ``sam3_state_dict_from_jax_params``,
+``unetr_state_dict_from_jax_params``, ``unetr3d_state_dict_from_jax_params``):
+the port's names are segment-anything's for the ViT, hustvl/Vim's for the
+ViM, the native checkpoints' for DINO, timm's for (Scale)MAE, sam2's for
+Hiera, vitdet's for SAM3 and torch-em's for the UNETR decoder (the port's
+copy of the JAX package's ``utils/modelzoo.py:_torch_state_dict_unetr``).
+Dense kernels (I, O) become (O, I), except the upsamplers', which become 1x1
+conv weights; the Mamba layers' depthwise conv kernels (K, 1, E) become (E,
+1, K); Hiera's position tables (1, h, w, C) become (1, C, h, w); flax's
+``scale`` becomes ``weight``. The UNETR converters tell the encoder's family
+by its parameters.
+
+3-D ResNets (``resnet3d_state_dict_from_jax_params``): ``layer<s>_<b>``
+becomes torchvision's ``layer<s>.<b>``, ``downsample_conv``/``downsample_bn``
+its ``downsample.0``/``.1``, the ``batch_stats`` the norms' running
+statistics.
 """
 
 import re
@@ -45,7 +55,9 @@ import torch
 __all__ = [
     "state_dict_from_jax_params", "vit_state_dict_from_jax_params", "vim_state_dict_from_jax_params",
     "unetr_state_dict_from_jax_params", "unetr3d_state_dict_from_jax_params",
-    "probabilistic_unet_state_dict_from_jax_params",
+    "probabilistic_unet_state_dict_from_jax_params", "dino_state_dict_from_jax_params",
+    "mae_state_dict_from_jax_params", "scalemae_state_dict_from_jax_params", "hiera_state_dict_from_jax_params",
+    "sam3_state_dict_from_jax_params", "resnet3d_state_dict_from_jax_params",
 ]
 
 
@@ -174,8 +186,47 @@ _VIM_NATIVE_TENSORS = [(r"pos_embed", "pos_embed"), (r"block(\d+)/(A_log|D|dt_bi
 _VIM_NATIVE_DEPTHWISE = [(r"block(\d+)/conv_kernel", r"layers.\1.conv1d.weight")]
 
 
+# DINOv2/v3, MAE and ScaleMAE (dino._DinoBlock): the native and timm names
+_TOKEN_VIT_RULES: _Rules = [
+    (r"patch_embed", "patch_embed.proj", "conv"), (r"norm", "norm", "linear"),
+    (r"block(\d+)/(norm[12])", r"blocks.\1.\2", "linear"),
+    (r"block(\d+)/attn/(qkv|proj|q_proj|k_proj|v_proj|o_proj)", r"blocks.\1.attn.\2", "linear"),
+    (r"block(\d+)/mlp_(fc1|fc2|w12|w3|gate)", r"blocks.\1.mlp.\2", "linear"),
+    (r"block(\d+)/mlp_up", r"blocks.\1.mlp.fc1", "linear"), (r"block(\d+)/mlp_down", r"blocks.\1.mlp.fc2", "linear"),
+]
+_TOKEN_VIT_TENSORS = [(r"(cls_token|pos_embed|register_tokens)", r"\1"),
+                      (r"block(\d+)/(ls[12])/gamma", r"blocks.\1.\2.gamma")]
+# sam2's Hiera and FPN neck
+_HIERA_RULES: _Rules = [
+    (r"patch_embed", "trunk.patch_embed.proj", "conv"),
+    (r"block(\d+)/(norm[12]|proj)", r"trunk.blocks.\1.\2", "linear"),
+    (r"block(\d+)/attn/(qkv|proj)", r"trunk.blocks.\1.attn.\2", "linear"),
+    (r"block(\d+)/mlp_lin1", r"trunk.blocks.\1.mlp.layers.0", "linear"),
+    (r"block(\d+)/mlp_lin2", r"trunk.blocks.\1.mlp.layers.1", "linear"),
+    (r"neck_conv(\d+)", r"neck.convs.\1.conv", "conv"),
+]
+_HIERA_NCHW = [(r"(pos_embed|pos_embed_window)", r"trunk.\1")]
+# SAM3's vitdet
+_SAM3_RULES: _Rules = [
+    (r"patch_embed", "patch_embed.proj", "conv"), (r"ln_pre", "ln_pre", "linear"),
+    (r"block(\d+)/(norm[12])", r"blocks.\1.\2", "linear"),
+    (r"block(\d+)/attn/(qkv|proj)", r"blocks.\1.attn.\2", "linear"),
+    (r"block(\d+)/mlp_lin([12])", r"blocks.\1.mlp.fc\2", "linear"),
+]
+_SAM3_TENSORS = [(r"pos_embed", "pos_embed")]
+# the 3-D ResNets, torchvision's names
+_RESNET3D_RULES: _Rules = [
+    (r"(conv1|bn1)", r"\1", "conv"), (r"fc", "fc", "linear"),
+    (r"layer(\d+)_(\d+)/(conv\d|bn\d)", r"layer\1.\2.\3", "conv"),
+    (r"layer(\d+)_(\d+)/downsample_conv", r"layer\1.\2.downsample.0", "conv"),
+    (r"layer(\d+)_(\d+)/downsample_bn", r"layer\1.\2.downsample.1", "conv"),
+]
+
+
 def _convert(value, kind: str, spatial_rank: int) -> np.ndarray:
     value = np.asarray(value, dtype=np.float32)
+    if kind == "nchw":
+        return value.transpose(0, 3, 1, 2)
     if kind == "tensor" or value.ndim < 2:
         return value
     if kind == "linear":
@@ -186,14 +237,15 @@ def _convert(value, kind: str, spatial_rank: int) -> np.ndarray:
 
 
 def _map(flat: Dict[str, np.ndarray], rules: _Rules, tensors=(), depthwise=(), spatial_rank: int = 2,
-         prefix: str = "") -> Dict[str, np.ndarray]:
+         prefix: str = "", nchw=()) -> Dict[str, np.ndarray]:
     """Rename every entry of ``flat`` (``/``-joined flax keys) by the first rule that matches it
     whole; an entry that no rule matches raises."""
     state = {}
     for key, value in flat.items():
         module, _, leaf = key.rpartition("/")
         candidates = [(p, t, "tensor", key, "") for p, t in tensors] + \
-                     [(p, t, "depthwise", key, "") for p, t in depthwise]
+                     [(p, t, "depthwise", key, "") for p, t in depthwise] + \
+                     [(p, t, "nchw", key, "") for p, t in nchw]
         if leaf in _LEAF:
             candidates += [(p, t, kind if leaf == "kernel" else "linear", module, "." + _LEAF[leaf])
                            for p, t, kind in rules]
@@ -235,6 +287,48 @@ def vim_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, tor
     return _tensors(_vim_state(flat))
 
 
+def dino_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``DinoV2ViT``'s, ``DinoV3ViT``'s, ``MAEViT``'s or ``ScaleMAEViT``'s flattened
+    ``params`` onto the port's (the native DINO and timm names, which agree)."""
+    return _tensors(_map(flat, _TOKEN_VIT_RULES, _TOKEN_VIT_TENSORS))
+
+
+mae_state_dict_from_jax_params = scalemae_state_dict_from_jax_params = dino_state_dict_from_jax_params
+
+
+def hiera_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``HieraSam2``'s flattened ``params`` onto the port's (sam2's names)."""
+    return _tensors(_map(flat, _HIERA_RULES, nchw=_HIERA_NCHW))
+
+
+def sam3_state_dict_from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flax ``Sam3ViT``'s flattened ``params`` onto the port's (vitdet's names)."""
+    return _tensors(_map(flat, _SAM3_RULES, _SAM3_TENSORS))
+
+
+def resnet3d_state_dict_from_jax_params(
+    flat: Dict[str, np.ndarray], batch_stats: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, torch.Tensor]:
+    """A flax ``ResNet3dModule``'s flattened ``params`` and ``batch_stats`` onto the port's
+    (torchvision's names)."""
+    state = _map(flat, _RESNET3D_RULES, spatial_rank=3)
+    state.update(_map(batch_stats or {}, _RESNET3D_RULES, spatial_rank=3))
+    return _tensors(state)
+
+
+def _encoder_state(encoder: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, np.ndarray]:
+    """Any encoder family's flattened ``params``, told apart by its parameters."""
+    if "pos_embed_window" in encoder:
+        return _map(encoder, _HIERA_RULES, nchw=_HIERA_NCHW, prefix=prefix)
+    if "ln_pre/scale" in encoder:
+        return _map(encoder, _SAM3_RULES, _SAM3_TENSORS, prefix=prefix)
+    if not any(re.fullmatch(r"block\d+/attn/.*", k) for k in encoder):
+        return _vim_state(encoder, prefix=prefix)
+    if "cls_token" in encoder:
+        return _map(encoder, _TOKEN_VIT_RULES, _TOKEN_VIT_TENSORS, prefix=prefix)
+    return _map(encoder, _VIT_RULES, _VIT_TENSORS, prefix=prefix)
+
+
 def _deconv_rules(top: str, dst: str) -> _Rules:
     """torch-em's ``Deconv2DBlock``: upsampler ``block.0.conv``, conv ``block.1.block``, norm ``block.2``."""
     return [(f"{top}/up/conv", f"{dst}.block.0.conv", "conv"), (f"{top}/conv", f"{dst}.block.1.block", "conv"),
@@ -250,14 +344,10 @@ def unetr_state_dict_from_jax_params(
 ) -> Dict[str, torch.Tensor]:
     """A flax ``UNETRModule``'s flattened ``params`` and ``batch_stats`` (its deconvolutions'
     batch norms) onto the port's ``UNETRModule``: the ViT encoder (``encoder/``) or the ViM of
-    a ViM-UNet (``encoder_module/``), then the decoder with torch-em's names."""
+    a ViM-UNet (``encoder_module/``) of any family, then the decoder with torch-em's names."""
     # the JAX module keeps an encoder given to it under "encoder_module"
     top = "encoder_module" if any(k.startswith("encoder_module/") for k in flat) else "encoder"
-    encoder = _subtree(flat, top)
-    if any(re.fullmatch(r"block\d+/attn/.*", k) for k in encoder):
-        state = _map(encoder, _VIT_RULES, _VIT_TENSORS, prefix="encoder.")
-    else:
-        state = _vim_state(encoder, prefix="encoder.")
+    state = _encoder_state(_subtree(flat, top), prefix="encoder.")
     skip = any(k.startswith("deconv2_1/") for k in flat)
     rules = _deconv_rules("deconv1", "deconv1")
     if skip:
@@ -284,8 +374,9 @@ def unetr3d_state_dict_from_jax_params(
 ) -> Dict[str, torch.Tensor]:
     """A flax ``UNETR3DModule``'s flattened ``params`` and ``batch_stats`` (the strip
     poolings' batch norms) onto the port's ``UNETR3DModule``."""
-    encoder_top = next(k.split("/")[0] for k in flat if k.startswith("ViT_"))
-    state = _map(_subtree(flat, encoder_top), _VIT_RULES, _VIT_TENSORS, prefix="encoder.")
+    # the JAX module names its encoder after its class: ViT_0, HieraSam2_0, DinoV2ViT_0, ...
+    encoder_top = next(k.split("/")[0] for k in flat if re.match(r"(\w*ViT|HieraSam2)_\d+/", k))
+    state = _encoder_state(_subtree(flat, encoder_top), prefix="encoder.")
 
     def with_strip(top, dst):
         return [(f"{top}/conv/conv0", f"{dst}.conv.block.1", "conv"), (f"{top}/conv/conv1", f"{dst}.conv.block.4", "conv"),
