@@ -138,7 +138,22 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    ``default_classification_loader`` over seeded 1x64x64x64 volumes of 4
    classes and ``default_classification_trainer(logger=None)``: 8 iterations,
    ``from_checkpoint``, 4 more, the accuracy error of the numpy metric, the
-   step's time, MFU and peak memory.
+   step's time, MFU and peak memory;
+15. the multi-device paths (``parallel/``) with the tracked model at full
+   width on the one card: (a) ``train_multi_gpu`` in one process over NCCL
+   with phase 6's recipe (8 iterations, rank 0 writing), a resume through
+   ``DefaultTrainer.from_checkpoint`` in a process group of one, and a
+   ``save_sharded_checkpoint``/``restore_sharded_checkpoint`` round trip of
+   its state (bitwise); (b) two processes sharing the card over gloo: one
+   data-parallel step against the step of one process on both patches
+   (float32, TF32 off), bf16 steps with a falling loss, ``halo_sharded_
+   predict`` of a 128x512x512 volume with the derived 36-plane halo against
+   ``predict_with_halo`` in (64, 512, 512) blocks, and ``spatial_sharded_
+   train_step`` on a (96, 256, 256) patch with the kernels against the plain
+   norms; each process reports its norm launches, times, the all-reduce's
+   and the halo exchange's ms and its peak memory; (c) ``predict_with_halo``
+   with two replicas on the card against one, and ``validate_checkpoint``
+   with two ids.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -152,13 +167,18 @@ and ViM-UNet decoders' shapes (phase 12: 3 to 768 channels, 32x32 to
 encoder families' decoders (phase 14: 14x14 to 1152x1152, among them the rows
 of 1369, 5476 and 268324 elements off the 16-byte grid and SAM3's path-C head;
 the forward at their training batch and 1, the backward at their training
-batch), where phase 5 also times them per training step.
+batch), where phase 5 also times them per training step. Phases 3 and 5 also
+hold both kernels at the sharded paths' slabs with their 36-plane halo (phase
+15: 136x512x512 served, level-0 rows of 35.6 M elements and a 64-channel norm
+of 2.28e9 elements; 120x256x256 trained), checked against the plain versions
+channel group by channel group, and time them at those slabs' level-0 rows.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or when any phase fails, it exits nonzero and prints no result line.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -337,6 +357,26 @@ VARIANT_FACTOR, VARIANT_SLACK = 4.0, {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # rounding noise). A wrongly wired or wrong backward moves a gradient by its
 # own size, far beyond this.
 GRAD_L2_FACTOR, GRAD_ATOL_OF_MODEL = 4.0, 1e-5
+# the multi-device paths (phase 15), one card: 15a trains through train_multi_gpu in one process over NCCL
+# (phase 6's recipe) and resumes with from_checkpoint in a process group of one; 15b runs two processes
+# on the card over gloo: one data-parallel step (a 32x256x256 patch per process) against the step of one
+# process on both patches (float32, TF32 off, deterministic cuDNN: loss rel 1e-4 and parameters atol 1e-4
+# after SGD at lr 1e-2, the JAX package's test), then bf16 steps with AdamW; halo_sharded_predict of a
+# 128x512x512 volume in z with the derived 36-plane halo against predict_with_halo in (64, 512, 512) blocks
+# with halo (36, 0, 0); spatial_sharded_train_step on a (96, 256, 256) patch with the kernels against the
+# plain norms (float32, TF32 off); 15c predicts with two replicas on the card and validates 15a's checkpoint
+MD_TRAIN_SAMPLES, MD_VAL_SAMPLES, MD_FIT, MD_RESUME = 8, 1, 8, 4
+MD_DP_LR, MD_LOSS_RTOL, MD_PARAM_ATOL = 1e-2, 1e-4, 1e-4
+MD_BF16_STEPS = 6
+MD_HALO_VOLUME, MD_HALO_BLOCK = (128, 512, 512), (64, 512, 512)
+MD_SPATIAL_PATCH = (96, 256, 256)
+MD_PROCESSES = 2
+MD_ONE_PROCESS_BACKEND = "nccl"  # 15a: the default backend of one process per card
+# the spatial step's gradients, kernels against plain norms (float32, TF32 off): phase 6 measured the two
+# 0.5-0.7% of a tensor's norm apart in this model (both as far from float64); per tensor within 5% of its
+# norm plus 1e-5 of the model's largest gradient per element, and all together within 1%
+MD_GRAD_REL, MD_GRAD_REL_ALL = 5e-2, 1e-2
+
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
 CONV_KERNELS = re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|fprop|nchw|nhwc", re.I)
@@ -542,12 +582,108 @@ def dsb_paths(inorm, dsb_shapes, dtype, direction):
     return found
 
 
-def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes, st_shapes):
+def check_rows(err_of, x, *rest, rows=8):
+    """``err_of(x, *rest)`` over groups of ``rows`` channels: the plain versions' temporaries of a
+    slab's level-0 norms (up to 64 x 35.6 M elements) would not fit beside the kernel's in one piece;
+    each channel's row is independent of the others."""
+    return max(err_of(*(t[:, c:c + rows] for t in (x, *rest))) for c in range(0, x.shape[1], rows))
+
+
+def check_sharded_forward(inorm, rand, sharded_shapes, dtype):
+    """The forward kernel at the sharded paths' shapes (a whole row per channel at once, checked
+    against the plain version channel group by channel group); returns the max abs error."""
+    max_err = 0.0
+    for name, shapes in sharded_shapes.items():
+        for c, sp in sorted(set(shapes)):
+            x = rand((1, c) + sp, dtype)
+            y = inorm.instance_norm(x)
+
+            def err_of(xc, yc):
+                ref = inorm.instance_norm_reference(xc).float()
+                err = (yc.float() - ref).abs()
+                if not bool(torch.isfinite(yc).all()) or bool((err > output_tol(ref, dtype)).any()):
+                    raise AssertionError(f"kernel disagrees at {tuple(x.shape)} {dtype}: max abs err {float(err.max())}")
+                return float(err.max())
+
+            err = check_rows(err_of, x, y)
+            max_err = max(max_err, err)
+            log(f"  norm {dtype} {name} C={c} {sp} ({x.numel()} elements) path "
+                f"{path_of(inorm, (c, sp), dtype, 'forward')}: max abs err {err:.3g}")
+            del x, y
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def check_sharded_backward(inorm, rand, shapes, dtype):
+    """The backward kernel at the spatial step's shapes, checked channel group by channel group."""
+    max_err = 0.0
+    for c, sp in sorted(set(shapes)):
+        x, g = rand((1, c) + sp, dtype), rand((1, c) + sp, dtype)
+        _, mean, rstd = inorm.instance_norm_forward(x)
+        dx = inorm.instance_norm_backward(x, g, mean, rstd)
+
+        def err_of(xc, gc, dxc, mc, rc):
+            ref = inorm.instance_norm_backward_reference(xc, gc, mc, rc).float()
+            scale = float(ref.abs().max())
+            if dtype == torch.float32:
+                tol = BWD_F32_RTOL_OF_MAX * scale
+            else:
+                tol = (BWD_BF16_RTOL if dtype == torch.bfloat16 else BWD_F16_RTOL) * ref.abs() + \
+                    BWD_BF16_RTOL_OF_MAX * scale
+            err = (dxc.float() - ref).abs()
+            if not bool(torch.isfinite(dxc).all()) or bool((err > tol).any()):
+                raise AssertionError(f"backward kernel disagrees at {tuple(x.shape)} {dtype}: "
+                                     f"max abs err {float(err.max())}")
+            return float(err.max())
+
+        # the statistics by channel group too: (1, C) -> (1, rows)
+        err = check_rows(err_of, x, g, dx, mean, rstd)
+        max_err = max(max_err, err)
+        log(f"  backward {dtype} spatial_training C={c} {sp} path {path_of(inorm, (c, sp), dtype, 'backward')}: "
+            f"max abs err {err:.3g}")
+        del x, g, dx
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def time_large_norm(inorm, x, label, backward=False):
+    """Times at one of the sharded paths' level-0 shapes, as called (a CUDA graph of these
+    calls would hold GRAPH_CALLS outputs of up to 4.6 GB): kernel, plain version,
+    F.instance_norm, and the byte bound; with ``backward``, the backward's too."""
+    F = torch.nn.functional
+    size = x.numel() * x.element_size()
+    t = {"forward": {"ms": time_ms(inorm.instance_norm, x, iters=3, repeats=3),
+                     "plain_ms": time_ms(inorm.instance_norm_reference, x, iters=1, repeats=3),
+                     "library_ms": time_ms(F.instance_norm, x, iters=3, repeats=3),
+                     "bound_ms": 2 * size / HBM_BYTES_PER_S * 1e3}}
+    if backward:
+        g = torch.randn_like(x)
+        _, mean, rstd = inorm.instance_norm_forward(x)
+        xr = x.detach().requires_grad_()
+        yr = F.instance_norm(xr)
+        t["backward"] = {"ms": time_ms(inorm.instance_norm_backward, x, g, mean, rstd, iters=3, repeats=3),
+                         "plain_ms": time_ms(inorm.instance_norm_backward_reference, x, g, mean, rstd, iters=1,
+                                             repeats=3),
+                         "library_ms": time_ms(lambda: torch.autograd.grad(yr, xr, g, retain_graph=True), iters=3,
+                                               repeats=3),
+                         "bound_ms": 3 * size / HBM_BYTES_PER_S * 1e3}
+        del g, mean, rstd, xr, yr
+    for direction, v in t.items():
+        path = path_of(inorm, (x.shape[1], tuple(x.shape[2:])), x.dtype, direction)
+        log(f"  time {x.dtype} {label} {direction} path {path}: kernel {v['ms']:.4f} ms as called; plain "
+            f"{v['plain_ms']:.4f} ms; F.instance_norm {v['library_ms']:.4f} ms; bound {v['bound_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return t
+
+
+def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes, st_shapes,
+                      sharded_shapes):
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
     shapes}, the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
-    1, ``vit_shapes`` {name: (training batch, shapes)}, and the self-training steps', ``st_shapes`` {name: (batch,
-    shapes)}) and time it at the serving path's; returns its entry of the kernels line."""
+    1, ``vit_shapes`` {name: (training batch, shapes)}, the self-training steps', ``st_shapes`` {name: (batch,
+    shapes)}, and the sharded paths' slabs with their halo, ``sharded_shapes`` {name: shapes}) and time it at
+    the serving path's and at the slabs' level-0 rows; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -584,6 +720,7 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                     log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
                         f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
             seen.update(recipe_shapes)
+        max_err = max(max_err, check_sharded_forward(inorm, rand, sharded_shapes, dtype))
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "forward").items()]
@@ -608,6 +745,8 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
     for c, sp in sorted(repeat_shapes(inorm, shapes, "forward").values()):
         time_norm(inorm, rand((1, c) + sp, torch.float16), f"C={c} {sp}")
     torch.cuda.empty_cache()
+    level0 = {f"{name} C={c} {sp}": time_large_norm(inorm, rand((1, c) + sp, torch.bfloat16), name)["forward"]
+              for name, s in sharded_shapes.items() for c, sp in sorted(set(s)) if sp == s[0][1]}
     log(f"per serving forward ({len(shapes)} norms, bf16): kernel {totals['ms']:.3f} ms as called, "
         f"{totals['device_ms']:.3f} ms device; plain {totals['plain_ms']:.3f} ms, F.instance_norm "
         f"{totals['library_ms']:.3f} ms as called, {totals['library_device_ms']:.3f} ms device; "
@@ -637,7 +776,9 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                   **{f"{name}_serving": path_counts(inorm, s, torch.bfloat16, "forward")
                      for name, (b, s) in vit_shapes.items()},
                   **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.bfloat16, "forward")
-                     for name, (b, s) in st_shapes.items()}},
+                     for name, (b, s) in st_shapes.items()},
+                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in sharded_shapes.items()}},
+        "sharded_level0": level0,
     }
 
 
@@ -830,10 +971,12 @@ def check_backward(inorm, x, g):
     return float(err.max())
 
 
-def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes):
+def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes,
+                          spatial_shapes):
     """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the UNETR and ViM-UNet steps' and the encoder families' at their training batch,
-    the self-training steps' at their batch) and time both kernels at the training paths' shapes.
+    the self-training steps' at their batch, the spatially sharded step's slab with its halo,
+    ``spatial_shapes``) and time both kernels at the training paths' shapes and at that slab's level-0 rows.
 
     Returns the backward kernel's entry of the kernels line, with times summed
     over the norms whose backward one training step runs: all but the first,
@@ -880,6 +1023,7 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                 log(f"  backward {dtype} {recipe} {shape[:2]} {sp} path "
                     f"{path_of(inorm, (batch * c, sp), dtype, 'backward')}: max abs err {err:.3g}")
             seen.update(recipe_shapes)
+        max_err = max(max_err, check_sharded_backward(inorm, rand, spatial_shapes, dtype))
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "backward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
                 for path, (c, sp) in dsb_paths(inorm, dsb_shapes, torch.bfloat16, "backward").items()]
@@ -905,6 +1049,9 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
         time_step_norm(inorm, rand((1, c) + sp, torch.float16), rand((1, c) + sp, torch.float16),
                        f"C={c} {sp}")
     torch.cuda.empty_cache()
+    level0 = {f"spatial_training C={c} {sp}": time_large_norm(inorm, rand((1, c) + sp, torch.bfloat16),
+                                                               "spatial_training", backward=True)
+              for c, sp in sorted(set(spatial_shapes)) if sp == spatial_shapes[0][1]}
     step_shapes = shapes[1:]
     return {
         "name": "instance_norm_backward",
@@ -928,11 +1075,14 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                   "spoco_training": path_counts(inorm, [(DSB_BATCH * c, sp) for c, sp in spoco_shapes[1:]],
                                                 torch.bfloat16, "backward"),
                   **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s[1:]], torch.bfloat16,
-                                                     "backward") for name, (b, s) in st_shapes.items()}},
+                                                     "backward") for name, (b, s) in st_shapes.items()},
+                  "spatial_training": path_counts(inorm, spatial_shapes[1:], torch.bfloat16, "backward")},
+        "sharded_level0": {k: v["backward"] for k, v in level0.items()},
         "dsb_training": dsb_bwd,
         "spoco_training": spoco_bwd,
         **{f"{name}_training": b for name, (f, b) in recipe_times.items()},
-    }, fwd, dsb_fwd, spoco_fwd, {f"{name}_training": f for name, (f, b) in recipe_times.items()}
+    }, fwd, dsb_fwd, spoco_fwd, {f"{name}_training": f for name, (f, b) in recipe_times.items()}, \
+        {k: v["forward"] for k, v in level0.items()}
 
 
 def time_step_norms(inorm, rand, shapes, batch, label, first_has_grad=False):
@@ -2629,6 +2779,420 @@ def phase_encoder_families(port, inorm, raw_files, label_files):
     return launches
 
 
+class ArrayPairs:
+    """(x[i], y[i]) of two arrays: a loader whose batches the phase fixes."""
+
+    def __init__(self, x, y):
+        self.x, self.y = x, y
+
+    def __len__(self):
+        return len(self.x)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+
+def md_loader(folder, n_samples, shuffle):
+    """Phase 6's loader over the training volume's ``.npy`` files in ``folder`` (built in each
+    process of train_multi_gpu)."""
+    import torch_em_tpu_torch as port
+
+    ds = port.SegmentationDataset(os.path.join(folder, "raw.npy"), None, os.path.join(folder, "labels.npy"), None,
+                                  patch_shape=TRAIN_PATCH, n_samples=n_samples, raw_transform=port.standardize)
+    return port.DataLoader(ds, batch_size=1, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+
+class ReportingTrainer:
+    """train_multi_gpu's trainer_callable: ``default_segmentation_trainer`` whose ``fit`` writes the
+    norm kernels' launches, the wall time and the peak memory of the process to ``path``."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __call__(self, **kwargs):
+        import torch_em_tpu_torch as port
+        import torch_em_tpu_torch.ops.instance_norm as inorm
+
+        trainer = port.default_segmentation_trainer(**kwargs)
+        fit = trainer.fit
+
+        def fit_and_report(*args, **fit_kwargs):
+            torch.cuda.synchronize()
+            inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            fit(*args, **fit_kwargs)
+            torch.cuda.synchronize()
+            with open(self.path, "w") as f:
+                json.dump({"rank": trainer.rank, "iteration": trainer.iteration, "seconds": time.perf_counter() - t,
+                           "launches": [inorm.instance_norm.launches, inorm.instance_norm_backward.launches],
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "metric": trainer.current_metric}, f)
+
+        trainer.fit = fit_and_report
+        return trainer
+
+
+def deterministic_f32():
+    """Float32 without TF32, deterministic cuDNN; returns the previous settings for ``restore``."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    return old
+
+
+def restore(old):
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = old
+
+
+def md_dp_trainer(port, model, x, y, folder, trainer_class, mixed_precision=False, optimizer=None):
+    loader = port.DataLoader(ArrayPairs(x, y), batch_size=len(x))
+    return trainer_class(
+        name="md-step", model=model, train_loader=loader, val_loader=loader, loss=port.DiceLoss(),
+        metric=port.DiceLoss(), optimizer=optimizer or port.OptimizerSpec("sgd", lr=MD_DP_LR),
+        mixed_precision=mixed_precision, device="cuda", logger=None, save_root=folder)
+
+
+def md_timed(fn, n):
+    """(ms per call as called, ms per call between CUDA events) of ``n`` calls after one more."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3, start.elapsed_time(stop) / n
+
+
+def md_worker(rank, world, store, folder):
+    """One of the processes of 15b, sharing the card with the others over gloo; writes its report
+    (and rank 0 its results) to ``folder``."""
+    import torch.distributed as dist
+
+    import torch_em_tpu_torch as port
+    import torch_em_tpu_torch.models.unet as unet_module
+    import torch_em_tpu_torch.ops.instance_norm as inorm
+    from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, init_process_group, shard_batch,
+                                             spatial_sharded_train_step)
+    from torch_em_tpu_torch.parallel.data_parallel import DataParallelTrainer
+    from torch_em_tpu_torch.parallel.halo import _extend, receptive_field_halo
+
+    init_process_group(f"file://{store}", world, rank, device="cuda", backend="gloo")
+    report = {"rank": rank}
+    try:
+        inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+        # one data-parallel step in float32 on this process's patch
+        x, y = np.load(os.path.join(folder, "dp_x.npy")), np.load(os.path.join(folder, "dp_y.npy"))
+        old = deterministic_f32()
+        model = port.AnisotropicUNet(**TRACKED, dtype=torch.float32, device="cuda", seed=1)
+        trainer = md_dp_trainer(port, model, x, y, os.path.join(folder, f"rank{rank}"), DataParallelTrainer)
+        trainer._initialize(1, None)
+        trainer.model.train()
+        xl, yl = (t.cuda() for t in shard_batch((torch.from_numpy(x), torch.from_numpy(y)), trainer.mesh))
+        loss, _ = trainer._train_step(xl, yl)
+        report["dp_f32_loss"] = float(loss)
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                       os.path.join(folder, "dp_state.pt"))
+        restore(old)
+        del trainer, model
+        # bf16 steps with AdamW on the same patches: the loss falls; times per step
+        model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=1)
+        trainer = md_dp_trainer(port, model, x, y, os.path.join(folder, f"rank{rank}"), DataParallelTrainer,
+                                mixed_precision=True, optimizer=port.OptimizerSpec("adamw", lr=LEARNING_RATE))
+        trainer._initialize(MD_BF16_STEPS, None)
+        trainer.model.train()
+        losses = [float(trainer._train_step(xl, yl)[0]) for _ in range(MD_BF16_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        report["dp_bf16_losses"] = losses
+        report["dp_step_ms"], report["dp_step_device_ms"] = md_timed(lambda: trainer._train_step(xl, yl), 3)
+        report["dp_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads = torch.cat([p.detach().reshape(-1).float() for p in trainer.model.parameters()])
+        dist.barrier()
+        report["allreduce_ms"], _ = md_timed(lambda: dist.all_reduce(grads), 5)
+        report["gradient_mib"] = grads.numel() * 4 / 2 ** 20
+        del trainer, model, grads
+        torch.cuda.empty_cache()
+
+        log(f"15b rank {rank}: data-parallel steps done")
+        # halo_sharded_predict of the volume along z with the derived halo, bf16
+        volume = np.load(os.path.join(folder, "halo_volume.npy"), mmap_mode="r")[None]
+        mesh = get_mesh(axis_names=("space",))
+        model = port.AnisotropicUNet(**TRACKED, dtype=torch.bfloat16, device="cuda", seed=0)
+        halo = receptive_field_halo(model)
+        report["halo"] = halo
+        halo_sharded_predict(model, volume, mesh)  # cuDNN's first calls
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        launches = inorm.instance_norm.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pred = halo_sharded_predict(model, volume, mesh)
+        report["halo_seconds"] = time.perf_counter() - t
+        report["halo_launches"] = inorm.instance_norm.launches - launches
+        report["halo_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        z = MD_HALO_VOLUME[0] // world
+        slab = torch.from_numpy(np.ascontiguousarray(volume[:, rank * z:(rank + 1) * z])).cuda()[None]
+        dist.barrier()
+        report["halo_exchange_ms"], _ = md_timed(lambda: _extend(slab, halo, 2, mesh.get_group("space")), 5)
+        if rank == 0:
+            np.save(os.path.join(folder, "halo_pred.npy"), pred)
+        del model, pred, slab
+        torch.cuda.empty_cache()
+
+        log(f"15b rank {rank}: halo_sharded_predict done")
+        # spatial_sharded_train_step on the patch, float32: gradients with the kernels and with the plain norms
+        xs, ys = np.load(os.path.join(folder, "spatial_x.npy")), np.load(os.path.join(folder, "spatial_y.npy"))
+        old = deterministic_f32()
+        grads = {}
+        for norm in ("kernel", "plain"):
+            model = port.AnisotropicUNet(**TRACKED, dtype=torch.float32, device="cuda", seed=2)
+            step, shard = spatial_sharded_train_step(model, port.DiceLoss(), port.OptimizerSpec("sgd", lr=1e-3),
+                                                     mesh)
+            xl, yl = shard(xs, ys)
+            patch = (unittest.mock.patch.object(unet_module, "instance_norm", inorm.instance_norm_reference)
+                     if norm == "plain" else contextlib.nullcontext())
+            torch.cuda.reset_peak_memory_stats()
+            with patch:
+                report[f"spatial_{norm}_loss"] = float(step(xl, yl))
+            report[f"spatial_{norm}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            grads[norm] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            if norm == "kernel":
+                report["spatial_step_ms"], report["spatial_step_device_ms"] = md_timed(lambda: step(xl, yl), 1)
+                sl = torch.from_numpy(xs).cuda()[:, :, :MD_SPATIAL_PATCH[0] // world]
+                report["spatial_exchange_ms"], _ = md_timed(lambda: _extend(sl, halo, 2, mesh.get_group("space")), 5)
+            del model, step
+        restore(old)
+        log(f"15b rank {rank}: spatial_sharded_train_step done")
+        if rank == 0:
+            torch.save(grads, os.path.join(folder, "spatial_grads.pt"))
+        report["launches"] = [inorm.instance_norm.launches, inorm.instance_norm_backward.launches]
+    finally:
+        with open(os.path.join(folder, f"report-rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+        dist.destroy_process_group()
+
+
+def md_check_grads(kernel, plain):
+    """The spatial step's gradients with the kernels against those with the plain norms."""
+    largest = max(float(g.abs().max()) for g in plain.values())
+    worst, total_diff, total = (0.0, None), 0.0, 0.0
+    for name, ref in plain.items():
+        got = kernel[name]
+        diff, size = float((got - ref).double().norm()), float(ref.double().norm())
+        total_diff, total = total_diff + diff ** 2, total + size ** 2
+        tol = MD_GRAD_REL * size + GRAD_ATOL_OF_MODEL * largest * ref.numel() ** 0.5
+        if not bool(torch.isfinite(got).all()) or diff > tol:
+            raise AssertionError(f"spatial step: gradient of {name} with the kernels is {diff:.3g} (L2) from the "
+                                 f"plain norms' (tolerance {tol:.3g})")
+        worst = max(worst, (diff / max(size, 1e-30), name))
+    rel_all = (total_diff / total) ** 0.5
+    log(f"spatial step (float32, TF32 off): {len(plain)} gradients with the kernels against the plain norms: "
+        f"all together {rel_all:.3g} of their norm (limit {MD_GRAD_REL_ALL}), worst tensor {worst[1]} "
+        f"{worst[0]:.3g} (limit {MD_GRAD_REL} + {GRAD_ATOL_OF_MODEL}*max|grad| per element)")
+    if rel_all > MD_GRAD_REL_ALL:
+        raise AssertionError(f"spatial step: gradients with the kernels {rel_all:.3g} from the plain norms'")
+
+
+def phase_multi_device(port, inorm, device_ops):
+    """Phase 15: the multi-device paths on the one card; returns the norm kernels' launches of
+    every process's runs (forward, backward)."""
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    from torch_em_tpu_torch.parallel import (DataParallelTrainer, init_process_group, restore_sharded_checkpoint,
+                                             save_sharded_checkpoint, train_multi_gpu)
+    from torch_em_tpu_torch.utils import validation
+
+    t_phase = time.perf_counter()
+    fwd = bwd = 0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, labels = training_volume(port)
+        np.save(os.path.join(tmp, "raw.npy"), raw)
+        np.save(os.path.join(tmp, "labels.npy"), labels)
+
+        # 15a: train_multi_gpu in one process over NCCL, then from_checkpoint in a group of one
+        report = os.path.join(tmp, "report-15a.json")
+        t = time.perf_counter()
+        train_multi_gpu(port.AnisotropicUNet, {**TRACKED, "seed": 0}, md_loader, dict(
+                            folder=tmp, n_samples=MD_TRAIN_SAMPLES, shuffle=True),
+                        md_loader, dict(folder=tmp, n_samples=MD_VAL_SAMPLES, shuffle=False), iterations=MD_FIT,
+                        trainer_callable=ReportingTrainer(report), n_devices=1, name="md", save_root=tmp,
+                        learning_rate=LEARNING_RATE, mixed_precision=True, logger=None,
+                        device_label_transform=device_ops.DeviceAffinityTransform(offsets=OFFSETS))
+        spawn_s = time.perf_counter() - t
+        with open(report) as f:
+            fitted = json.load(f)
+        folder = os.path.join(tmp, "checkpoints", "md")
+        validations = 1
+        expected = (NORMS_PER_FORWARD * (MD_FIT + MD_VAL_SAMPLES * validations), (NORMS_PER_FORWARD - 1) * MD_FIT)
+        log(f"15a train_multi_gpu, 1 process over NCCL: {MD_FIT} iterations in {fitted['seconds']:.2f} s fit "
+            f"({spawn_s:.1f} s with the process's start), peak {fitted['peak_gib']:.2f} GiB, launches "
+            f"{fitted['launches']} (expected {list(expected)}), validation metric {fitted['metric']:.4f}; "
+            f"checkpoints {sorted(os.listdir(folder))}; {nvidia_smi()}")
+        if fitted["iteration"] != MD_FIT or tuple(fitted["launches"]) != expected \
+                or not np.isfinite(fitted["metric"]) or fitted["rank"] != 0:
+            raise AssertionError(f"15a: {fitted}")
+        fwd, bwd = fwd + fitted["launches"][0], bwd + fitted["launches"][1]
+
+        init_process_group(f"file://{os.path.join(tmp, 'store-15a')}", 1, 0, device="cuda")
+        try:
+            if dist.get_backend() != MD_ONE_PROCESS_BACKEND:
+                raise AssertionError(f"15a: backend {dist.get_backend()}")
+            resumed = port.DefaultTrainer.from_checkpoint(folder, "latest")
+            if not isinstance(resumed, DataParallelTrainer) or resumed.iteration != MD_FIT:
+                raise AssertionError(f"15a: from_checkpoint gave {type(resumed).__name__} at {resumed.iteration}")
+            inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+            resumed.fit(iterations=MD_RESUME)
+            torch.cuda.synchronize()
+            launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+            expected = (NORMS_PER_FORWARD * (MD_RESUME + MD_VAL_SAMPLES), (NORMS_PER_FORWARD - 1) * MD_RESUME)
+            log(f"15a from_checkpoint in a group of one over NCCL: {MD_RESUME} more iterations, now "
+                f"{resumed.iteration}; launches {launches} (expected {expected})")
+            if resumed.iteration != MD_FIT + MD_RESUME or launches != expected:
+                raise AssertionError("15a: the resumed fit")
+            fwd, bwd = fwd + launches[0], bwd + launches[1]
+            model_state, optim_state = get_state_dict(resumed.model, resumed.torch_optimizer)
+            tree = {"model": model_state, "optimizer": optim_state, "iteration": resumed.iteration}
+            t = time.perf_counter()
+            path = save_sharded_checkpoint(os.path.join(tmp, "sharded"), tree)
+            back = restore_sharded_checkpoint(path, tree)
+            ckpt_s = time.perf_counter() - t
+            leaves = [(a, b) for a, b in zip(_tree_leaves(tree), _tree_leaves(back))]
+            equal = all(torch.equal(a, b) and b.device == a.device if isinstance(a, torch.Tensor) else a == b
+                        for a, b in leaves)
+            log(f"15a sharded checkpoint of the trainer's state: {len(leaves)} leaves, "
+                f"{sum(isinstance(a, torch.Tensor) for a, _ in leaves)} tensors written and restored onto the card "
+                f"in {ckpt_s:.2f} s, bitwise equal: {equal}; files {sorted(os.listdir(path))}")
+            if not equal:
+                raise AssertionError("15a: the sharded checkpoint does not restore bitwise")
+            del resumed, tree, back, model_state, optim_state
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # 15b: the inputs, the one-process references, then two processes on the card over gloo
+        # one patch per process: the volume's first and last corners
+        crops = [tuple(slice(0, p) for p in TRAIN_PATCH), tuple(slice(v - p, v) for v, p in zip(raw.shape, TRAIN_PATCH))]
+        x = np.stack([raw[c][None] for c in crops]).astype(np.float32)
+        targets = device_ops.DeviceAffinityTransform(offsets=OFFSETS)(
+            torch.from_numpy(np.stack([labels[c][None] for c in crops]).astype(np.float32)).cuda()).cpu().numpy()
+        np.save(os.path.join(tmp, "dp_x.npy"), x)
+        np.save(os.path.join(tmp, "dp_y.npy"), targets)
+        volume = np.random.default_rng(0).random(MD_HALO_VOLUME, dtype=np.float32)
+        np.save(os.path.join(tmp, "halo_volume.npy"), volume)
+        from scipy import ndimage
+        noise = ndimage.gaussian_filter(np.random.default_rng(3).normal(size=MD_SPATIAL_PATCH), 2.0)
+        np.save(os.path.join(tmp, "spatial_x.npy"), (noise / noise.std()).astype(np.float32)[None, None])
+        np.save(os.path.join(tmp, "spatial_y.npy"), (noise > 0).astype(np.float32)[None, None])
+
+        old = deterministic_f32()
+        model = port.AnisotropicUNet(**TRACKED, dtype=torch.float32, device="cuda", seed=1)
+        one = md_dp_trainer(port, model, x, targets, os.path.join(tmp, "one"), port.DefaultTrainer)
+        one._initialize(1, None)
+        one.model.train()
+        one_loss, _ = one._train_step(torch.from_numpy(x).cuda(), torch.from_numpy(targets).cuda())
+        one_state = {k: v.cpu() for k, v in one.model.state_dict().items()}
+        restore(old)
+        del one, model
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        torch.multiprocessing.spawn(md_worker, args=(MD_PROCESSES, os.path.join(tmp, "store-15b"), tmp),
+                                    nprocs=MD_PROCESSES, join=True)
+        spawn_s = time.perf_counter() - t
+        reports = []
+        for rank in range(MD_PROCESSES):
+            with open(os.path.join(tmp, f"report-rank{rank}.json")) as f:
+                reports.append(json.load(f))
+        r0 = reports[0]
+        state = torch.load(os.path.join(tmp, "dp_state.pt"), weights_only=True)
+        param_err = max(float((state[k].float() - v.float()).abs().max()) for k, v in one_state.items()
+                        if not k.endswith("num_batches_tracked"))
+        log(f"15b {MD_PROCESSES} processes on one card over gloo ({spawn_s:.1f} s with their start): one "
+            f"data-parallel step (float32, TF32 off) loss {r0['dp_f32_loss']:.6f} against {float(one_loss):.6f} in "
+            f"one process on both patches (rel {MD_LOSS_RTOL}); parameters max abs diff {param_err:.3g} "
+            f"(atol {MD_PARAM_ATOL})")
+        if abs(r0["dp_f32_loss"] - float(one_loss)) > MD_LOSS_RTOL * abs(float(one_loss)) or param_err > MD_PARAM_ATOL:
+            raise AssertionError("15b: the data-parallel step differs from the one-process step")
+        for r in reports:
+            losses = r["dp_bf16_losses"]
+            log(f"15b rank {r['rank']}: bf16 data-parallel steps {[round(v, 4) for v in losses]}; step "
+                f"{r['dp_step_ms']:.2f} ms as called, {r['dp_step_device_ms']:.2f} ms between CUDA events, peak "
+                f"{r['dp_peak_gib']:.2f} GiB; gloo all_reduce of the {r['gradient_mib']:.1f} MiB of gradients "
+                f"{r['allreduce_ms']:.2f} ms; {nvidia_smi()}")
+            if not np.all(np.isfinite(losses)) or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+                raise AssertionError(f"15b rank {r['rank']}: the bf16 loss is not finite or does not fall")
+            if r["halo_launches"] != NORMS_PER_FORWARD:
+                raise AssertionError(f"15b rank {r['rank']}: {r['halo_launches']} norm launches in the sharded forward")
+
+        sharded = np.load(os.path.join(tmp, "halo_pred.npy"))
+        model = port.AnisotropicUNet(**TRACKED, dtype=torch.bfloat16, device="cuda", seed=0)
+        blocked = port.predict_with_halo(volume, model, block_shape=MD_HALO_BLOCK, halo=(r0["halo"], 0, 0),
+                                         preprocess=None)
+        seconds = max(r["halo_seconds"] for r in reports)
+        log(f"15b halo_sharded_predict {MD_HALO_VOLUME} over {MD_PROCESSES} processes, derived halo {r0['halo']}: "
+            f"{volume.size / seconds / 1e6:.2f} Mvox/s ({seconds:.3f} s), peak "
+            f"{[round(r['halo_peak_gib'], 2) for r in reports]} GiB per rank, the halo exchange "
+            f"{[round(r['halo_exchange_ms'], 2) for r in reports]} ms per rank; {nvidia_smi()}")
+        if sharded.shape != blocked.shape or not np.isfinite(sharded).all():
+            raise AssertionError(f"15b: sharded prediction {sharded.shape}")
+        check_close(f"15b halo_sharded_predict against predict_with_halo in {MD_HALO_BLOCK} blocks", sharded, blocked)
+        del model, sharded, blocked
+
+        grads = torch.load(os.path.join(tmp, "spatial_grads.pt"), weights_only=True)
+        log(f"15b spatial_sharded_train_step {MD_SPATIAL_PATCH} over {MD_PROCESSES} processes (float32): loss "
+            f"{r0['spatial_kernel_loss']:.6f} with the kernels, {r0['spatial_plain_loss']:.6f} with the plain norms; "
+            f"step {r0['spatial_step_ms']:.1f} ms as called, {r0['spatial_step_device_ms']:.1f} ms between CUDA "
+            f"events; halo exchange {[round(r['spatial_exchange_ms'], 2) for r in reports]} ms per rank; peak "
+            f"{[round(r['spatial_kernel_peak_gib'], 2) for r in reports]} GiB per rank; {nvidia_smi()}")
+        md_check_grads(grads["kernel"], grads["plain"])
+        for r in reports:
+            fwd, bwd = fwd + r["launches"][0], bwd + r["launches"][1]
+        log(f"15b launches per rank: {[r['launches'] for r in reports]}")
+
+        # 15c: two replicas on the card, then validate_checkpoint with two ids
+        model = port.AnisotropicUNet(**TRACKED, dtype=torch.bfloat16, device="cuda", seed=0)
+        volume = np.random.default_rng(0).random(VOLUME_SHAPE, dtype=np.float32)
+        outputs = {}
+        for ids in ([0], [0, 1], [0, 1]):
+            torch.cuda.synchronize()
+            launches = inorm.instance_norm.launches
+            t = time.perf_counter()
+            outputs[len(ids)] = port.predict_with_halo(volume, model, gpu_ids=ids, block_shape=BLOCK_SHAPE,
+                                                       halo=HALO, batch_size=1)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            n = inorm.instance_norm.launches - launches
+            fwd += n
+            log(f"15c predict_with_halo gpu_ids={ids} {VOLUME_SHAPE}: {volume.size / seconds / 1e6:.2f} Mvox/s "
+                f"({seconds:.3f} s), {n} norm launches; {nvidia_smi()}")
+        check_close("15c predict_with_halo on two replicas against one", outputs[2], outputs[1])
+        del model, outputs
+        launches = inorm.instance_norm.launches
+        one_id = validation.validate_checkpoint(folder, gpu_ids=[0], visualize=False, max_samples=1)
+        two_ids = validation.validate_checkpoint(folder, gpu_ids=[0, 1], visualize=False, max_samples=1)
+        fwd += inorm.instance_norm.launches - launches
+        check_close("15c validate_checkpoint with two ids against one", two_ids[0], one_id[0])
+        log(f"15c validate_checkpoint of 15a's checkpoint with gpu_ids [0, 1]: a prediction of "
+            f"{two_ids[0].shape}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s; norm launches forward {fwd}, backward {bwd}; "
+        f"{nvidia_smi()}")
+    return fwd, bwd
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
+    return [tree]
+
+
 def main():
     log("start")
     if not torch.cuda.is_available():
@@ -2682,16 +3246,24 @@ def main():
                       # the encoder families' decoders (phase 14), at their training batch
                       **{name: (batch, family_norm_shapes(kwargs, channels, grid))
                          for name, kwargs, batch, channels, grid in FAMILY_RECIPES}}
+        # the sharded paths (phase 15): a rank's slab with the derived halo of 36 planes on either side, 64 planes
+        # at 512x512 served by halo_sharded_predict, 48 at 256x256 trained by spatial_sharded_train_step
+        sharded_shapes = {"halo_serving": tracked_shapes((MD_HALO_VOLUME[0] // MD_PROCESSES,) + MD_HALO_VOLUME[1:],
+                                                         (36, 0, 0)),
+                          "spatial_training": tracked_shapes((MD_SPATIAL_PATCH[0] // MD_PROCESSES,)
+                                                             + MD_SPATIAL_PATCH[1:], (36, 0, 0))}
         forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes,
-                                    st_shapes)
+                                    st_shapes, sharded_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
 
         log("phase 5: backward kernel against its plain version, training and serving shapes")
-        backward, forward["training"], forward["dsb_training"], forward["spoco_training"], recipe_step_fwd = \
-            phase_backward_kernel(inorm, train_shapes, shapes, dsb_shapes, spoco_shapes, vit_shapes, st_shapes)
+        backward, forward["training"], forward["dsb_training"], forward["spoco_training"], recipe_step_fwd, \
+            spatial_level0 = phase_backward_kernel(inorm, train_shapes, shapes, dsb_shapes, spoco_shapes, vit_shapes,
+                                                   st_shapes, sharded_shapes["spatial_training"])
         forward.update(recipe_step_fwd)
+        forward["sharded_level0"].update({f"{k} (training)": v for k, v in spatial_level0.items()})
 
         log("phase 6: training path, default_segmentation_trainer on the tracked model")
         train_fwd, train_bwd = phase_training(port, inorm, device_ops)
@@ -2727,14 +3299,20 @@ def main():
             "ResNet classification")
         fam_fwd, fam_bwd = phase_encoder_families(port, inorm, *livecell)
         livecell_dir.cleanup()
+
+        log("phase 15: the multi-device paths: train_multi_gpu over NCCL, two processes on the card over gloo "
+            "(data-parallel step, halo-sharded serving, the spatially sharded step), two replicas in predict_with_halo")
+        md_fwd, md_bwd = phase_multi_device(port, inorm, device_ops)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd)
-        backward["launches"] = train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
+                               + st_fwd + fam_fwd + md_fwd)
+        backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
+                                + md_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
-            f"{st_fwd} self-training + {fam_fwd} encoder families; backward kernel launches: {train_bwd} training + "
-            f"{recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and "
-            f"ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families")
+            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device; backward kernel launches: "
+            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + "
+            f"{vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families + {md_bwd} "
+            f"multi-device")
     except Exception:
         traceback.print_exc()
         log("FAILED")

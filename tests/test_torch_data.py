@@ -222,8 +222,8 @@ def test_threaded_loader_yields_every_batch():
     loader = DataLoader(ds, batch_size=2, num_workers=3, prefetch_factor=1)
     shapes = [tuple(x.shape) for x, _ in loader]
     assert shapes == [(2, 1, 4, 16, 16)] * 4 + [(1, 1, 4, 16, 16)]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DataLoader(ds, worker_mode="process")
+    with pytest.raises(ValueError, match="worker_mode"):
+        DataLoader(ds, worker_mode="fork")
 
 
 def _order(loader):

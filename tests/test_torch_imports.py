@@ -41,6 +41,12 @@ import torch_em_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(torch_em_tpu_torch.__path__, "torch_em_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert set(["torch_em_tpu_torch.parallel.halo", "torch_em_tpu_torch.parallel.checkpoint",
+            "torch_em_tpu_torch.multi_gpu_training"]) <= set(names)
+from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_multi_device, train_multi_gpu
+from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
+                                         save_sharded_checkpoint, shard_batch)
+from torch_em_tpu_torch.data import DistributedIndexSampler
 import chip_smoke
 assert callable(chip_smoke.main)
 import runpy

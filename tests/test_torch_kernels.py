@@ -193,6 +193,13 @@ TRAINING_ROWS = {2097152: (1, 32, 64), 524288: (32, 64, 128), 131072: (64, 128, 
                  16384: (128, 256, 512), 2048: (256, 512)}
 SERVING_ROWS = {13271040: (1, 32, 64), 3317760: (32, 64, 128), 829440: (64, 128, 256),
                 103680: (128, 256, 512), 12960: (256, 512)}
+# the sharded paths (chip_smoke.py phase 15): a rank's slab of 64 planes with the derived halo of 2 x 36
+# at 512x512 (halo_sharded_predict), and 48 planes with it at 256x256 (spatial_sharded_train_step). The
+# decoder's first level-0 norm of a slab holds 64 x 35651584 elements, past 2**31.
+HALO_SLAB_ROWS = {35651584: (1, 32, 64), 8912896: (32, 64, 128), 2228224: (64, 128, 256),
+                  278528: (128, 256, 512), 34816: (256, 512)}
+SPATIAL_SLAB_ROWS = {7864320: (1, 32, 64), 1966080: (32, 64, 128), 491520: (64, 128, 256),
+                     61440: (128, 256, 512), 7680: (256, 512)}
 # the DSB step (UNet2d f=64, depth 4, batch 8 of 256x256): rows are 8 x C
 DSB_ROWS = {65536: (8, 512, 1024), 16384: (512, 1024), 4096: (1024, 2048), 1024: (2048, 4096),
             256: (4096, 8192)}
@@ -247,6 +254,8 @@ EXPECTED_PATH = {
     50176: "B", 82944: "B", 87616: "B", 200704: "B", 268324: "B-but-float32-backward",
     331776: "B-but-float32-backward", 350464: "B-but-float32-backward", 802816: "B-16-bit-forward",
     1016064: "C", 1048576: "C", 1327104: "C",
+    35651584: "C", 8912896: "C", 2228224: "C", 278528: "B-but-float32-backward", 34816: "B",
+    7864320: "C", 1966080: "C", 491520: "B-16-bit-forward", 61440: "B", 7680: "A",
 }
 SMEM_PER_BLOCK = 232448  # 227 KB, the most a Hopper block may use
 
@@ -263,8 +272,9 @@ def _expected_path(length, itemsize, direction):
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS,
-                                     *FAMILY_ROWS.values()],
-                         ids=["training", "serving", "dsb", "unetr", "unimatch", "punet", *FAMILY_ROWS])
+                                     *FAMILY_ROWS.values(), HALO_SLAB_ROWS, SPATIAL_SLAB_ROWS],
+                         ids=["training", "serving", "dsb", "unetr", "unimatch", "punet", *FAMILY_ROWS,
+                              "halo_slab", "spatial_slab"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize

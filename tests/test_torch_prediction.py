@@ -161,15 +161,17 @@ def test_predict_with_halo_takes_the_reference_argument_order():
 
 @pytest.mark.parametrize("option", ["devices"])
 def test_predict_with_halo_refuses_unported_options(option):
-    """Only several devices stay unported (they come with parallel/)."""
+    """Several devices, the last option to be ported, take a replica each: on the CPU twice,
+    the same prediction as one device."""
     _, torch_model = _models(1)
-    with pytest.raises(NotImplementedError, match="several devices"):
-        prediction.predict_with_halo(np.zeros((8, 32, 32), np.float32), torch_model,
-                                     block_shape=(8, 32, 32), halo=(2, 8, 8), **{option: ["cpu", "cpu"]})
     vol = np.random.default_rng(6).random((8, 32, 32), dtype=np.float32)
     one = prediction.predict_with_halo(vol, torch_model, block_shape=(8, 32, 32), halo=(2, 8, 8),
                                        **{option: [torch.device("cpu")]})
     np.testing.assert_array_equal(one, prediction.predict_with_halo(vol, torch_model, block_shape=(8, 32, 32),
+                                                                    halo=(2, 8, 8)))
+    two = prediction.predict_with_halo(vol, torch_model, block_shape=(4, 16, 16), halo=(2, 8, 8),
+                                       **{option: ["cpu", "cpu"]})
+    np.testing.assert_array_equal(two, prediction.predict_with_halo(vol, torch_model, block_shape=(4, 16, 16),
                                                                     halo=(2, 8, 8)))
 
 
@@ -178,5 +180,6 @@ def test_predict_with_halo_checks_gpu_ids():
     vol = np.zeros((8, 32, 32), np.float32)
     with pytest.raises(ValueError, match="model lies on cpu"):
         prediction.predict_with_halo(vol, torch_model, [0], (8, 32, 32), (2, 8, 8))
-    with pytest.raises(NotImplementedError, match="several devices"):
-        prediction.predict_with_halo(vol, torch_model, ["cpu", "cpu"], (8, 32, 32), (2, 8, 8))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prediction.predict_with_halo(vol, torch_model, ["cpu", 0], (8, 32, 32), (2, 8, 8))

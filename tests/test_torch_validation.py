@@ -141,8 +141,9 @@ def test_validate_checkpoint(trained, tmp_path):
     with pytest.raises(ImportError, match="napari"):
         validation.validate_checkpoint(trainer.checkpoint_folder, gpu_ids=("cpu",), block_shape=(8, 32, 32),
                                        halo=(2, 8, 8))
-    with pytest.raises(NotImplementedError):
-        validation.validate_checkpoint(trainer.checkpoint_folder, gpu_ids=("cpu", "cuda"))
+    two = validation.validate_checkpoint(trainer.checkpoint_folder, max_samples=1,
+                                         **{**kwargs, "gpu_ids": ("cpu", "cpu")})
+    np.testing.assert_array_equal(two[0], expected)
 
 
 def test_validate_checkpoint_cli(trained):

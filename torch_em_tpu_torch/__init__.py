@@ -6,7 +6,8 @@ Vision Mamba encoder), the Probabilistic U-Net, the 3-D ResNets with the
 classification trainer, training loop (with its profiling), the
 self-training trainers (MeanTeacher, FixMatch, UniMatch v2), losses, data path (datasets, the
 dataset and loader factories, augmentations on the host and on the card),
-tiled prediction, instance decodings (watersheds, mutex watershed,
+tiled prediction, multi-device training and inference (``parallel``: one
+process per device), instance decodings (watersheds, mutex watershed,
 multicut) and their metrics, checkpoint validation, command line interface
 and parameter-free instance norm as the JAX package, with channel-first
 (N, C, *spatial) tensors. The instance norm runs as hand-written CUDA
@@ -15,7 +16,7 @@ versions on the CPU. Entry points run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``.
 """
 
-from . import classification, data, loss, metric, models, self_training, trainer, transforms, utils
+from . import classification, data, loss, metric, models, parallel, self_training, trainer, transforms, utils
 from .data import DataLoader, SegmentationDataset
 from .loss import DiceLoss
 from .models import (
@@ -32,7 +33,7 @@ from .transforms import standardize
 from .utils import Blocking, predict_with_halo, predict_with_padding, state_dict_from_jax_params
 
 __all__ = [
-    "classification", "data", "loss", "metric", "models", "self_training", "trainer", "transforms", "utils",
+    "classification", "data", "loss", "metric", "models", "parallel", "self_training", "trainer", "transforms", "utils",
     "DinoV2ViT", "DinoV3ViT", "HieraSam2", "MAEViT", "Sam3ViT", "ScaleMAEViT", "resnet3d_18", "resnet3d_34",
     "resnet3d_50", "resnet3d_101", "resnet3d_152", "resnext3d_50_32x4d", "resnext3d_101_32x8d",
     "resnext3d_101_64x4d", "wide_resnet3d_50_2", "wide_resnet3d_101_2",

@@ -4,7 +4,7 @@ from .base import Dataset
 from .concat_dataset import ConcatDataset
 from .dataset_wrapper import DatasetWrapper
 from .image_collection_dataset import ImageCollectionDataset
-from .loader import DataLoader, default_collate
+from .loader import DataLoader, DistributedIndexSampler, default_collate
 from .pseudo_label_dataset import PseudoLabelDataset
 from .raw_dataset import RawDataset, RawDatasetWithMasks
 from .raw_image_collection_dataset import RawImageCollectionDataset
@@ -16,7 +16,7 @@ from .segmentation_dataset import SegmentationDataset
 from .tensor_dataset import TensorDataset
 
 __all__ = [
-    "Dataset", "ConcatDataset", "DatasetWrapper", "ImageCollectionDataset", "DataLoader", "default_collate", "PseudoLabelDataset",
+    "Dataset", "ConcatDataset", "DatasetWrapper", "ImageCollectionDataset", "DataLoader", "DistributedIndexSampler", "default_collate", "PseudoLabelDataset",
     "RawDataset", "RawDatasetWithMasks", "RawImageCollectionDataset", "SegmentationDataset", "TensorDataset",
     "MinForegroundSampler", "MinInstanceSampler", "MinIntensitySampler", "MinNoToBackgroundBoundarySampler",
     "MinSemanticLabelForegroundSampler", "MinTwoInstanceSampler",

@@ -8,9 +8,13 @@ Counterpart of ``torch_em_tpu/loss/dice.py`` (itself torch-em's
 callables of (prediction, target) on torch tensors and carry
 ``init_kwargs``, so a trainer checkpoint can rebuild them.
 
-The JAX package's ``shard_parts``/``loss_from_parts`` (the statistics that a
-spatially sharded step sums across devices) wait for the port of
-``parallel/``.
+``DiceLoss`` and ``DiceLossWithLogits`` also carry the shard protocol of the
+JAX package: ``shard_parts(pred, target)`` gives the per-channel numerator
+and denominator sums, which add up over the shards of a batch or a volume,
+and ``loss_from_parts(parts)`` forms the loss from their totals. The data
+parallel trainer and the spatially sharded step of ``parallel/`` sum the
+parts over their processes and so form the global Dice, which the mean of
+per-shard Dice losses is not.
 """
 
 from typing import Optional
@@ -92,12 +96,31 @@ class DiceLoss:
             reduce_channel=self.reduce_channel, eps=self.eps,
         )
 
+    def shard_parts(self, input_: torch.Tensor, target: torch.Tensor):
+        """{"numerator", "denominator"}: per channel (or, not ``channelwise``, scalar) sums that
+        add up over shards."""
+        if self.channelwise:
+            i, t = flatten_samples(input_), flatten_samples(target)
+            return {"numerator": (i * t).sum(dim=-1), "denominator": (i * i).sum(dim=-1) + (t * t).sum(dim=-1)}
+        return {"numerator": (input_ * target).sum(),
+                "denominator": (input_ * input_).sum() + (target * target).sum()}
+
+    def loss_from_parts(self, parts) -> torch.Tensor:
+        """The loss from the totals of ``shard_parts`` over all shards."""
+        loss = 1.0 - 2.0 * (parts["numerator"] / parts["denominator"].clamp(min=self.eps))
+        if not self.channelwise or self.reduce_channel is None:
+            return loss
+        return _REDUCTIONS[self.reduce_channel](loss)
+
 
 class DiceLossWithLogits(DiceLoss):
     """Dice error on sigmoided logits."""
 
     def __call__(self, input_: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         return super().__call__(torch.sigmoid(input_), target)
+
+    def shard_parts(self, input_: torch.Tensor, target: torch.Tensor):
+        return super().shard_parts(torch.sigmoid(input_), target)
 
 
 class BCEDiceLoss:

@@ -102,7 +102,14 @@ class _AffineNorm(nn.Module):
     """Per-channel ``weight`` (ones) and ``bias`` (zeros) in float32; with ``running``, also
     ``running_mean`` (zeros), ``running_var`` (ones) and torch's ``num_batches_tracked``.
     The norm computes in float32 (float64 for a float64 input) and returns the input's
-    dtype, as the JAX package's."""
+    dtype, as the JAX package's.
+
+    ``process_group``, which the data-parallel trainer sets, makes the statistics over the
+    batch those of the whole batch that the group's processes hold between them (each
+    holding as many samples), as the JAX package's norms compute them over a batch that
+    its mesh shards."""
+
+    process_group = None
 
     def __init__(self, channels: int, running: bool, eps: float = 1e-5):
         super().__init__()
@@ -123,6 +130,23 @@ class _AffineNorm(nn.Module):
     def _running(self, xf):
         return (xf - self._channel(self.running_mean, xf.ndim)) * torch.rsqrt(
             self._channel(self.running_var, xf.ndim) + self.eps)
+
+    def _batch_mean(self, t, axes, differentiable=True):
+        """Mean of ``t`` over ``axes`` of the batch, and over the batches of ``process_group``'s
+        processes when it is set: there through ``all_reduce``, whose backward sends each
+        process its share of the gradient."""
+        if self.process_group is None:
+            return t.mean(dim=axes)
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        total = t.sum(dim=axes)
+        if differentiable:
+            total = all_reduce(total, group=self.process_group)
+        else:
+            dist.all_reduce(total, group=self.process_group)
+        count = t.numel() // total.numel() * dist.get_world_size(self.process_group)
+        return total / count
 
     @torch.no_grad()
     def _track(self, mean, var, momentum):
@@ -150,7 +174,9 @@ class InstanceNormTrackStats(_AffineNorm):
         mean = xf.mean(dim=axes, keepdim=True)
         var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
         n = float(np.prod(x.shape[2:]))
-        self._track(mean.mean(0).reshape(-1), var.mean(0).reshape(-1) * (n / max(n - 1.0, 1.0)), self.momentum)
+        self._track(self._batch_mean(mean.detach(), (0,), differentiable=False).reshape(-1),
+                    self._batch_mean(var.detach(), (0,), differentiable=False).reshape(-1) * (n / max(n - 1.0, 1.0)),
+                    self.momentum)
         return self._affine((xf - mean) * torch.rsqrt(var + self.eps), x.dtype)
 
 
@@ -169,8 +195,8 @@ class BatchNorm(_AffineNorm):
         if not self.training:
             return self._affine(self._running(xf), x.dtype)
         axes = (0,) + tuple(range(2, x.ndim))
-        mean = xf.mean(dim=axes, keepdim=True)
-        var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+        mean = self._channel(self._batch_mean(xf, axes), x.ndim)
+        var = self._channel(self._batch_mean(torch.square(xf - mean), axes), x.ndim)
         self._track(mean.reshape(-1), var.reshape(-1), self.momentum)
         return self._affine((xf - mean) * torch.rsqrt(var + self.eps), x.dtype)
 

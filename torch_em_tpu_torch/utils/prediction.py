@@ -16,10 +16,18 @@ Counterpart of ``torch_em_tpu/utils/prediction.py``, with its options
   from it and the prediction is written into a tensor there, with no
   per-block traffic to the host.
 
-The blocking math is plain numpy. Several devices are not ported.
+With several devices (``gpu_ids`` or ``devices`` naming more than one) the
+host path keeps one replica of the model per device and sends the batches
+to them in turn, each replica with its own stream and staging buffers, as
+the JAX package dispatches round-robin over its devices. Device indices
+wrap around the cards present, so on one card ``gpu_ids=[0, 1]`` gives two
+replicas there, on two streams.
+
+The blocking math is plain numpy.
 """
 
 import contextlib
+import copy
 import itertools
 from collections import deque
 from concurrent import futures
@@ -28,6 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..models.base import resolve_device
 from ..transforms.raw import standardize
 
 __all__ = ["Blocking", "predict_with_padding", "predict_with_halo"]
@@ -76,23 +85,36 @@ def _model_device(model) -> torch.device:
 
 
 def _as_device(gpu) -> torch.device:
-    """A device named as the reference names one: "cpu", an index, "cuda:<i>" or a torch.device."""
+    """A device named as the reference names one: "cpu", an index (modulo the cards
+    present, as the JAX package maps it), "cuda:<i>" or a torch.device."""
     if isinstance(gpu, int) or (isinstance(gpu, str) and gpu.isdigit()):
-        return torch.device("cuda", int(gpu))
+        return torch.device("cuda", int(gpu) % max(torch.cuda.device_count(), 1))
     device = torch.device(gpu)
     return torch.device("cuda", 0) if device.type == "cuda" and device.index is None else device
 
 
 def _check_gpu_ids(gpu_ids, model_device: torch.device):
-    """``gpu_ids`` must name one device, the model's: the port runs the model where its
-    parameters lie."""
-    if len(gpu_ids) != 1:
-        raise NotImplementedError("predict_with_halo on several devices is not ported yet (it comes "
-                                  "with parallel/); name one device or None")
-    device = _as_device(gpu_ids[0])
-    if device != model_device:
-        raise ValueError(f"{gpu_ids[0]!r} names {device}, but the model lies on {model_device}; "
+    """The devices that ``gpu_ids`` names. One name must name the model's device: the port
+    runs the model where its parameters lie; several get a replica each."""
+    devices = [_as_device(g) for g in gpu_ids]
+    if len(devices) == 1 and devices[0] != model_device:
+        raise ValueError(f"{gpu_ids[0]!r} names {devices[0]}, but the model lies on {model_device}; "
                          f"move the model there first")
+    for device in devices:
+        resolve_device(device)
+    return devices
+
+
+def _replicas(model, devices):
+    """One model per entry of ``devices``: the model itself for the first entry naming its
+    device, a copy for each other."""
+    replicas, own = [], _model_device(model)
+    for device in devices:
+        if device == own and not any(r is model for r in replicas):
+            replicas.append(model)
+        else:
+            replicas.append(copy.deepcopy(model).to(device))
+    return replicas
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -371,15 +393,16 @@ def predict_with_halo(
     shifts the grid by fractions of a block.
 
     ``gpu_ids`` or ``devices`` may name the model's one device (None: wherever
-    the model lies). The port shows no progress bar: ``disable_tqdm`` and
-    ``tqdm_desc`` change nothing.
+    the model lies), or several devices, which take the blocks' batches in
+    turn, each through its own replica of the model (the same device may be
+    named more than once); then a tensor input takes the host path. The port
+    shows no progress bar: ``disable_tqdm`` and ``tqdm_desc`` change nothing.
     """
     if block_shape is None or halo is None:
         raise ValueError("predict_with_halo needs block_shape and halo")
     device = _model_device(model)
     names = devices if devices is not None else gpu_ids
-    if names is not None:
-        _check_gpu_ids(names, device)
+    targets = [device] if names is None else _check_gpu_ids(names, device)
     shape0 = tuple(input_.shape)
     spatial0 = shape0[1:] if with_channels else shape0
     ndim = len(spatial0)
@@ -390,7 +413,7 @@ def predict_with_halo(
     batch_size = max(1, int(batch_size))
     n_threads = max(4, 2 * batch_size) if n_threads is None else int(n_threads)
 
-    if (isinstance(input_, torch.Tensor) and prediction_function is None and mask is None
+    if (isinstance(input_, torch.Tensor) and len(targets) == 1 and prediction_function is None and mask is None
             and skip_block is None and roi is None and grid_shift is None and output is None
             and iter_list is None and postprocess is None
             and (preprocess is standardize or preprocess is None)):
@@ -461,26 +484,34 @@ def predict_with_halo(
             output[(slice(None),) + bb if output.ndim == ndim + 1 else bb] = prediction
 
     inner = tuple(slice(h, h + b) for h, b in zip(halo, block_shape))
-    with contextlib.closing(_load_ahead(load, ids, n_threads, max(2 * batch_size, n_threads))) as payloads, \
-            torch.inference_mode():
+    replicas = _replicas(model, targets)
+    n_workers = len(replicas)
+    lookahead = max(2 * batch_size * n_workers, n_threads)
+    with contextlib.closing(_load_ahead(load, ids, n_threads, lookahead)) as payloads, torch.inference_mode():
         if prediction_function is not None:
-            # one block at a time, the prediction_function on the calling thread
-            for payload in payloads:
-                if payload is None:
-                    continue
+            # one block at a time, the prediction_function on the calling thread, the replicas in turn
+            for i, payload in enumerate(p for p in payloads if p is not None):
                 begin, end, mask_block, inp = payload
-                pred = _first(prediction_function(model, torch.from_numpy(inp[None]).to(device)))
+                replica = replicas[i % n_workers]
+                pred = _first(prediction_function(replica, torch.from_numpy(inp[None]).to(targets[i % n_workers])))
                 pred = _to_numpy(pred.cpu()).squeeze(0)
                 if postprocess is not None:
                     pred = postprocess(pred)
                 write(begin, end, mask_block, pred[(slice(None),) * (pred.ndim - ndim) + inner])
         else:
-            transfers = _Transfers(device)
-            pending, batch = deque(), []
+            transfers = [_Transfers(d) for d in targets]
+            # several replicas on the card each take their own stream, after the copies that made them
+            streams = [None] * n_workers
+            if n_workers > 1:
+                for k, d in enumerate(targets):
+                    if d.type == "cuda":
+                        streams[k] = torch.cuda.Stream(d)
+                        streams[k].wait_stream(torch.cuda.current_stream(d))
+            pending, batch, dispatched = deque(), [], 0
 
             def drain():
                 handle, metas = pending.popleft()
-                for meta, pred in zip(metas, transfers.result(handle)):
+                for meta, pred in zip(metas, _Transfers.result(handle)):
                     write(*meta, pred if postprocess is None else postprocess(pred))
 
             end_of_blocks = object()
@@ -489,11 +520,14 @@ def predict_with_halo(
                 if not last and payload is not None:
                     batch.append(payload)
                 if batch and (len(batch) == batch_size or last):
-                    x = transfers.to_device([p[3] for p in batch])
-                    pred = _halo_forward(model, x, inner, out_dtype, device_standardize)
-                    pending.append((transfers.to_host(pred), [p[:3] for p in batch]))
+                    k = dispatched % n_workers
+                    dispatched += 1
+                    with torch.cuda.stream(streams[k]):
+                        x = transfers[k].to_device([p[3] for p in batch])
+                        pred = _halo_forward(replicas[k], x, inner, out_dtype, device_standardize)
+                        pending.append((transfers[k].to_host(pred), [p[:3] for p in batch]))
                     batch = []
-                while pending and (len(pending) > MAX_INFLIGHT or last):
+                while pending and (len(pending) > MAX_INFLIGHT * n_workers or last):
                     drain()
 
     if grid_shift is not None:

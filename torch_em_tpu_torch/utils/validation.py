@@ -5,7 +5,8 @@ The port's counterpart of the JAX package's ``utils/validation.py``.
 ``predict_with_halo`` over validation samples, optionally computes metrics
 and saves predictions; ``SampleGenerator`` (:20) yields (raw, gt) pairs from
 the paths of the trainer's validation data. Prediction runs on the card
-unless ``gpu_ids`` names the CPU (``("cpu",)``). napari, which shows a sample
+unless ``gpu_ids`` names the CPU (``("cpu",)``), on as many devices as it
+names. napari, which shows a sample
 beside its prediction, is imported only when ``visualize`` asks for it.
 """
 
@@ -97,13 +98,12 @@ def validate_checkpoint(
     """Validate a checkpoint by predicting its validation data
     (reference validation.py:194).
 
-    The trainer and its model are rebuilt on the one device ``gpu_ids``
-    names (the card by default; ``("cpu",)`` for the CPU). ``metrics(gt,
+    The trainer and its model are rebuilt on the first device ``gpu_ids``
+    names (the card by default; ``("cpu",)`` for the CPU); with several,
+    ``predict_with_halo`` predicts through a replica on each. ``metrics(gt,
     prediction)`` scores each sample; without it the predictions are
     returned.
     """
-    if len(gpu_ids) != 1:
-        raise NotImplementedError("validate_checkpoint on several devices is not ported yet; name one device")
     trainer = get_trainer(checkpoint, device=_as_device(gpu_ids[0]))
     model = trainer.model
     need_gt = metrics is not None
