@@ -153,7 +153,24 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    norms; each process reports its norm launches, times, the all-reduce's
    and the halo exchange's ms and its peak memory; (c) ``predict_with_halo``
    with two replicas on the card against one, and ``validate_checkpoint``
-   with two ids.
+   with two ids;
+16. the Shallow2Deep recipe: the four forests of ``scripts/s2d_forests/``
+   (fitted by ``scripts/torch_s2d_forests.py``, read from ``.npz`` without
+   sklearn; per 256x256 patch the host's ms in the filter bank and in
+   ``predict_proba``), the enhancer ``UNet2d(1, 1, depth 4, f=64, Sigmoid)``
+   through ``get_shallow2deep_loader`` over the script's eight 512x512
+   images (forest probabilities in, foreground out), bf16, batch 8 of
+   256x256, DiceLoss, AdamW 1e-4, 8 iterations and 2 more after
+   ``from_checkpoint`` (more than half of the weights move); the loader with
+   thread and process workers, the bare step, the float32 forward on the
+   card against the CPU; ``export_bioimageio_model`` of the checkpoint with
+   ``get_shallow2deep_config``, its validation, ``import_bioimageio_model``
+   on the card (bf16 forward bitwise equal to the trainer's model), the
+   torchscript weights (traced on the CPU) on the card against the
+   state-dict model; ``Shallow2DeepModel`` on the two 512x512 test images
+   (forest on the host, enhancer on the card), its soft Dice and the
+   forest's; a seeded volume as ``.nii.gz`` and ``.mha`` read back through
+   ``load_data`` and a ``SegmentationDataset`` patch of the NIfTI file.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -172,6 +189,9 @@ hold both kernels at the sharded paths' slabs with their 36-plane halo (phase
 15: 136x512x512 served, level-0 rows of 35.6 M elements and a 64-channel norm
 of 2.28e9 elements; 120x256x256 trained), checked against the plain versions
 channel group by channel group, and time them at those slabs' level-0 rows.
+Phase 3 also holds the forward kernel at the rows of ``Shallow2DeepModel``'s
+enhancer on two 512x512 images (batch 2, 1 to 1024 channels), which phase 16
+launches in float32.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -377,6 +397,18 @@ MD_ONE_PROCESS_BACKEND = "nccl"  # 15a: the default backend of one process per c
 # norm plus 1e-5 of the model's largest gradient per element, and all together within 1%
 MD_GRAD_REL, MD_GRAD_REL_ALL = 5e-2, 1e-2
 
+# the Shallow2Deep recipe (phase 16; torch-em's 2-D Shallow2Deep enhancers, BASELINE.md:10): 4 forests of 10 trees on
+# the default filter bank, fitted by scripts/torch_s2d_forests.py on its seed-0 images and committed as .npz; the
+# enhancer UNet2d(1 -> 1, depth 4, f=64, Sigmoid) on their foreground probabilities, 256x256 patches, batch 8, bf16,
+# DiceLoss, AdamW 1e-4, 8 iterations and 2 more after from_checkpoint; the enhancer's float32 forward on the card
+# against the CPU (TF32 off) and the torchscript weights against the state-dict model within 1e-4
+S2D_FOREST_DIR, S2D_SEED = os.path.join("scripts", "s2d_forests"), 0
+S2D_MODEL = dict(in_channels=1, out_channels=1, initial_features=64, final_activation="Sigmoid")
+S2D_DEPTH, S2D_BATCH, S2D_PATCH, S2D_FIT, S2D_RESUME = 4, 8, (1, 256, 256), 8, 2
+S2D_CPU_ATOL, S2D_HOST_PATCHES, S2D_MEDICAL, S2D_LOADER_STEPS = 1e-4, 8, (24, 64, 64), 4
+# Shallow2DeepModel's enhancer on the two 512x512 test images at once, in float32
+S2D_PREDICT = (2, (512, 512))
+
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
 CONV_KERNELS = re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|fprop|nchw|nhwc", re.I)
@@ -518,7 +550,8 @@ def device_breakdown(label, fn, steps=3, top=8):
         f"{total - norms - convs:.3f} ms ({(total - norms - convs) / total:.1%})")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {ms:8.3f} ms {ms / total:6.1%}  {name[:110]}")
-    return {"device_ms": total, "norm_ms": norms, "conv_ms": convs, "kernels": kernels}
+    return {"device_ms": total, "norm_ms": norms, "conv_ms": convs, "kernels": kernels,
+            "idle": max(0.0, 1 - total / wall)}
 
 
 def card_generator(seed):
@@ -677,13 +710,14 @@ def time_large_norm(inorm, x, label, backward=False):
 
 
 def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes, st_shapes,
-                      sharded_shapes):
+                      sharded_shapes, predict_shapes):
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
     shapes}, the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
     1, ``vit_shapes`` {name: (training batch, shapes)}, the self-training steps', ``st_shapes`` {name: (batch,
-    shapes)}, and the sharded paths' slabs with their halo, ``sharded_shapes`` {name: shapes}) and time it at
-    the serving path's and at the slabs' level-0 rows; returns its entry of the kernels line."""
+    shapes)}, the sharded paths' slabs with their halo, ``sharded_shapes`` {name: shapes}, and the inference
+    batches of ``predict_shapes`` {name: (batch, shapes)}) and time it at the serving path's and at the slabs'
+    level-0 rows; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dtype, offset=0):
@@ -720,6 +754,12 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                     log(f"  norm {dtype} {recipe} ({batch}, {c}) {sp} path "
                         f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
             seen.update(recipe_shapes)
+        for name, (batch, batch_shapes) in predict_shapes.items():
+            for c, sp in sorted(set(batch_shapes)):
+                err = check_kernel(inorm.instance_norm, inorm.instance_norm_reference, rand((batch, c) + sp, dtype))
+                max_err = max(max_err, err)
+                log(f"  norm {dtype} {name} ({batch}, {c}) {sp} path "
+                    f"{path_of(inorm, (batch * c, sp), dtype, 'forward')}: max abs err {err:.3g}")
         max_err = max(max_err, check_sharded_forward(inorm, rand, sharded_shapes, dtype))
     repeats = [((1, c) + sp, path) for path, (c, sp) in repeat_shapes(inorm, shapes, "forward").items()]
     repeats += [((DSB_BATCH, c) + sp, f"{path} (DSB)")
@@ -777,7 +817,9 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
                      for name, (b, s) in vit_shapes.items()},
                   **{f"{name}_training": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.bfloat16, "forward")
                      for name, (b, s) in st_shapes.items()},
-                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in sharded_shapes.items()}},
+                  **{name: path_counts(inorm, s, torch.bfloat16, "forward") for name, s in sharded_shapes.items()},
+                  **{f"{name}_float32": path_counts(inorm, [(b * c, sp) for c, sp in s], torch.float32, "forward")
+                     for name, (b, s) in predict_shapes.items()}},
         "sharded_level0": level0,
     }
 
@@ -1992,9 +2034,9 @@ def livecell_images(folder, seed=0):
     return paths["images"], paths["masks"]
 
 
-def check_cpu_against_card(label, factory, kwargs, inputs):
+def check_cpu_against_card(label, factory, kwargs, inputs, atol=VIT_CPU_ATOL):
     """The model built from one seed on the CPU and on the card: the same weights, and float32
-    outputs (TF32 off) within VIT_CPU_ATOL on each input; for UNETR also the encoder's features
+    outputs (TF32 off) within ``atol`` on each input; for UNETR also the encoder's features
     at the smaller input, where its position embedding and relative-position tables shrink."""
     cpu_model = factory(**kwargs, device="cpu", seed=0)
     card_model = factory(**kwargs, device="cuda", seed=0)
@@ -2010,7 +2052,7 @@ def check_cpu_against_card(label, factory, kwargs, inputs):
                 expected, got = cpu_model(x), card_model(x.cuda()).cpu()
                 err = float((got - expected).abs().max())
                 errors[f"output {tuple(x.shape[2:])}"] = err
-                if not (got.shape == expected.shape and bool(torch.isfinite(got).all()) and err <= VIT_CPU_ATOL):
+                if not (got.shape == expected.shape and bool(torch.isfinite(got).all()) and err <= atol):
                     raise AssertionError(f"{label} {tuple(x.shape)}: card against CPU max abs err {err}")
                 if label == "UNETR":
                     x3 = x.repeat(1, 3, 1, 1)
@@ -2022,7 +2064,7 @@ def check_cpu_against_card(label, factory, kwargs, inputs):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     log(f"{label}: the seeded weights equal on the CPU and the card; float32 (TF32 off) card against CPU "
-        f"{json.dumps(errors)} (limits {VIT_CPU_ATOL} abs on outputs, {VIT_FEATURE_RTOL} of the largest on "
+        f"{json.dumps(errors)} (limits {atol} abs on outputs, {VIT_FEATURE_RTOL} of the largest on "
         f"encoder features)")
     del cpu_model, card_model
     torch.cuda.empty_cache()
@@ -3187,6 +3229,221 @@ def phase_multi_device(port, inorm, device_ops):
     return fwd, bwd
 
 
+def s2d_data(folder):
+    """The Shallow2Deep recipe's images (``scripts/torch_s2d_forests.py:s2d_images``, seed 0: the
+    images its forests were fitted on, and two more to test on) as ``.npy`` under ``folder``: the
+    training images as one (S2D_TRAIN, 512, 512) volume with their labels, the test images and labels
+    as arrays."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    from torch_s2d_forests import TRAIN_IMAGES, s2d_images
+
+    raw, labels = s2d_images(S2D_SEED)
+    paths = os.path.join(folder, "s2d_raw.npy"), os.path.join(folder, "s2d_labels.npy")
+    np.save(paths[0], raw[:TRAIN_IMAGES])
+    np.save(paths[1], labels[:TRAIN_IMAGES])
+    return paths, raw[TRAIN_IMAGES:], labels[TRAIN_IMAGES:]
+
+
+def soft_dice(pred, target, eps=1e-6):
+    pred, target = np.asarray(pred, dtype=np.float64), np.asarray(target, dtype=np.float64)
+    return float(2 * (pred * target).sum() / ((pred * pred).sum() + (target * target).sum() + eps))
+
+
+def s2d_host_costs(prepare, forests, raw):
+    """Per 256x256 patch, the host's ms in the default filter bank and in the forest's predict_proba
+    (the median over S2D_HOST_PATCHES patches of the training images)."""
+    filters = prepare._get_filters(2, None)
+    rng = np.random.default_rng(1)
+    bank_ms, forest_ms = [], []
+    for k in range(S2D_HOST_PATCHES):
+        i, y, x = rng.integers(0, len(raw)), *rng.integers(0, raw.shape[1] - S2D_PATCH[1], 2)
+        patch = np.asarray(raw[i, y:y + S2D_PATCH[1], x:x + S2D_PATCH[2]], dtype=np.float32)
+        t = time.perf_counter()
+        features = prepare._apply_filters(patch, filters)
+        bank_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        proba = forests[k % len(forests)].predict_proba(features)
+        forest_ms.append((time.perf_counter() - t) * 1e3)
+        if proba.shape != (patch.size, 2) or not (0 <= proba.min() and proba.max() <= 1):
+            raise AssertionError(f"forest probabilities of shape {proba.shape} in [{proba.min()}, {proba.max()}]")
+    nodes = [len(f.feature) for f in forests]
+    log(f"Shallow2Deep host per {S2D_PATCH[1]}x{S2D_PATCH[2]} patch: filter bank ({features.shape[1]} features) "
+        f"{np.median(bank_ms):.2f} ms, predict_proba ({forests[0].n_estimators} trees, {min(nodes)}-{max(nodes)} nodes "
+        f"per forest) {np.median(forest_ms):.2f} ms (medians of {S2D_HOST_PATCHES}); {os.cpu_count()} host cores")
+    return {"filter_bank_ms": float(np.median(bank_ms)), "predict_proba_ms": float(np.median(forest_ms))}
+
+
+def phase_shallow2deep(port, inorm):
+    """The Shallow2Deep recipe on the card: the enhancer trained on the committed forests' predictions
+    (no sklearn), exported as a bioimage.io package, validated, imported back, traced to torchscript, and
+    ``Shallow2DeepModel`` on the test images; the medical formats' round trip. Returns the kernels'
+    launches of its training run and of the model's predictions."""
+    import importlib
+
+    from torch_em_tpu_torch.shallow2deep import Shallow2DeepModel, get_shallow2deep_loader, load_forest
+    from torch_em_tpu_torch.transforms.label import labels_to_binary
+    from torch_em_tpu_torch.utils import bioimageio_spec, io, medical_io, modelzoo
+
+    prepare = importlib.import_module("torch_em_tpu_torch.shallow2deep.prepare_shallow2deep")
+    t_phase = time.perf_counter()
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        (raw_path, label_path), test_raw, test_labels = s2d_data(tmp)
+        forest_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), S2D_FOREST_DIR)
+        rf_paths = sorted(os.path.join(forest_dir, n) for n in os.listdir(forest_dir) if n.endswith(".npz"))
+        forests = [load_forest(p) for p in rf_paths]
+        default_config = prepare._serialize_feature_config(prepare._get_filters(2, None))
+        if len(forests) != 4 or any(f.feature_config != default_config or f.n_features_in_ != 28 for f in forests):
+            raise AssertionError(f"forests {rf_paths} do not carry the default filter bank")
+        if "sklearn" in sys.modules:
+            raise AssertionError("the forests were read through sklearn")
+        log(f"Shallow2Deep data: {np.load(raw_path, mmap_mode='r').shape} training images, {test_raw.shape} test "
+            f"images, foreground {float((test_labels > 0).mean()):.3f}; {len(forests)} forests from .npz")
+        stats.update(s2d_host_costs(prepare, forests, np.load(raw_path, mmap_mode="r")))
+
+        def loader(n_samples, shuffle, workers=LOADER_THREADS, mode="thread"):
+            return get_shallow2deep_loader(
+                raw_path, None, label_path, None, rf_paths=rf_paths, batch_size=S2D_BATCH, patch_shape=S2D_PATCH,
+                ndim=2, rf_channels=(1,), label_transform=labels_to_binary, n_samples=n_samples, shuffle=shuffle,
+                num_workers=workers, worker_mode=mode)
+
+        np.random.seed(3)
+        model = port.UNet2d(**S2D_MODEL, depth=S2D_DEPTH, device="cuda", seed=0)
+        start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        trainer = port.default_segmentation_trainer(
+            "s2d", model, loader(S2D_BATCH * S2D_FIT, True), loader(S2D_BATCH, False), learning_rate=LEARNING_RATE,
+            device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+        resumed, launches = fit_and_resume(port, inorm, trainer, S2D_FIT, S2D_RESUME, 1, "Shallow2Deep enhancer")
+        if type(resumed.train_loader.dataset).__name__ != "Shallow2DeepDataset" or \
+                resumed.train_loader.dataset.rf_paths != rf_paths:
+            raise AssertionError("from_checkpoint did not rebuild the Shallow2Deep loader")
+        end = resumed.model.state_dict()
+        moved = sum(int((end[k] != v).sum()) for k, v in start.items()) / sum(v.numel() for v in start.values())
+        log(f"Shallow2Deep enhancer: {moved:.1%} of the weights moved from their start")
+        if moved <= 0.5:
+            raise AssertionError(f"only {moved:.1%} of the enhancer's weights moved")
+        x = next(iter(loader(S2D_BATCH, False, workers=0)))[0]
+
+        # export, validation and import
+        package = os.path.join(tmp, "s2d_package")
+        config = modelzoo.get_shallow2deep_config(rf_paths[0])
+        t = time.perf_counter()
+        if not modelzoo.export_bioimageio_model(resumed.checkpoint_folder, package, input_data=x[0, 0].cpu().numpy(),
+                                                config=config, checkpoint_name="latest", name="s2d-enhancer"):
+            raise AssertionError("the exported package did not validate")
+        stats["export_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        errors, warnings_ = bioimageio_spec.validate_model_rdf(package)
+        if not modelzoo._validate_model(package) or errors:
+            raise AssertionError(f"validation of the package: {errors}")
+        stats["validate_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        imported, _ = modelzoo.import_bioimageio_model(package)
+        torch.cuda.synchronize()
+        stats["import_s"] = time.perf_counter() - t
+        test_input = torch.from_numpy(np.load(os.path.join(package, "test_input.npy"))).cuda()
+        resumed.model.eval()
+        with torch.inference_mode():
+            resumed.model.dtype = imported.dtype = torch.bfloat16
+            a, b = resumed.model(test_input), imported(test_input)
+            resumed.model.dtype = imported.dtype = torch.float32
+        if next(imported.parameters()).device != next(resumed.model.parameters()).device or not torch.equal(a, b):
+            raise AssertionError("the imported package's bf16 forward differs from the trainer's model")
+        rdf = bioimageio_spec.read_rdf(os.path.join(package, "rdf.yaml"))
+        log(f"Shallow2Deep package: exported in {stats['export_s']:.2f} s, validated in {stats['validate_s']:.2f} s "
+            f"(no errors, warnings {warnings_}), imported in {stats['import_s']:.2f} s; its bf16 forward on the card "
+            f"equals the trainer's model bitwise; weights {sorted(rdf['weights'])}, config {rdf['config']}")
+
+        # torchscript: traced on the CPU with the plain norm, loaded on the card
+        modelzoo.add_weight_formats(package, ["torchscript"])
+        traced = torch.jit.load(os.path.join(package, "weights_torchscript.pt"), map_location="cuda")
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.inference_mode():
+                err = float((traced(test_input) - imported(test_input)).abs().max())
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        log(f"torchscript weights on the card against the state-dict model, float32 (TF32 off): max abs err {err:.3g}")
+        if not err <= S2D_CPU_ATOL:
+            raise AssertionError(f"torchscript diverges by {err}")
+        del imported, traced, trainer, model
+
+        # the loader and the bare step, after the export: these steps move the trainer's weights
+        for mode in ("thread", "process"):
+            feed = loader(S2D_BATCH * (S2D_LOADER_STEPS + 2), True, mode=mode)
+            stats[f"loader_{mode}_patches_per_s"] = loader_rate(resumed, feed, steps=S2D_LOADER_STEPS)
+            log(f"Shallow2Deep loader, {LOADER_THREADS} {mode} workers, feeding steps: "
+                f"{stats[f'loader_{mode}_patches_per_s']:.2f} patches/s; {nvidia_smi()}")
+            if mode == "process":
+                feed.shutdown()
+        x, y = bare_step(resumed, loader(S2D_BATCH, False, workers=0), "Shallow2Deep enhancer")
+        stats["step_ms_as_called"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        breakdown = device_breakdown("Shallow2Deep enhancer training step (bf16 forward, backward, AdamW)",
+                                     lambda: resumed._train_step(x, y))
+        stats["step_device_ms"], stats["step_idle"] = breakdown["device_ms"], breakdown["idle"]
+        del resumed, x, y
+        check_cpu_against_card("Shallow2Deep enhancer", port.UNet2d, dict(S2D_MODEL, depth=S2D_DEPTH),
+                               [torch.rand(2, 1, 64, 64, generator=torch.Generator().manual_seed(0))], atol=S2D_CPU_ATOL)
+
+        # Shallow2DeepModel on the test images: the forest on the host, the enhancer on the card. The filter
+        # config is the default bank (None), which fitted the forests: a forest's recorded config names the
+        # structure tensor, which the string form computes at outer scale 2 sigma, the default bank at 0.5 sigma
+        s2d = Shallow2DeepModel(package, (rf_paths[0], 2, None), device="cuda")
+        images = test_raw[:, None]
+        t = time.perf_counter()
+        rf_pred = s2d.rf_prediction(images)
+        t_rf = time.perf_counter()
+        s2d.enhance(rf_pred)  # warm-up
+        torch.cuda.synchronize()
+        inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+        t_enhance = time.perf_counter()
+        enhanced = s2d(images)
+        t_call = time.perf_counter()
+        s2d.enhance(rf_pred)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        predict_launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+        if predict_launches != (2 * NORMS_PER_FORWARD, 0):
+            raise AssertionError(f"Shallow2DeepModel launched the norms {predict_launches}")
+        if enhanced.shape != images.shape or not np.all(np.isfinite(enhanced)) or \
+                not (0 <= enhanced.min() and enhanced.max() <= 1):
+            raise AssertionError(f"Shallow2DeepModel gave {enhanced.shape} in [{enhanced.min()}, {enhanced.max()}]")
+        stats["rf_ms_per_image"] = (t_rf - t) * 1e3 / len(images)
+        stats["enhancer_ms_per_image"] = (t_end - t_call) * 1e3 / len(images)
+        stats["model_ms_per_image"] = (t_call - t_enhance) * 1e3 / len(images)
+        fg = (test_labels > 0).astype(np.float64)
+        stats["dice_forest"] = soft_dice(rf_pred[:, 0], fg)
+        stats["dice_enhancer"] = soft_dice(enhanced[:, 0], fg)
+        log(f"Shallow2DeepModel on {len(images)} test images {images.shape[2:]}: {stats['model_ms_per_image']:.1f} ms "
+            f"per image as called, of it the forest (host) {stats['rf_ms_per_image']:.1f} ms and the enhancer (card, "
+            f"float32) {stats['enhancer_ms_per_image']:.1f} ms; soft Dice against the labels: forest {stats['dice_forest']:.4f}, enhancer "
+            f"{stats['dice_enhancer']:.4f}; norm launches {predict_launches}; {nvidia_smi()}")
+        del s2d
+
+        # the medical formats: a seeded volume as NIfTI and MetaImage, read back through load_data
+        volume = np.random.default_rng(5).random(S2D_MEDICAL).astype(np.float32)
+        labels = (volume > 0.5).astype(np.uint8)
+        for name, save in (("volume.nii.gz", medical_io.save_nifti), ("volume.mha", medical_io.save_mha)):
+            save(os.path.join(tmp, name), volume)
+            if not np.array_equal(np.asarray(io.load_data(os.path.join(tmp, name))), volume):
+                raise AssertionError(f"{name} did not read back bitwise")
+        medical_io.save_nifti(os.path.join(tmp, "labels.nii.gz"), labels)
+        ds = port.SegmentationDataset(os.path.join(tmp, "volume.nii.gz"), None, os.path.join(tmp, "labels.nii.gz"),
+                                      None, patch_shape=(8, 32, 32))
+        np.random.seed(0)
+        patch, patch_labels = ds[0]
+        if patch.shape != (1, 8, 32, 32) or not np.array_equal(patch_labels, (patch > 0.5).astype(np.float32)):
+            raise AssertionError("a SegmentationDataset patch of the NIfTI volume does not match its labels")
+        log(f"medical formats: {S2D_MEDICAL} float32 as .nii.gz and .mha read back bitwise through load_data; a "
+            f"SegmentationDataset patch {patch.shape} of the .nii.gz")
+    stats["norm_launches"] = [launches[0] + predict_launches[0], launches[1]]
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"Shallow2Deep: {json.dumps(stats)}; {nvidia_smi()}")
+    torch.cuda.empty_cache()
+    return launches[0] + predict_launches[0], launches[1]
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
@@ -3252,8 +3509,12 @@ def main():
                                                          (36, 0, 0)),
                           "spatial_training": tracked_shapes((MD_SPATIAL_PATCH[0] // MD_PROCESSES,)
                                                              + MD_SPATIAL_PATCH[1:], (36, 0, 0))}
+        # Shallow2DeepModel's enhancer (phase 16) on two 512x512 images in float32
+        predict_shapes = {"s2d_predict": (S2D_PREDICT[0], norm_shapes(S2D_PREDICT[1], [[2, 2]] * S2D_DEPTH,
+                                                                      widths(S2D_MODEL["initial_features"],
+                                                                             S2D_DEPTH)))}
         forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes,
-                                    st_shapes, sharded_shapes)
+                                    st_shapes, sharded_shapes, predict_shapes)
 
         log("phase 4: serving path, tiled AnisotropicUNet inference")
         serving_launches = phase_main_path(port, inorm, unet_module)
@@ -3303,16 +3564,20 @@ def main():
         log("phase 15: the multi-device paths: train_multi_gpu over NCCL, two processes on the card over gloo "
             "(data-parallel step, halo-sharded serving, the spatially sharded step), two replicas in predict_with_halo")
         md_fwd, md_bwd = phase_multi_device(port, inorm, device_ops)
+
+        log("phase 16: Shallow2Deep: the enhancer on the committed forests' predictions, the bioimage.io export, "
+            "validation, import and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage")
+        s2d_fwd, s2d_bwd = phase_shallow2deep(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd)
+                               + st_fwd + fam_fwd + md_fwd + s2d_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd)
+                                + md_bwd + s2d_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
-            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device; backward kernel launches: "
-            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + "
-            f"{vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families + {md_bwd} "
-            f"multi-device")
+            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep; "
+            f"backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} "
+            f"SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder "
+            f"families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -1,9 +1,11 @@
 """The port imports nothing of JAX, flax or the JAX package.
 
-The machine with the card has PyTorch, numpy and scipy but none of jax,
-flax, optax, h5py, tqdm, PIL, imageio, sklearn, napari, pandas,
-tensorboardX, tensorboard, wandb or matplotlib, and neither machine has timm,
-segment_anything or mamba_ssm, whose models the port builds itself. Here most of them are installed, so a
+The machine with the card has PyTorch, numpy and scipy (and, lately,
+PyYAML, tqdm, pandas and PIL) but none of jax, flax, optax, h5py, imageio,
+sklearn, napari, tensorboardX, tensorboard, wandb, matplotlib or onnx, and
+neither machine has timm, segment_anything or mamba_ssm, whose models the
+port builds itself. The port needs none of the optional ones: here most of
+them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
@@ -12,8 +14,12 @@ reads an HDF5 path and a PNG file, writes HDF5 test data, clusters with
 trainer's, self-training's and classification's) and wandb loggers and a
 classification metric from sklearn, which must raise an ImportError that
 names h5py, PIL, sklearn, napari, tensorboardX and wandb; the classification
-package's default metric, the accuracy in numpy, runs. Those packages may be imported inside a
-function, never at module level. The native host library builds under
+package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
+matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
+gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
+text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
+``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
+packages may be imported inside a function, never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -31,7 +37,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
-           "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm")
+           "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm", "yaml",
+           "onnx")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -42,7 +49,9 @@ names = [m.name for m in pkgutil.walk_packages(torch_em_tpu_torch.__path__, "tor
 for name in names:
     importlib.import_module(name)
 assert set(["torch_em_tpu_torch.parallel.halo", "torch_em_tpu_torch.parallel.checkpoint",
-            "torch_em_tpu_torch.multi_gpu_training"]) <= set(names)
+            "torch_em_tpu_torch.multi_gpu_training", "torch_em_tpu_torch.shallow2deep.forest",
+            "torch_em_tpu_torch.shallow2deep.prepare_shallow2deep", "torch_em_tpu_torch.utils.modelzoo",
+            "torch_em_tpu_torch.utils.medical_io", "torch_em_tpu_torch.utils.debug"]) <= set(names)
 from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_multi_device, train_multi_gpu
 from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
                                          save_sharded_checkpoint, shard_batch)
@@ -89,13 +98,46 @@ for read in (io.load_data, io.load_image):
         assert "PIL" in str(e), e
     else:
         raise AssertionError("reading a PNG without PIL did not raise")
+# Shallow2Deep and the bioimage.io round trip with sklearn, pandas, yaml, tqdm and matplotlib blocked
+import tempfile
+from torch_em_tpu_torch import DataLoader, UNet2d, default_segmentation_trainer
+from torch_em_tpu_torch.shallow2deep import (Shallow2DeepDataset, evaluate_enhancers, load_forest,
+                                             prepare_shallow2deep)
+from torch_em_tpu_torch.utils import debug, modelzoo
+forest = load_forest("scripts/s2d_forests/rf_0000.npz")
+raw = np.random.default_rng(0).random((2, 48, 48)).astype("float32")
+ds = Shallow2DeepDataset(raw, None, (raw > 0.5).astype("float32"), None, patch_shape=(1, 32, 32), ndim=2,
+                         rf_paths=["scripts/s2d_forests/rf_0000.npz"], filter_config=forest.feature_config)
+x, y = ds[0]
+assert x.shape == (1, 32, 32) and 0 <= x.min() and x.max() <= 1
+with tempfile.TemporaryDirectory() as tmp:
+    loader = DataLoader(ds, batch_size=1)
+    trainer = default_segmentation_trainer("s2d", UNet2d(1, 1, depth=2, initial_features=4, device="cpu"), loader,
+                                           loader, device="cpu", mixed_precision=False, save_root=tmp)
+    trainer.fit(iterations=1)
+    assert modelzoo.export_bioimageio_model(trainer.checkpoint_folder, tmp + "/pkg", input_data=x, device="cpu",
+                                            config=modelzoo.get_shallow2deep_config("scripts/s2d_forests"))
+    model, _ = modelzoo.import_bioimageio_model(tmp + "/pkg", device="cpu")
+    assert open(tmp + "/pkg/rdf.yaml").read().startswith("{{")
+    for call, package in ((lambda: prepare_shallow2deep(None, None, None, None, (1, 8, 8), (1, 8, 8), 1, 1, tmp, 2),
+                           "scikit-learn"),
+                          (lambda: load_forest(tmp + "/rf.pkl"), "scikit-learn"),
+                          (lambda: evaluate_enhancers(raw, raw, {{}}, tmp, None), "pandas"),
+                          (lambda: debug.check_loader(loader, 1), "matplotlib"),
+                          (lambda: modelzoo.convert_to_onnx(tmp + "/pkg"), "onnx")):
+        try:
+            call()
+        except ImportError as e:
+            assert package in str(e), e
+        else:
+            raise AssertionError(package + " was not needed")
 print(len(names))
 """
 
 
 def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_spoco2d.py")]
+        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_spoco2d.py", "torch_s2d_forests.py")]
 
 
 def test_port_imports_with_jax_stack_blocked():
@@ -110,12 +152,12 @@ def test_source_names_no_jax(path):
     text = path.read_text()
     assert "torch_em_tpu." not in text
     assert "import jax" not in text
-    pattern = r"^\s*(from|import)\s+(jax|flax|optax|tqdm|torch_em_tpu)\b(?!_torch)"
+    pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb and matplotlib only inside the
-    # functions that need them
-    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib)",
-                         text, flags=re.MULTILINE)
+    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml and onnx only
+    # inside the functions that need them
+    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
+                         r"|yaml|onnx)\b", text, flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

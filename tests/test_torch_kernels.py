@@ -214,6 +214,10 @@ UNIMATCH_ROWS = {65536: (16, 1024, 2048), 16384: (1024, 2048, 4096), 4096: (2048
                  1024: (4096, 8192, 16384), 256: (8192, 16384)}
 PUNET_ROWS = {65536: (8, 256, 512), 16384: (256, 512, 1024), 4096: (512, 1024, 2048), 1024: (1024, 1536, 3072),
               256: (1536, 3072)}
+# Shallow2DeepModel's enhancer (chip_smoke.py phase 16: UNet2d f=64, depth 4) on two 512x512 images at once:
+# rows are 2 x C
+S2D_PREDICT_ROWS = {262144: (2, 128, 256), 65536: (128, 256, 512), 16384: (256, 512, 1024), 4096: (512, 1024, 2048),
+                    1024: (1024, 2048)}
 
 
 def _decoder_rows(channels, skip, grid, size, batches, initial_features=64):
@@ -272,9 +276,9 @@ def _expected_path(length, itemsize, direction):
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS,
-                                     *FAMILY_ROWS.values(), HALO_SLAB_ROWS, SPATIAL_SLAB_ROWS],
+                                     *FAMILY_ROWS.values(), HALO_SLAB_ROWS, SPATIAL_SLAB_ROWS, S2D_PREDICT_ROWS],
                          ids=["training", "serving", "dsb", "unetr", "unimatch", "punet", *FAMILY_ROWS,
-                              "halo_slab", "spatial_slab"])
+                              "halo_slab", "spatial_slab", "s2d_predict"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize

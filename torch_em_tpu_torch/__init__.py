@@ -4,7 +4,9 @@ The same U-Net family, UNETR (2D and 3D, with the SAM, CellposeSAM, SAM2
 Hiera, SAM3, MAE, ScaleMAE, DINOv2 and DINOv3 encoders) and ViM-UNet (a
 Vision Mamba encoder), the Probabilistic U-Net, the 3-D ResNets with the
 classification trainer, training loop (with its profiling), the
-self-training trainers (MeanTeacher, FixMatch, UniMatch v2), losses, data path (datasets, the
+self-training trainers (MeanTeacher, FixMatch, UniMatch v2), Shallow2Deep
+(random forests evaluated in numpy, the enhancer), bioimage.io export and
+import, losses, data path (datasets, the
 dataset and loader factories, augmentations on the host and on the card),
 tiled prediction, multi-device training and inference (``parallel``: one
 process per device), instance decodings (watersheds, mutex watershed,
@@ -16,7 +18,9 @@ versions on the CPU. Entry points run on ``device="cuda"`` unless the caller
 passes ``device="cpu"``.
 """
 
-from . import classification, data, loss, metric, models, parallel, self_training, trainer, transforms, utils
+from . import (
+    classification, data, loss, metric, models, parallel, self_training, shallow2deep, trainer, transforms, utils,
+)
 from .data import DataLoader, SegmentationDataset
 from .loss import DiceLoss
 from .models import (
@@ -33,7 +37,8 @@ from .transforms import standardize
 from .utils import Blocking, predict_with_halo, predict_with_padding, state_dict_from_jax_params
 
 __all__ = [
-    "classification", "data", "loss", "metric", "models", "parallel", "self_training", "trainer", "transforms", "utils",
+    "classification", "data", "loss", "metric", "models", "parallel", "self_training", "shallow2deep", "trainer",
+    "transforms", "utils",
     "DinoV2ViT", "DinoV3ViT", "HieraSam2", "MAEViT", "Sam3ViT", "ScaleMAEViT", "resnet3d_18", "resnet3d_34",
     "resnet3d_50", "resnet3d_101", "resnet3d_152", "resnext3d_50_32x4d", "resnext3d_101_32x8d",
     "resnext3d_101_64x4d", "wide_resnet3d_50_2", "wide_resnet3d_101_2",

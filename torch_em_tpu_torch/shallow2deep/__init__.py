@@ -1,0 +1,24 @@
+"""Shallow2Deep: random forests on filter-bank features, enhanced by a U-Net (arXiv:2201.05846).
+
+The port's own copy of ``torch_em_tpu/shallow2deep/``, with ``forest.py``,
+which keeps a fitted forest as arrays and predicts with it in numpy where
+sklearn is missing.
+"""
+
+from .forest import Forest, forest_from_sklearn, load_forest, save_forest
+from .prepare_shallow2deep import export_forests, prepare_shallow2deep, prepare_shallow2deep_advanced
+from .pseudolabel_training import get_pseudolabel_dataset, get_pseudolabel_loader
+from .shallow2deep_dataset import (
+    Shallow2DeepDataset, Shallow2DeepImageCollectionDataset, get_shallow2deep_dataset, get_shallow2deep_loader,
+)
+from .shallow2deep_eval import evaluate_enhancers, visualize_pretrained_rfs
+from .shallow2deep_model import IlastikPredicter, RFWithFilters, Shallow2DeepModel
+from .transform import BoundaryTransform, ForegroundTransform
+
+__all__ = [
+    "Forest", "forest_from_sklearn", "load_forest", "save_forest", "export_forests", "prepare_shallow2deep",
+    "prepare_shallow2deep_advanced", "get_pseudolabel_dataset", "get_pseudolabel_loader", "Shallow2DeepDataset",
+    "Shallow2DeepImageCollectionDataset", "get_shallow2deep_dataset", "get_shallow2deep_loader",
+    "evaluate_enhancers", "visualize_pretrained_rfs", "IlastikPredicter", "RFWithFilters", "Shallow2DeepModel",
+    "BoundaryTransform", "ForegroundTransform",
+]

@@ -1,7 +1,7 @@
 """Host-side data access: numpy arrays, ``.npy`` files, HDF5 containers, image files, ROI views.
 
-The port's own copy of ``torch_em_tpu/utils/io.py`` but its zarr, N5 and
-medical formats: ``load_data`` passes a numpy array through, opens a
+The port's own copy of ``torch_em_tpu/utils/io.py`` but its zarr and N5
+formats: ``load_data`` passes a numpy array through, opens a
 ``.npy`` file as a read-only memory map, an HDF5 dataset as a lazy h5py
 handle (several keys of one container stack as channels) and an image file
 (``IMAGE_EXTENSIONS``) as a reader that probes the shape without decoding,
@@ -11,8 +11,8 @@ image (a multi-page TIFF as a stack) or memory-maps a ``.npy`` file;
 ``.npy`` and images; ``RoiWrapper`` is a lazy region-of-interest view.
 h5py, PIL and imageio are imported only inside the functions that need
 them, which raise an ``ImportError`` naming the package where it is
-missing. zarr and N5 raise ``NotImplementedError``, and so do NIfTI, MHA,
-MRC and NRRD files, which wait for the port of ``utils/medical_io.py``.
+missing. zarr and N5 raise ``NotImplementedError``; ``write_data`` writes
+no medical format (``medical_io``'s writers do), as in the JAX package.
 """
 
 import os
@@ -60,13 +60,24 @@ def _extension(path) -> str:
 def _not_ported(path, ext):
     if str(path).lower().endswith(MEDICAL_EXTENSIONS):
         return NotImplementedError(
-            f"Reading {ext} data ({path}) is not ported yet: it waits for utils/medical_io.py "
-            "(ROADMAP.md, Queue 1 item 10g)."
+            f"write_data does not write {ext} data ({path}), as in the JAX package: use the writers of "
+            "utils/medical_io.py (save_nifti, save_mha, save_mrc, save_nrrd)."
         )
     return NotImplementedError(
         f"Reading {ext or 'this'} data ({path}) is not ported yet: the port reads numpy arrays, "
         ".npy files, HDF5 and image files; zarr and N5 wait (ROADMAP.md, Queue 1)."
     )
+
+
+def _medical_reader(path, extensions):
+    """The ``medical_io`` reader of ``path`` among ``extensions``, or None."""
+    from . import medical_io
+
+    name = str(path).lower()
+    readers = {".nii": medical_io.load_nifti, ".nii.gz": medical_io.load_nifti, ".mha": medical_io.load_mha,
+               ".mhd": medical_io.load_mha, ".mrc": medical_io.load_mrc, ".rec": medical_io.load_mrc,
+               ".nrrd": medical_io.load_nrrd}
+    return next((readers[ext] for ext in extensions if name.endswith(ext)), None)
 
 
 class _PILImageReader:
@@ -118,8 +129,9 @@ def load_image(image_path, memmap: bool = True) -> np.ndarray:
     ext = _extension(image_path)
     if ext in NUMPY_EXTENSIONS:
         return np.load(image_path, mmap_mode="r" if memmap else None)
-    if str(image_path).lower().endswith(MEDICAL_EXTENSIONS):
-        raise _not_ported(image_path, ext)
+    medical = _medical_reader(image_path, (".nii", ".nii.gz", ".mha", ".mhd"))
+    if medical is not None:
+        return medical(image_path)
     with _pil_image().open(image_path) as im:
         n_frames = getattr(im, "n_frames", 1)
         if n_frames > 1:
@@ -182,6 +194,9 @@ def load_data(
         if key is not None:
             raise ValueError(f"Expected key=None for image file {path}, got {key}.")
         return _lazy_image(path)
+    medical = _medical_reader(path, MEDICAL_EXTENSIONS)
+    if medical is not None:
+        return medical(path)
     raise _not_ported(path, ext)
 
 

@@ -341,6 +341,17 @@ class _Transfers:
         return _to_numpy(host)
 
 
+def _progress_bar(total: int, disable: bool, desc: str):
+    """A tqdm bar over ``total`` blocks, or None when disabled or where tqdm is not installed."""
+    if disable:
+        return None
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return None
+    return tqdm(total=total, desc=desc)
+
+
 def predict_with_halo(
     input_,
     model,
@@ -395,8 +406,12 @@ def predict_with_halo(
     ``gpu_ids`` or ``devices`` may name the model's one device (None: wherever
     the model lies), or several devices, which take the blocks' batches in
     turn, each through its own replica of the model (the same device may be
-    named more than once); then a tensor input takes the host path. The port
-    shows no progress bar: ``disable_tqdm`` and ``tqdm_desc`` change nothing.
+    named more than once); then a tensor input takes the host path.
+
+    The host path shows a tqdm progress bar over the blocks, labelled
+    ``tqdm_desc``, unless ``disable_tqdm``; tqdm is imported only then, and
+    where it is not installed the call runs without a bar. The
+    device-resident path shows none.
     """
     if block_shape is None or halo is None:
         raise ValueError("predict_with_halo needs block_shape and halo")
@@ -470,8 +485,12 @@ def predict_with_halo(
             inp = inp[None]
         return begin, end, mask_block, np.ascontiguousarray(inp, dtype=np.float32)
 
+    bar = _progress_bar(len(ids), disable_tqdm, tqdm_desc)
+
     def write(begin, end, mask_block, prediction):
         """Write one block's prediction, cropped to its inner part of the block's own size."""
+        if bar is not None:
+            bar.update(1)
         prediction = prediction[(slice(None),) * (prediction.ndim - ndim)
                                 + tuple(slice(0, e - b) for b, e in zip(begin, end))]
         if mask_block is not None:
@@ -487,7 +506,18 @@ def predict_with_halo(
     replicas = _replicas(model, targets)
     n_workers = len(replicas)
     lookahead = max(2 * batch_size * n_workers, n_threads)
-    with contextlib.closing(_load_ahead(load, ids, n_threads, lookahead)) as payloads, torch.inference_mode():
+    def counted(payloads):
+        """The payloads, the skipped blocks (None) counted on the bar."""
+        for payload in payloads:
+            if payload is None and bar is not None:
+                bar.update(1)
+            yield payload
+
+    with contextlib.closing(_load_ahead(load, ids, n_threads, lookahead)) as loaded, torch.inference_mode(), \
+            contextlib.ExitStack() as closing:
+        payloads = counted(loaded)
+        if bar is not None:
+            closing.callback(bar.close)
         if prediction_function is not None:
             # one block at a time, the prediction_function on the calling thread, the replicas in turn
             for i, payload in enumerate(p for p in payloads if p is not None):

@@ -12,7 +12,7 @@ from ..ops import native
 from ..ops.host import find_boundaries
 from .io import _h5py, _pil_image
 
-__all__ = ["make_gt", "make_volume", "make_image", "create_segmentation_test_data",
+__all__ = ["make_gt", "make_volume", "make_image", "make_mito_image", "create_segmentation_test_data",
            "create_image_collection_test_data"]
 
 
@@ -101,6 +101,39 @@ def make_image(rng: np.random.Generator, size: int = 128):
     raw = raw + rng.normal(0.0, 0.04, shape).astype("float32")
     raw = np.clip(raw, 0.0, 1.0).astype("float32")
     return raw, labels
+
+
+def make_mito_image(rng: np.random.Generator, size: int = 512):
+    """A synthetic 2-D EM image with mitochondria and their instance labels, the Shallow2Deep
+    recipe's data: a textured background, the dark membranes of the cells of a seeded
+    watershed, and elongated blobs (ellipses of random size and orientation, one per 6000
+    pixels) with a dark inside and a bright border, blurred, with noise. Returns (raw float32
+    in [0, 1], labels uint32)."""
+    shape = (size, size)
+    n_seeds = max(size * size // 6000, 8)
+    seeds = np.zeros(shape, dtype="uint32")
+    seeds[rng.integers(0, size, n_seeds), rng.integers(0, size, n_seeds)] = np.arange(1, n_seeds + 1)
+    cells = native.watershed(ndimage.gaussian_filter(rng.random(shape, dtype=np.float32), 4.0), seeds)
+    membranes = find_boundaries(cells, mode="thick").astype("float32")
+    raw = 0.6 + 0.12 * ndimage.gaussian_filter(rng.random(shape, dtype=np.float32), 2.0)
+    raw = raw - 0.3 * ndimage.gaussian_filter(membranes, 1.0)
+
+    labels = np.zeros(shape, dtype="uint32")
+    for k in range(1, max(size * size // 6000, 4) + 1):
+        cy, cx = rng.uniform(0, size, 2)
+        a, b, theta = rng.uniform(10.0, 28.0), rng.uniform(5.0, 10.0), rng.uniform(0.0, np.pi)
+        y0, y1 = int(max(cy - a - 1, 0)), int(min(cy + a + 2, size))
+        x0, x1 = int(max(cx - a - 1, 0)), int(min(cx + a + 2, size))
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        u = ((xx - cx) * np.cos(theta) + (yy - cy) * np.sin(theta)) / a
+        v = (-(xx - cx) * np.sin(theta) + (yy - cy) * np.cos(theta)) / b
+        r = u * u + v * v
+        inside = (r <= 1.0) & (labels[y0:y1, x0:x1] == 0)
+        labels[y0:y1, x0:x1][inside] = k
+        raw[y0:y1, x0:x1][inside] = np.where(r[inside] > 0.55, 0.9, 0.3)
+
+    raw = ndimage.gaussian_filter(raw.astype("float32"), 1.0) + rng.normal(0.0, 0.04, shape).astype("float32")
+    return np.clip(raw, 0.0, 1.0).astype("float32"), labels
 
 
 def create_segmentation_test_data(data_path: str, raw_key: str, label_key: str,
