@@ -170,11 +170,21 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    state-dict model; ``Shallow2DeepModel`` on the two 512x512 test images
    (forest on the host, enhancer on the card), its soft Dice and the
    forest's; a seeded volume as ``.nii.gz`` and ``.mha`` read back through
-   ``load_data`` and a ``SegmentationDataset`` patch of the NIfTI file.
+   ``load_data`` and a ``SegmentationDataset`` patch of the NIfTI file;
+17. the dataset zoo's EM readers: (a) the CREMI recipe's tracked model (bf16, AdamW at lr
+   1e-4, 32x256x256, batch 1, ``labels_to_binary`` targets, the zoo's default augmentations)
+   through ``get_benchmark_loader(path, 5, ...)`` over MitoLab benchmark 5's layout at its
+   published shape (165, 768, 1024), two multi-page TIFFs written with PIL; (b)
+   ``UNet2d(1, 1, f=64, Sigmoid)`` through ``get_mitolab_loader`` on 256 seeded 224x224 TIFF
+   pairs in CEM-MitoLab's layout (the numpy split, ``non_empty_images.json``), batch 8; each
+   8 iterations and 2 more after ``from_checkpoint``, its loader timed with thread (and, for
+   (a), process) workers beside the bare step, the TIFFs' decode timed, and the first samples
+   of each zoo dataset held equal to those of a dataset over the same arrays in memory.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
-U-Net's U-Net, widths 32 to 384, at batch 8), and at the DSB and SPOCO steps' shapes
+U-Net's U-Net, widths 32 to 384, at batch 8) and at phase 17's MitoLab step's
+(batch 8, 224x224 down to 14x14), and at the DSB and SPOCO steps' shapes
 (batch 8, rows 8 x C from 8 x 1 to 8 x 1024 and 8 x 512, 65536 down to 256
 elements), and phase 5 times them there. Phase 3 also holds the forward kernel at the SNEMI
 recipe's serving blocks (40x320x320 with the halo) and validation blocks
@@ -408,6 +418,18 @@ S2D_DEPTH, S2D_BATCH, S2D_PATCH, S2D_FIT, S2D_RESUME = 4, 8, (1, 256, 256), 8, 2
 S2D_CPU_ATOL, S2D_HOST_PATCHES, S2D_MEDICAL, S2D_LOADER_STEPS = 1e-4, 8, (24, 64, 64), 4
 # Shallow2DeepModel's enhancer on the two 512x512 test images at once, in float32
 S2D_PREDICT = (2, (512, 512))
+
+# the dataset zoo's EM readers (phase 17). 17a: the CREMI recipe's tracked model (experiments/cremi/train_cremi.py)
+# through get_benchmark_loader on MitoLab benchmark 5 (Lucchi++) at its published shape, its layout written as two
+# multi-page TIFFs that tile a seeded block of EM_BLOCK; labels_to_binary targets, the zoo's default augmentations,
+# 32x256x256, batch 1. 17b: UNet2d(1 -> 1, f=64, Sigmoid) through get_mitolab_loader on EM_MITO_IMAGES seeded 224x224
+# TIFF pairs in CEM-MitoLab's layout, batch 8. Each fits EM_FIT iterations and EM_RESUME more after from_checkpoint;
+# the first EM_CHECK_SAMPLES samples of each zoo dataset equal those of a dataset over the same arrays in memory
+EM_BENCHMARK_ID, EM_BLOCK = 5, (33, 256, 256)
+EM_MITO_IMAGES, EM_MITO_DATASETS, EM_MITO_BASE = 256, 4, 16
+EM_2D_MODEL = dict(in_channels=1, out_channels=1, initial_features=64, final_activation="Sigmoid")
+EM_2D_PATCH, EM_2D_BATCH = (224, 224), 8
+EM_FIT, EM_RESUME, EM_CHECK_SAMPLES, EM_LOADER_STEPS = 8, 2, 4, 6
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
@@ -714,8 +736,8 @@ def phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spo
     """Check the forward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the SNEMI recipe's serving and validation blocks, ``snemi_shapes`` {name:
     shapes}, the UNETR and ViM-UNet decoders' at training batch VIT_BATCH and serving batch
-    1, ``vit_shapes`` {name: (training batch, shapes)}, the self-training steps', ``st_shapes`` {name: (batch,
-    shapes)}, the sharded paths' slabs with their halo, ``sharded_shapes`` {name: shapes}, and the inference
+    1, ``vit_shapes`` {name: (training batch, shapes)}, the self-training steps' and the MitoLab step's,
+    ``st_shapes`` {name: (batch, shapes)}, the sharded paths' slabs with their halo, ``sharded_shapes`` {name: shapes}, and the inference
     batches of ``predict_shapes`` {name: (batch, shapes)}) and time it at the serving path's and at the slabs'
     level-0 rows; returns its entry of the kernels line."""
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1017,7 +1039,7 @@ def phase_backward_kernel(inorm, shapes, serving_shapes, dsb_shapes, spoco_shape
                           spatial_shapes):
     """Check the backward kernel at every main-path shape (the DSB and SPOCO steps' at batch
     DSB_BATCH, the UNETR and ViM-UNet steps' and the encoder families' at their training batch,
-    the self-training steps' at their batch, the spatially sharded step's slab with its halo,
+    the self-training steps' and the MitoLab step's at their batch, the spatially sharded step's slab with its halo,
     ``spatial_shapes``) and time both kernels at the training paths' shapes and at that slab's level-0 rows.
 
     Returns the backward kernel's entry of the kernels line, with times summed
@@ -3444,6 +3466,219 @@ def phase_shallow2deep(port, inorm):
     return launches[0] + predict_launches[0], launches[1]
 
 
+def identity_transform(raw, labels):
+    return raw, labels
+
+
+def em_benchmark_volume(folder, shape, seed=0):
+    """MitoLab benchmark EM_BENCHMARK_ID's layout at ``shape``: ``<folder>/10982/data/mito_benchmarks/lucchi_pp/
+    lucchi_pp_{em,mito}.tif``, multi-page TIFFs written with PIL. Their content tiles a seeded EM_BLOCK: three z-slabs of
+    ``utils/test.py:make_mito_image`` planes (mitochondria as short tubes in z), raw uint8, uint16 instance labels
+    unique over the volume. Returns the folder of the TIFFs, the raw and the labels."""
+    from PIL import Image
+
+    from torch_em_tpu_torch.utils.test import make_mito_image
+
+    rng = np.random.default_rng(seed)
+    raw_block, label_block = np.empty(EM_BLOCK, np.uint8), np.zeros(EM_BLOCK, np.uint16)
+    edges = np.linspace(0, EM_BLOCK[0], 4).astype(int)
+    for z0, z1 in zip(edges[:-1], edges[1:]):
+        plane, plane_labels = make_mito_image(rng, EM_BLOCK[1])
+        raw_block[z0:z1] = np.round(plane[:, :EM_BLOCK[2]] * 255).astype(np.uint8)
+        plane_labels = plane_labels[:, :EM_BLOCK[2]].astype(np.uint16)
+        label_block[z0:z1] = np.where(plane_labels > 0, plane_labels + label_block.max(), 0)
+    reps = tuple(s // b for s, b in zip(shape, EM_BLOCK))
+    assert tuple(r * b for r, b in zip(reps, EM_BLOCK)) == tuple(shape), (shape, EM_BLOCK)
+    raw, labels = np.tile(raw_block, reps), np.empty(shape, np.uint16)
+    step = int(label_block.max())
+    for k, (iz, iy, ix) in enumerate(np.ndindex(*reps)):
+        tile = tuple(slice(i * b, (i + 1) * b) for i, b in zip((iz, iy, ix), EM_BLOCK))
+        labels[tile] = np.where(label_block > 0, label_block + k * step, 0)
+    out = os.path.join(folder, "10982", "data", "mito_benchmarks", "lucchi_pp")
+    os.makedirs(out)
+    for name, volume in (("lucchi_pp_em.tif", raw), ("lucchi_pp_mito.tif", labels)):
+        planes = [Image.fromarray(p) for p in volume]
+        planes[0].save(os.path.join(out, name), save_all=True, append_images=planes[1:])
+    return out, raw, labels
+
+
+def em_mitolab_images(folder, seed=0):
+    """CEM-MitoLab's layout: EM_MITO_IMAGES 224x224 image and mask TIFFs in EM_MITO_DATASETS datasets under
+    ``<folder>/11037/cem_mitolab/<dataset>/{images,masks}/``; each pair is one of EM_MITO_BASE seeded
+    ``make_mito_image`` pairs, rotated, flipped and rolled. Returns {image path: (raw, labels)}."""
+    from PIL import Image
+
+    from torch_em_tpu_torch.utils.test import make_mito_image
+
+    rng = np.random.default_rng(seed)
+    base = [make_mito_image(rng, EM_2D_PATCH[0]) for _ in range(EM_MITO_BASE)]
+    arrays = {}
+    for i in range(EM_MITO_IMAGES):
+        raw, labels = base[i % EM_MITO_BASE]
+        k, flip, shift = int(rng.integers(4)), bool(rng.integers(2)), tuple(int(v) for v in rng.integers(0, 224, 2))
+
+        def view(a):
+            a = np.roll(np.rot90(a, k), shift, axis=(0, 1))
+            return np.ascontiguousarray(a[:, ::-1] if flip else a)
+
+        pair = view(np.round(raw * 255).astype(np.uint8)), view(labels.astype(np.uint8))
+        ds = os.path.join(folder, "11037", "cem_mitolab", f"dataset_{i % EM_MITO_DATASETS}")
+        for sub, arr in zip(("images", "masks"), pair):
+            os.makedirs(os.path.join(ds, sub), exist_ok=True)
+            Image.fromarray(arr).save(os.path.join(ds, sub, f"patch_{i:03d}.tiff"))
+        arrays[os.path.join(ds, "images", f"patch_{i:03d}.tiff")] = pair
+    return arrays
+
+
+def check_zoo_samples(label, zoo, plain):
+    """The first EM_CHECK_SAMPLES samples of the zoo's dataset and of ``plain``, a dataset over the same arrays in memory,
+    under the same ``np.random.seed``: equal, element for element."""
+    if len(zoo) != len(plain):
+        raise AssertionError(f"{label}: the zoo's dataset has {len(zoo)} samples, the in-memory one {len(plain)}")
+    for i in range(EM_CHECK_SAMPLES):
+        np.random.seed(100 + i)
+        got = zoo[i]
+        np.random.seed(100 + i)
+        expected = plain[i]
+        for g, e in zip(got, expected):
+            if g.shape != e.shape or g.dtype != e.dtype or not np.array_equal(g, e):
+                raise AssertionError(f"{label}: sample {i} of the zoo's dataset differs from the in-memory dataset's")
+    log(f"{label}: the first {EM_CHECK_SAMPLES} samples equal those of {type(plain).__name__} over the arrays in memory "
+        f"(shapes {[tuple(a.shape) for a in got]}, {got[0].dtype}, {got[1].dtype})")
+
+
+def phase_em_zoo(port, inorm):
+    """The dataset zoo's EM readers on the card: 17a the CREMI recipe's tracked model through
+    ``get_benchmark_loader`` over TIFF volumes at MitoLab benchmark 5's published shape, 17b UNet2d at
+    DSB width through ``get_mitolab_loader`` (the numpy split, ``non_empty_images.json``); each trained with
+    ``fit`` and resumed with ``from_checkpoint``, its loader timed with thread (and, 17a, process) workers
+    beside the bare step, and its zoo dataset held against a dataset over the same arrays in memory.
+    Returns the kernels' launches of the two training runs."""
+    from torch_em_tpu_torch.data.datasets import (get_benchmark_dataset, get_benchmark_loader, get_mitolab_dataset,
+                                                  get_mitolab_loader, get_mitolab_paths)
+    from torch_em_tpu_torch.data.datasets.electron_microscopy import cem
+    from torch_em_tpu_torch.transforms import get_raw_transform, labels_to_binary
+    from torch_em_tpu_torch.utils import io
+
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 17a: the 3-D volume at its published shape
+        shape = cem.BENCHMARK_SHAPES[EM_BENCHMARK_ID]
+        t = time.perf_counter()
+        folder, raw, labels = em_benchmark_volume(tmp, shape)
+        stats["volume_write_s"] = time.perf_counter() - t
+        files = [os.path.join(folder, n) for n in ("lucchi_pp_em.tif", "lucchi_pp_mito.tif")]
+        t = time.perf_counter()
+        probed = [io.load_data(f) for f in files]
+        stats["tiff_open_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        decoded = [io.load_image(f) for f in files]
+        stats["tiff_decode_s"] = time.perf_counter() - t
+        if [p.shape for p in probed] != [shape, shape] or not (np.array_equal(decoded[0], raw)
+                                                               and np.array_equal(decoded[1], labels)):
+            raise AssertionError(f"the TIFF volumes read back as {[p.shape for p in probed]}, not as written")
+        del decoded, probed
+        log(f"17a data: {shape} uint8 raw and uint16 labels ({int(labels.max())} mitochondria, foreground "
+            f"{float((labels > 0).mean()):.3f}) as multi-page TIFFs ({sum(os.path.getsize(f) for f in files) / 2**20:.0f} "
+            f"MiB) in {stats['volume_write_s']:.2f} s; opening both {stats['tiff_open_ms']:.1f} ms, decoding both "
+            f"{stats['tiff_decode_s']:.2f} s ({2 * int(np.prod(shape)) / stats['tiff_decode_s'] / 1e6:.0f} Mvox/s)")
+
+        def volume_loader(n_samples=None, shuffle=True, mode="thread", batch_size=1):
+            return get_benchmark_loader(
+                tmp, EM_BENCHMARK_ID, patch_shape=TRAIN_PATCH, batch_size=batch_size, label_transform=labels_to_binary,
+                n_samples=n_samples, shuffle=shuffle, num_workers=LOADER_THREADS, worker_mode=mode)
+
+        zoo = get_benchmark_dataset(tmp, EM_BENCHMARK_ID, patch_shape=TRAIN_PATCH, label_transform=labels_to_binary,
+                                    transform=identity_transform)
+        plain = port.SegmentationDataset(raw, None, labels, None, patch_shape=TRAIN_PATCH, raw_transform=get_raw_transform(),
+                                         label_transform=labels_to_binary, transform=identity_transform)
+        check_zoo_samples("17a get_benchmark_dataset", zoo, plain)
+        del zoo, plain, raw, labels
+        train = volume_loader()
+        pipeline = train.dataset.transform
+        log(f"17a loader: {type(train.dataset).__name__}, {len(train.dataset)} patches, transform "
+            f"{getattr(pipeline, 'init_kwargs', pipeline)}, raw transform {type(train.dataset.raw_transform).__name__}")
+        np.random.seed(4)
+        model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "em-benchmark", model, train, volume_loader(n_samples=1, shuffle=False), learning_rate=LEARNING_RATE,
+            device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, EM_FIT, EM_RESUME, 1, "17a benchmark 5 3-D")
+        stats["a_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if resumed.train_loader.dataset.raw_path != files[0]:
+            raise AssertionError("from_checkpoint did not rebuild the zoo's loader")
+        # timed after two batches per worker: each worker process starts and decodes its own copy of the volume
+        # first, and the first workers up serve several batches before the last one has
+        for mode in ("thread", "process"):
+            feed = volume_loader(2 * LOADER_THREADS + EM_LOADER_STEPS, mode=mode)
+            stats[f"a_loader_{mode}_patches_per_s"] = loader_rate(resumed, feed, steps=EM_LOADER_STEPS,
+                                                                  warmup=2 * LOADER_THREADS)
+            log(f"17a loader, {LOADER_THREADS} {mode} workers, default augmentations, feeding steps: "
+                f"{stats[f'a_loader_{mode}_patches_per_s']:.2f} patches/s; {nvidia_smi()}")
+            if mode == "process":
+                feed.shutdown()
+        x, y = bare_step(resumed, volume_loader(1, shuffle=False, mode="thread"), "17a tracked AnisotropicUNet")
+        stats["a_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        del trainer, resumed, model, train, x, y
+        torch.cuda.empty_cache()
+
+        # 17b: 2-D patches through the numpy split and the non-empty cache
+        t = time.perf_counter()
+        arrays = em_mitolab_images(tmp)
+        stats["b_images_write_s"] = time.perf_counter() - t
+
+        def mitolab_loader(split, n_samples=None, shuffle=True):
+            return get_mitolab_loader(
+                tmp, split=split, batch_size=EM_2D_BATCH, patch_shape=EM_2D_PATCH, num_workers=LOADER_THREADS,
+                label_transform=labels_to_binary, n_samples=n_samples, shuffle=shuffle)
+
+        t = time.perf_counter()
+        train = mitolab_loader("train")
+        stats["b_paths_s"] = time.perf_counter() - t
+        cache = os.path.join(tmp, "11037", "cem_mitolab", "non_empty_images.json")
+        with open(cache) as f:
+            kept = len(json.load(f)["images"])
+        n_train = len(train.dataset)
+        n_val = len(get_mitolab_paths(tmp, split="val")[0])
+        if not os.path.exists(cache) or n_train + n_val != kept:
+            raise AssertionError(f"MitoLab split {n_train} + {n_val} of {kept} non-empty images")
+        log(f"17b data: {EM_MITO_IMAGES} 224x224 TIFF pairs in {stats['b_images_write_s']:.2f} s; {kept} non-empty, split "
+            f"{n_train} train / {n_val} val in {stats['b_paths_s']:.2f} s (the non-empty cache written)")
+        zoo = get_mitolab_dataset(tmp, "train", patch_shape=EM_2D_PATCH, label_transform=labels_to_binary,
+                                  transform=identity_transform)
+        pairs = [arrays[p] for p in zoo.raw_images]
+        plain = port.data.TensorDataset([r for r, _ in pairs], [lab for _, lab in pairs], patch_shape=EM_2D_PATCH,
+                                        raw_transform=get_raw_transform(), label_transform=labels_to_binary,
+                                        transform=identity_transform)
+        check_zoo_samples("17b get_mitolab_dataset", zoo, plain)
+        del zoo, plain
+        np.random.seed(5)
+        model = port.UNet2d(**EM_2D_MODEL, depth=DSB_DEPTH, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "em-mitolab", model, train, mitolab_loader("val", n_samples=EM_2D_BATCH, shuffle=False),
+            learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, EM_FIT, EM_RESUME, 1, "17b MitoLab 2-D")
+        stats["b_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        stats["b_loader_thread_patches_per_s"] = loader_rate(resumed, mitolab_loader("train"), steps=EM_LOADER_STEPS,
+                                                             warmup=LOADER_THREADS)
+        log(f"17b loader, {LOADER_THREADS} thread workers, default augmentations, feeding steps: "
+            f"{stats['b_loader_thread_patches_per_s']:.2f} patches/s; {nvidia_smi()}")
+        x, y = bare_step(resumed, mitolab_loader("train", shuffle=False), "17b UNet2d f=64")
+        stats["b_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        del trainer, resumed, model, train, x, y
+    stats["norm_launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"EM zoo: {json.dumps(stats)}; {nvidia_smi()}")
+    torch.cuda.empty_cache()
+    return tuple(launches)
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
@@ -3491,7 +3726,10 @@ def main():
         # the self-training steps (phase 13): UniMatch v2's student takes both strong views of a DSB batch
         # at once, the Probabilistic U-Net's U-Net has the widths 32/64/128/192 and a base of 384
         st_shapes = {"unimatch": (2 * DSB_BATCH, dsb_shapes),
-                     "punet": (DSB_BATCH, norm_shapes(DSB_PATCH[1:], [[2, 2]] * len(PUNET_FILTERS), PUNET_FILTERS))}
+                     "punet": (DSB_BATCH, norm_shapes(DSB_PATCH[1:], [[2, 2]] * len(PUNET_FILTERS), PUNET_FILTERS)),
+                     # and the MitoLab recipe's UNet2d at DSB width on 224x224 patches (phase 17)
+                     "mitolab": (EM_2D_BATCH, norm_shapes(EM_2D_PATCH, [[2, 2]] * DSB_DEPTH,
+                                                          widths(EM_2D_MODEL["initial_features"], DSB_DEPTH)))}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
@@ -3568,16 +3806,20 @@ def main():
         log("phase 16: Shallow2Deep: the enhancer on the committed forests' predictions, the bioimage.io export, "
             "validation, import and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage")
         s2d_fwd, s2d_bwd = phase_shallow2deep(port, inorm)
+
+        log("phase 17: the dataset zoo's EM readers: get_benchmark_loader over TIFF volumes at MitoLab benchmark 5's "
+            "published shape into the tracked model, get_mitolab_loader into UNet2d")
+        em_fwd, em_bwd = phase_em_zoo(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd + s2d_fwd)
+                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd + s2d_bwd)
+                                + md_bwd + s2d_bwd + em_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
-            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep; "
-            f"backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} "
-            f"SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder "
-            f"families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep")
+            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep + "
+            f"{em_fwd} EM zoo; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + "
+            f"{snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} "
+            f"encoder families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM zoo")
     except Exception:
         traceback.print_exc()
         log("FAILED")

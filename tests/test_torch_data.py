@@ -8,6 +8,10 @@ The comparisons are exact: nothing here computes in floating point beyond
 copying and padding.
 """
 
+import pickle
+import time
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -103,8 +107,12 @@ def test_npy_files_are_memory_mapped(tmp_path):
 
 @pytest.mark.parametrize("path", ["data.zarr"])
 def test_unported_formats_raise(path, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        io.load_data(str(tmp_path / path), "raw")
+    """zarr was not ported once and raised; now ``load_data`` reads the JAX package's array."""
+    raw, _ = _volumes(5)
+    jax_io.write_data(str(tmp_path / path), "raw", raw)
+    loaded = io.load_data(str(tmp_path / path), "raw")
+    assert loaded.shape == raw.shape and loaded.dtype == raw.dtype
+    np.testing.assert_array_equal(loaded[:], raw)
 
 
 def _h5(tmp_path, raw, labels):
@@ -253,3 +261,33 @@ def test_seeded_shuffle_ignores_torch_manual_seed():
     torch.manual_seed(1)
     b = _order(DataLoader(data, batch_size=4, shuffle=True, seed=7))
     assert a == b == [int(i) for i in np.random.default_rng(7).permutation(64)]
+
+
+def test_image_reader_decodes_once_across_threads(tmp_path, monkeypatch):
+    """Loader threads that ask a multi-page TIFF reader for windows at once decode the file
+    once; a pickled reader (for a worker process) carries no pixels and decodes its own."""
+    from PIL import Image
+
+    raw, _ = _volumes(7)
+    planes = (raw * 40 + 128).clip(0, 255).astype(np.uint8)
+    path = str(tmp_path / "stack.tif")
+    frames = [Image.fromarray(p) for p in planes]
+    frames[0].save(path, save_all=True, append_images=frames[1:])
+    decode, calls = io.load_image, []
+
+    def slow_decode(p, *args, **kwargs):
+        calls.append(p)
+        time.sleep(0.05)  # widen the window in which the threads race
+        return decode(p, *args, **kwargs)
+
+    monkeypatch.setattr(io, "load_image", slow_decode)
+    reader = io.load_data(path)
+    with ThreadPoolExecutor(8) as pool:
+        windows = list(pool.map(lambda z: reader[z, 3:30], range(VOLUME[0])))
+    assert len(calls) == 1
+    np.testing.assert_array_equal(np.stack(windows), planes[:, 3:30])
+    np.testing.assert_array_equal(windows[2], np.asarray(jax_io.load_data(path))[2, 3:30])
+    copy = pickle.loads(pickle.dumps(reader))
+    assert copy._data is None and copy.shape == reader.shape and copy.dtype == reader.dtype
+    np.testing.assert_array_equal(copy[5], planes[5])
+    assert len(calls) == 2

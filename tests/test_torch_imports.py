@@ -1,25 +1,28 @@
 """The port imports nothing of JAX, flax or the JAX package.
 
 The machine with the card has PyTorch, numpy and scipy (and, lately,
-PyYAML, tqdm, pandas and PIL) but none of jax, flax, optax, h5py, imageio,
-sklearn, napari, tensorboardX, tensorboard, wandb, matplotlib or onnx, and
+PyYAML, tqdm, pandas, PIL and requests) but none of jax, flax, optax, h5py,
+tensorstore, imageio, sklearn, napari, tensorboardX, tensorboard, wandb,
+matplotlib or onnx, and
 neither machine has timm, segment_anything or mamba_ssm, whose models the
 port builds itself. The port needs none of the optional ones: here most of
 them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
-reads an HDF5 path and a PNG file, writes HDF5 test data, clusters with
+reads an HDF5, a zarr and an N5 path and a PNG file, writes HDF5 test data, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
 trainer's, self-training's and classification's) and wandb loggers and a
 classification metric from sklearn, which must raise an ImportError that
-names h5py, PIL, sklearn, napari, tensorboardX and wandb; the classification
+names h5py, tensorstore, PIL, sklearn, napari, tensorboardX and wandb; the classification
 package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
 text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
-packages may be imported inside a function, never at module level. The native host library builds under
+packages, and the dataset zoo's download packages (requests, gdown, rarfile, kaggle, blocked
+here too, with the zoo's every module imported), may be imported inside a function, never at
+module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -38,7 +41,7 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
            "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm", "yaml",
-           "onnx")
+           "onnx", "tensorstore", "requests", "gdown", "rarfile", "kaggle")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -51,7 +54,9 @@ for name in names:
 assert set(["torch_em_tpu_torch.parallel.halo", "torch_em_tpu_torch.parallel.checkpoint",
             "torch_em_tpu_torch.multi_gpu_training", "torch_em_tpu_torch.shallow2deep.forest",
             "torch_em_tpu_torch.shallow2deep.prepare_shallow2deep", "torch_em_tpu_torch.utils.modelzoo",
-            "torch_em_tpu_torch.utils.medical_io", "torch_em_tpu_torch.utils.debug"]) <= set(names)
+            "torch_em_tpu_torch.utils.medical_io", "torch_em_tpu_torch.utils.debug",
+            "torch_em_tpu_torch.data.datasets.util", "torch_em_tpu_torch.data.datasets.electron_microscopy.cem",
+            "torch_em_tpu_torch.data.datasets.electron_microscopy.nisb"]) <= set(names)
 from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_multi_device, train_multi_gpu
 from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
                                          save_sharded_checkpoint, shard_batch)
@@ -85,12 +90,13 @@ for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "ra
         assert package in str(e), e
     else:
         raise AssertionError(package + " was not needed")
-try:
-    io.load_data("data.h5", "raw")
-except ImportError as e:
-    assert "h5py" in str(e), e
-else:
-    raise AssertionError("reading HDF5 without h5py did not raise")
+for path, package in (("data.h5", "h5py"), ("data.zarr", "tensorstore"), ("data.n5", "tensorstore")):
+    try:
+        io.load_data(path, "raw")
+    except ImportError as e:
+        assert package in str(e), e
+    else:
+        raise AssertionError("reading " + path + " without " + package + " did not raise")
 for read in (io.load_data, io.load_image):
     try:
         read("image.png")
@@ -154,10 +160,11 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml and onnx only
-    # inside the functions that need them
+    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
+    # the zoo's download packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
-                         r"|yaml|onnx)\b", text, flags=re.MULTILINE)
+                         r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3)\b", text,
+                         flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

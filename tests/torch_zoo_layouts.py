@@ -1,0 +1,186 @@
+"""Synthetic layouts of the dataset zoo's electron-microscopy readers, and the check that holds
+the port's reader against the JAX package's on them.
+
+Each case builds one small layout (8x64x64 volumes, 64x64 images) from a seed, twice: once
+for each package, in folders of its own, since several readers convert their sources on first
+use and cache the result beside them. The check then calls both packages' getters:
+
+- ``get_*_paths`` return the same paths and keys (each relative to its own folder);
+- the datasets have the same ``len`` and, under the same ``np.random.seed``, the same samples
+  element for element, with the same shape and dtype, for several indices. The cases pass an
+  identity ``transform``: the default augmentations draw from their own generators (and
+  ``transform=None`` selects them). They keep the default ``raw_transform`` and the module's
+  label transform (``boundaries``, ``offsets``, ``binary``, one-hot), so the targets are
+  compared too;
+- a batch of each loader, with the default augmentations, has the shapes of the JAX loader's;
+- the files a reader converts from its sources are equal, container for container.
+"""
+
+import importlib
+import json
+import zipfile
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, Dict, List, Tuple
+
+import h5py
+import numpy as np
+from PIL import Image
+
+VOLUME, IMAGE = (8, 64, 64), (64, 64)
+PATCH_3D, PATCH_2D = (4, 32, 32), (32, 32)
+N_SAMPLES = 3
+
+
+def identity(raw, labels):
+    return raw, labels
+
+
+@dataclass
+class Case:
+    """One layout of one module: ``build(root)`` writes it; ``paths``, ``datasets`` and ``loaders``
+    are (getter name, keyword arguments) calls; ``converted`` the files the readers write."""
+    module: str
+    build: Callable
+    datasets: List[Tuple[str, Dict]]
+    paths: List[Tuple[str, Dict]] = field(default_factory=list)
+    loaders: List[Tuple[str, Dict]] = field(default_factory=list)
+    converted: List[str] = field(default_factory=list)
+    check: Callable = None  # an extra check(jax module, port module, jax root, port root)
+    name: str = ""
+
+    @property
+    def id(self):
+        return self.name or self.module
+
+
+def modules(package):
+    return importlib.import_module(f"torch_em_tpu.data.datasets.electron_microscopy.{package}"), \
+        importlib.import_module(f"torch_em_tpu_torch.data.datasets.electron_microscopy.{package}")
+
+
+# builders' pieces
+def raw(rng, shape=VOLUME):
+    return (rng.random(shape) * 255).astype("uint8")
+
+
+def labels(rng, high=5, shape=VOLUME, dtype="uint64", low=0):
+    return rng.integers(low, high, shape).astype(dtype)
+
+
+def write_h5(path, **datasets):
+    """``datasets`` by key, with ``__`` for ``/`` (``volumes__raw`` is ``volumes/raw``)."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with h5py.File(path, "w") as f:
+        for key, value in datasets.items():
+            f.create_dataset(key.replace("__", "/"), data=value)
+
+
+def save_image(path, array, mode=None):
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(array, mode=mode).save(path) if mode else Image.fromarray(array).save(path)
+
+
+def save_stack(path, volume):
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    frames = [Image.fromarray(s) for s in volume]
+    frames[0].save(path, save_all=True, append_images=frames[1:])
+
+
+def zip_folder(src, zip_path, arcroot):
+    """Zip every file under ``src`` with names relative to ``arcroot``, then remove them."""
+    with zipfile.ZipFile(zip_path, "w") as zf:
+        for p in sorted(Path(src).rglob("*")):
+            if p.is_file():
+                zf.write(p, p.relative_to(arcroot))
+    for p in sorted(Path(src).rglob("*"), reverse=True):
+        p.unlink() if p.is_file() else p.rmdir()
+    Path(src).rmdir()
+
+
+# comparisons
+def relative(value, root):
+    """``value`` (paths, keys, nested lists and tuples) with ``root`` replaced by ``<root>``."""
+    if isinstance(value, (list, tuple)):
+        return type(value)(relative(v, root) for v in value)
+    if isinstance(value, str):
+        return value.replace(str(root), "<root>")
+    return value
+
+
+def same_samples(jax_ds, port_ds, seed=0, n=N_SAMPLES):
+    assert len(port_ds) == len(jax_ds)
+    for i in range(min(n, len(jax_ds))):
+        np.random.seed(seed + i)
+        expected = jax_ds[i]
+        np.random.seed(seed + i)
+        got = port_ds[i]
+        expected, got = (expected, got) if isinstance(expected, tuple) else ((expected,), (got,))
+        assert len(got) == len(expected)
+        for g, e in zip(got, expected):
+            g, e = np.asarray(g), np.asarray(e)
+            assert g.shape == e.shape and g.dtype == e.dtype, (g.shape, e.shape, g.dtype, e.dtype)
+            np.testing.assert_array_equal(g, e)
+
+
+def _h5_items(path):
+    out = {}
+    with h5py.File(path, "r") as f:
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = (obj[()], dict(obj.attrs))
+        f.visititems(visit)
+        out["/attrs"] = {k: np.asarray(v).tolist() for k, v in f.attrs.items()}
+    return out
+
+
+def same_container(a, b):
+    """Two converted files or folders equal: HDF5 by datasets and attributes, JSON by content,
+    a zarr or N5 folder file for file, byte for byte."""
+    a, b = Path(a), Path(b)
+    if a.is_dir():
+        files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+        assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+        for rel in files_a:
+            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
+    elif a.suffix == ".json":
+        assert json.loads(a.read_text()) == json.loads(b.read_text())
+    else:
+        items_a, items_b = _h5_items(a), _h5_items(b)
+        assert sorted(items_a) == sorted(items_b)
+        for key, value in items_a.items():
+            if key == "/attrs":
+                assert value == items_b[key]
+                continue
+            (da, attrs_a), (db, attrs_b) = value, items_b[key]
+            assert da.dtype == db.dtype and da.shape == db.shape, key
+            np.testing.assert_array_equal(da, db)
+
+
+def check_case(case, tmp_path):
+    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    for root in (jax_root, port_root):
+        root.mkdir()
+        case.build(root)
+    jax_mod, port_mod = modules(case.module)
+    for name, kwargs in case.paths:
+        expected = getattr(jax_mod, name)(str(jax_root), **kwargs)
+        got = getattr(port_mod, name)(str(port_root), **kwargs)
+        assert relative(got, port_root) == relative(expected, jax_root), name
+    for k, (name, kwargs) in enumerate(case.datasets):
+        kwargs = dict({"transform": identity}, **kwargs)
+        expected = getattr(jax_mod, name)(str(jax_root), **kwargs)
+        got = getattr(port_mod, name)(str(port_root), **kwargs)
+        same_samples(expected, got, seed=10 * k)
+        del expected, got  # closes their files before the next getter opens them
+    for name, kwargs in case.loaders:
+        np.random.seed(0)
+        xe, ye = next(iter(getattr(jax_mod, name)(str(jax_root), **kwargs)))
+        np.random.seed(0)
+        xg, yg = next(iter(getattr(port_mod, name)(str(port_root), **kwargs)))
+        assert tuple(xg.shape) == tuple(np.shape(xe)) and tuple(yg.shape) == tuple(np.shape(ye)), name
+    for rel in case.converted:
+        assert (jax_root / rel).exists(), rel
+        same_container(jax_root / rel, port_root / rel)
+    if case.check is not None:
+        case.check(jax_mod, port_mod, jax_root, port_root)

@@ -1,29 +1,36 @@
-"""Host-side data access: numpy arrays, ``.npy`` files, HDF5 containers, image files, ROI views.
+"""Host-side data access: numpy arrays, ``.npy`` files, HDF5, zarr and N5 containers, image files,
+ROI views.
 
-The port's own copy of ``torch_em_tpu/utils/io.py`` but its zarr and N5
-formats: ``load_data`` passes a numpy array through, opens a
-``.npy`` file as a read-only memory map, an HDF5 dataset as a lazy h5py
-handle (several keys of one container stack as channels) and an image file
-(``IMAGE_EXTENSIONS``) as a reader that probes the shape without decoding,
-so a dataset reads only the windows it samples; ``load_image`` decodes an
-image (a multi-page TIFF as a stack) or memory-maps a ``.npy`` file;
-``open_container``, ``get_dataset_shape`` and ``write_data`` serve HDF5,
-``.npy`` and images; ``RoiWrapper`` is a lazy region-of-interest view.
-h5py, PIL and imageio are imported only inside the functions that need
-them, which raise an ``ImportError`` naming the package where it is
-missing. zarr and N5 raise ``NotImplementedError``; ``write_data`` writes
-no medical format (``medical_io``'s writers do), as in the JAX package.
+The port's own copy of ``torch_em_tpu/utils/io.py``: ``load_data`` passes a
+numpy array through, opens a ``.npy`` file as a read-only memory map, an
+HDF5 dataset as a lazy h5py handle (several keys of one container stack as
+channels), a zarr or N5 dataset as a lazy ``LazyTensorStore`` and an image
+file (``IMAGE_EXTENSIONS``) as a reader that probes the shape without
+decoding, so a dataset reads only the windows it samples; ``load_image``
+decodes an image (a multi-page TIFF as a stack) or memory-maps a ``.npy``
+file; ``open_container`` opens an HDF5 file; ``get_dataset_shape`` and
+``write_data`` serve every container format, ``.npy`` and images;
+``RoiWrapper`` is a lazy region-of-interest view. N5 keeps its
+``dimensions`` and ``blockSize`` column-major on disk, and the store is read
+and written through its transpose, in C order. h5py, tensorstore, PIL and
+imageio are imported only inside the functions that need them, which raise
+an ``ImportError`` naming the package where it is missing. ``write_data``
+writes no medical format (``medical_io``'s writers do), as in the JAX
+package.
 """
 
 import os
+import threading
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 __all__ = ["load_data", "load_image", "supports_memmap", "open_container", "get_dataset_shape",
-           "write_data", "RoiWrapper", "IMAGE_EXTENSIONS"]
+           "write_data", "LazyTensorStore", "RoiWrapper", "IMAGE_EXTENSIONS"]
 
 HDF5_EXTENSIONS = (".h5", ".hdf", ".hdf5")
+ZARR_EXTENSIONS = (".zarr", ".zr")
+N5_EXTENSIONS = (".n5",)
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 NUMPY_EXTENSIONS = (".npy",)
 MEDICAL_EXTENSIONS = (".nii", ".nii.gz", ".mha", ".mhd", ".mrc", ".rec", ".nrrd")
@@ -35,6 +42,14 @@ def _h5py():
     except ImportError as e:
         raise ImportError("reading or writing HDF5 needs h5py, which is not installed") from e
     return h5py
+
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError("reading or writing zarr or N5 needs tensorstore, which is not installed") from e
+    return tensorstore
 
 
 def _pil_image():
@@ -57,16 +72,42 @@ def _extension(path) -> str:
     return os.path.splitext(str(path))[1].lower()
 
 
-def _not_ported(path, ext):
-    if str(path).lower().endswith(MEDICAL_EXTENSIONS):
-        return NotImplementedError(
-            f"write_data does not write {ext} data ({path}), as in the JAX package: use the writers of "
-            "utils/medical_io.py (save_nifti, save_mha, save_mrc, save_nrrd)."
-        )
-    return NotImplementedError(
-        f"Reading {ext or 'this'} data ({path}) is not ported yet: the port reads numpy arrays, "
-        ".npy files, HDF5 and image files; zarr and N5 wait (ROADMAP.md, Queue 1)."
-    )
+class LazyTensorStore:
+    """Lazy array over a tensorstore dataset (zarr or N5): ``shape``, ``dtype``, ``ndim`` and
+    ``__getitem__`` read only the selected window."""
+
+    def __init__(self, store):
+        self._store = store
+        self.shape = tuple(store.shape)
+        self.dtype = np.dtype(store.dtype.numpy_dtype)
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __getitem__(self, index) -> np.ndarray:
+        return np.asarray(self._store[index].read().result())
+
+
+def _tensorstore_spec(path, key: Optional[str], fmt: str) -> dict:
+    spec = {"driver": fmt, "kvstore": {"driver": "file", "path": str(path)}}
+    if key:
+        spec["path"] = key.strip("/")
+    return spec
+
+
+def _open_tensorstore(path, key: Optional[str], fmt: str, mode: str = "r") -> LazyTensorStore:
+    """Open a zarr or N5 dataset (``mode`` "w" or "a" creates it if missing); an N5 store is
+    transposed from its column-major ``dimensions`` to C order."""
+    ts = _tensorstore()
+    open_kwargs = {"open": True}
+    if "w" in mode or "a" in mode:
+        open_kwargs["create"] = True
+    store = ts.open(_tensorstore_spec(path, key, fmt), **open_kwargs).result()
+    return LazyTensorStore(store.T if fmt == "n5" else store)
 
 
 def _medical_reader(path, extensions):
@@ -82,12 +123,22 @@ def _medical_reader(path, extensions):
 
 class _PILImageReader:
     """Image file reader that probes shape and dtype through PIL without decoding; the
-    pixels are decoded on first access. A multi-page TIFF reads as (n_pages, H, W[, C])."""
+    pixels are decoded on first access, once, however many loader threads ask at the
+    same time. A multi-page TIFF reads as (n_pages, H, W[, C]). A pickled reader (sent to
+    a worker process) leaves its pixels behind and decodes them again there."""
 
     def __init__(self, path: str):
         self.path = path
         self._data = None
+        self._lock = threading.Lock()
         self.shape, self.dtype = self._probe()
+
+    def __getstate__(self):
+        return {"path": self.path, "_data": None, "shape": self.shape, "dtype": self.dtype}
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
 
     def _probe(self) -> Tuple[Tuple[int, ...], np.dtype]:
         with _pil_image().open(self.path) as im:
@@ -103,7 +154,9 @@ class _PILImageReader:
 
     def _load(self) -> np.ndarray:
         if self._data is None:
-            self._data = load_image(self.path)
+            with self._lock:
+                if self._data is None:
+                    self._data = load_image(self.path)
         return self._data
 
     @property
@@ -190,6 +243,10 @@ def load_data(
         if key is None:
             raise ValueError(f"A key is required to load data from the container file {path}.")
         return open_container(path, mode)[key]
+    if ext in ZARR_EXTENSIONS:
+        return _open_tensorstore(path, key, "zarr", mode)
+    if ext in N5_EXTENSIONS:
+        return _open_tensorstore(path, key, "n5", mode)
     if ext in IMAGE_EXTENSIONS:
         if key is not None:
             raise ValueError(f"Expected key=None for image file {path}, got {key}.")
@@ -197,7 +254,7 @@ def load_data(
     medical = _medical_reader(path, MEDICAL_EXTENSIONS)
     if medical is not None:
         return medical(path)
-    raise _not_ported(path, ext)
+    raise ValueError(f"Unsupported data format: {ext} ({path}).")
 
 
 class _StackedDatasets:
@@ -229,8 +286,9 @@ class _StackedDatasets:
 
 def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarray,
                chunks: Optional[Tuple[int, ...]] = None) -> None:
-    """Write an array into an HDF5 container (gzip, replacing ``key``), a ``.npy`` file or an
-    image file (imageio)."""
+    """Write an array into an HDF5 container (gzip, replacing ``key``), a zarr or N5 container
+    (replacing ``key``; N5's ``dimensions`` and ``blockSize`` column-major), a ``.npy`` file or
+    an image file (imageio)."""
     ext = _extension(path)
     if ext in HDF5_EXTENSIONS:
         with _h5py().File(path, "a") as f:
@@ -238,13 +296,33 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
                 del f[key]
             f.create_dataset(key, data=data, chunks=chunks, compression="gzip")
         return
+    if ext in ZARR_EXTENSIONS or ext in N5_EXTENSIONS:
+        ts = _tensorstore()
+        fmt = "zarr" if ext in ZARR_EXTENSIONS else "n5"
+        spec = _tensorstore_spec(path, key, fmt)
+        if fmt == "zarr":
+            spec["metadata"] = {"shape": list(data.shape)}
+            if chunks is not None:
+                spec["metadata"]["chunks"] = list(chunks)
+        else:
+            spec["metadata"] = {"dimensions": list(data.shape)[::-1]}
+            if chunks is not None:
+                spec["metadata"]["blockSize"] = list(chunks)[::-1]
+        store = ts.open(spec, create=True, delete_existing=True, dtype=ts.dtype(data.dtype)).result()
+        (store.T if fmt == "n5" else store)[...] = data
+        return
     if ext in NUMPY_EXTENSIONS:
         np.save(path, data)
         return
     if ext in IMAGE_EXTENSIONS:
         _imageio().imwrite(path, data)
         return
-    raise _not_ported(path, ext)
+    if str(path).lower().endswith(MEDICAL_EXTENSIONS):
+        raise NotImplementedError(
+            f"write_data does not write {ext} data ({path}), as in the JAX package: use the writers of "
+            "utils/medical_io.py (save_nifti, save_mha, save_mrc, save_nrrd)."
+        )
+    raise ValueError(f"Unsupported output format: {ext} ({path}).")
 
 
 def get_dataset_shape(path: Union[str, os.PathLike], key: Optional[str] = None) -> Tuple[int, ...]:

@@ -2,7 +2,7 @@
 
 The port's own copy of ``torch_em_tpu/utils/tensor.py`` (``ensure_array``,
 ``ensure_spatial_array``, ``ensure_array_with_channels``,
-``ensure_patch_shape``, ``validate_roi``), after torch-em's
+``ensure_patch_shape``, ``validate_roi``, ``squeeze_singleton_dims``), after torch-em's
 ``util/util.py``. Samples stay numpy arrays until the loader collates them
 into tensors.
 """
@@ -13,7 +13,7 @@ import numpy as np
 
 __all__ = [
     "ensure_array", "ensure_spatial_array", "ensure_array_with_channels",
-    "ensure_patch_shape", "validate_roi",
+    "ensure_patch_shape", "validate_roi", "squeeze_singleton_dims",
 ]
 
 
@@ -109,3 +109,10 @@ def validate_roi(roi: Sequence[slice], shape: Sequence[int]) -> None:
         stop = s if r.stop is None else r.stop
         if not (0 <= start < stop <= s):
             raise ValueError(f"ROI slice {r} is invalid for axis {i} with size {s}.")
+
+
+def squeeze_singleton_dims(arr: np.ndarray, target_ndim: int) -> np.ndarray:
+    """Squeeze leading singleton axes until the array has ``target_ndim`` dims."""
+    while arr.ndim > target_ndim and arr.shape[0] == 1:
+        arr = arr[0]
+    return arr
