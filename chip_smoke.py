@@ -431,6 +431,20 @@ EM_2D_MODEL = dict(in_channels=1, out_channels=1, initial_features=64, final_act
 EM_2D_PATCH, EM_2D_BATCH = (224, 224), 8
 EM_FIT, EM_RESUME, EM_CHECK_SAMPLES, EM_LOADER_STEPS = 8, 2, 4, 6
 
+# the dataset zoo's light-microscopy readers (phase 18). 18a: the DSB recipe (experiments/dsb/train_dsb.py) through
+# get_dsb_loader on the layout get_dsb_data leaves of StarDist's dsb2018 "reduced" source, at its published count of
+# LM_DSB_IMAGES (train, test) seeded LM_DSB_SHAPE images (uint8 raw, uint16 instance masks, TIFF), boundaries, batch
+# DSB_BATCH, 4 thread workers, bf16; and one batch of the SPOCO recipe's loader (connected components, int32). 18b: the
+# ViM-UNet / UNETR recipe's UNETR (experiments/vimunet/train_vimunet_livecell.py --model unetr) through
+# get_livecell_loader on LIVECell's layout: LM_LIVECELL_IMAGES (train, val) 704x520 uint8 TIFFs (of the published
+# 3253 and 570) under images/livecell_train_val_images/<cell type>/, their cells as COCO polygons in train.json and
+# val.json, about LM_LIVECELL_CELLS per image (1 686 352 cells over 5 239 images in LIVECell's paper), converted on
+# first use. Each fits LM_FIT iterations and LM_RESUME more after from_checkpoint
+LM_DSB_IMAGES, LM_DSB_SHAPE = (447, 50), (256, 256)
+LM_LIVECELL_IMAGES, LM_LIVECELL_CELLS, LM_LIVECELL_SHAPE = (64, 16), 320, (520, 704)
+LM_LIVECELL_PATCH = (512, 512)
+LM_FIT, LM_RESUME, LM_LOADER_STEPS = 8, 2, 8
+
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
 CONV_KERNELS = re.compile(r"conv|cudnn|xmma|implicit_gemm|dgrad|wgrad|fprop|nchw|nhwc", re.I)
@@ -3679,6 +3693,245 @@ def phase_em_zoo(port, inorm):
     return tuple(launches)
 
 
+def lm_dsb_layout(folder, seed=0):
+    """The layout ``get_dsb_data`` leaves of StarDist's dsb2018 "reduced" source: ``<folder>/{train,test}/{images,masks}/
+    <hex name>.tif``, LM_DSB_IMAGES seeded LM_DSB_SHAPE pairs. Raw is uint8 (bright disks of their own intensity,
+    blurred, over smoothed noise), the masks uint16 instance labels (the disks, later ones over earlier ones).
+    Returns {image path: (raw, labels)}."""
+    from PIL import Image
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    h, w = LM_DSB_SHAPE
+    yy, xx = np.mgrid[:h, :w]
+    arrays = {}
+    for split, n in zip(("train", "test"), LM_DSB_IMAGES):
+        for sub in ("images", "masks"):
+            os.makedirs(os.path.join(folder, split, sub))
+        for _ in range(n):
+            labels, raw = np.zeros(LM_DSB_SHAPE, np.uint16), np.zeros(LM_DSB_SHAPE, np.float32)
+            for k in range(1, int(rng.integers(8, 25))):
+                cy, cx, r = (int(v) for v in (rng.integers(0, h), rng.integers(0, w), rng.integers(5, 16)))
+                box = np.s_[max(cy - r, 0):cy + r + 1, max(cx - r, 0):cx + r + 1]
+                disk = (yy[box] - cy) ** 2 + (xx[box] - cx) ** 2 <= r ** 2
+                labels[box][disk] = k
+                raw[box][disk] = rng.uniform(0.4, 1.0)
+            raw = ndimage.gaussian_filter(raw, 1.0) + 0.1 * ndimage.gaussian_filter(rng.normal(size=LM_DSB_SHAPE), 1.0)
+            raw = np.clip(raw * 200 + 20, 0, 255).astype(np.uint8)
+            name = f"{int(rng.integers(1 << 62)):016x}.tif"
+            for sub, arr in (("images", raw), ("masks", labels)):
+                Image.fromarray(arr).save(os.path.join(folder, split, sub, name))
+            arrays[os.path.join(folder, split, "images", name)] = (raw, labels)
+    return arrays
+
+
+def lm_livecell_layout(folder, seed=0):
+    """LIVECell's layout: LM_LIVECELL_IMAGES (train, val) seeded 704x520 uint8 TIFFs under
+    ``<folder>/images/livecell_train_val_images/<cell type>/<cell type>_Phase_<well>_<n>_<time>_<id>.tif`` and
+    ``<folder>/{train,val}.json`` in COCO form with LM_LIVECELL_CELLS cells per image as polygons: 16 integer vertices on
+    an ellipse, the ellipses' circumscribed circles at least 2 px apart, so no two cells touch. Returns {split: [(file
+    name, raw, cells)]}, ``cells`` the instance labels drawn with PIL as the reader rasterizes the polygons."""
+    from PIL import Image, ImageDraw
+    from scipy import ndimage
+
+    from torch_em_tpu_torch.data.datasets.light_microscopy.livecell import CELL_TYPES
+
+    rng = np.random.default_rng(seed)
+    h, w = LM_LIVECELL_SHAPE
+    t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    image_dir = os.path.join(folder, "images", "livecell_train_val_images")
+    out, image_id, ann_id = {}, 0, 0
+    for split, n in zip(("train", "val"), LM_LIVECELL_IMAGES):
+        coco = {"images": [], "annotations": [], "categories": [{"id": 1, "name": "cell"}]}
+        out[split] = []
+        for i in range(n):
+            image_id += 1
+            cell_type = CELL_TYPES[image_id % len(CELL_TYPES)]
+            file_name = f"{cell_type}_Phase_{'ABCD'[i % 4]}{i % 12 + 1}_1_{i // 12:02d}d00h00m_{image_id}.tif"
+            centres, radii = np.zeros((0, 2)), np.zeros(0)
+            while len(radii) < LM_LIVECELL_CELLS:
+                for c, r in zip(rng.uniform([14, 14], [h - 14, w - 14], (64, 2)), rng.uniform(6.5, 11, 64)):
+                    if len(radii) < LM_LIVECELL_CELLS and (
+                            not len(radii) or np.min(np.hypot(*(centres - c).T) - radii - r) >= 2):
+                        centres, radii = np.vstack([centres, c]), np.append(radii, r)
+            canvas = Image.new("I", (w, h), 0)
+            draw = ImageDraw.Draw(canvas)
+            polygons = []
+            for k, ((cy, cx), a) in enumerate(zip(centres, radii), 1):
+                b, theta = a * rng.uniform(0.6, 0.95), rng.uniform(0, np.pi)
+                px = np.rint(cx + a * np.cos(t) * np.cos(theta) - b * np.sin(t) * np.sin(theta)).astype(int)
+                py = np.rint(cy + a * np.cos(t) * np.sin(theta) + b * np.sin(t) * np.cos(theta)).astype(int)
+                polygons.append([int(v) for xy in zip(px, py) for v in xy])
+                draw.polygon(list(zip(px.tolist(), py.tolist())), fill=k, outline=k)
+            cells = np.asarray(canvas).astype(np.uint16)
+            areas = np.bincount(cells.ravel(), minlength=len(radii) + 1)[1:]
+            if areas.min() < 50:
+                raise AssertionError(f"LIVECell layout: a cell of {areas.min()} px, which the reader drops")
+            coco["images"].append({"id": image_id, "file_name": file_name, "height": h, "width": w})
+            for k, poly in enumerate(polygons, 1):
+                ann_id += 1
+                xs, ys = poly[0::2], poly[1::2]
+                coco["annotations"].append({
+                    "id": ann_id, "image_id": image_id, "category_id": 1, "iscrowd": 0, "segmentation": [poly],
+                    "area": float(areas[k - 1]), "bbox": [min(xs), min(ys), max(xs) - min(xs), max(ys) - min(ys)]})
+            inside = cells > 0
+            halo = ndimage.binary_dilation(inside, iterations=2) & ~inside
+            raw = ndimage.gaussian_filter(100 + 90 * inside - 40 * halo.astype(np.float32), 1.0)
+            raw = raw + 6 * rng.normal(size=(h, w))
+            raw = np.clip(raw, 0, 255).astype(np.uint8)
+            os.makedirs(os.path.join(image_dir, cell_type), exist_ok=True)
+            Image.fromarray(raw).save(os.path.join(image_dir, cell_type, file_name))
+            out[split].append((file_name, raw, cells))
+        with open(os.path.join(folder, f"{split}.json"), "w") as f:
+            json.dump(coco, f)
+    return out
+
+
+def phase_lm_zoo(port, inorm):
+    """The dataset zoo's light-microscopy readers on the card: 18a the DSB recipe through ``get_dsb_loader`` on
+    dsb2018's layout at its published count (and a batch of the SPOCO recipe's loader), 18b the ViM-UNet / UNETR recipe's
+    UNETR through ``get_livecell_loader`` on LIVECell's layout, its COCO polygons converted on first use; each trained
+    with ``fit`` and resumed with ``from_checkpoint``, its thread loader timed beside the bare step, and its zoo dataset
+    held against a dataset over the same arrays in memory. Returns the kernels' launches of the two training runs."""
+    from torch_em_tpu_torch.data.datasets import (get_dsb_dataset, get_dsb_loader, get_livecell_dataset,
+                                                  get_livecell_loader, get_livecell_paths)
+    from torch_em_tpu_torch.transforms import BoundaryTransform, get_raw_transform
+    from torch_em_tpu_torch.transforms.label import connected_components
+    from torch_em_tpu_torch.utils import io
+
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 18a: DSB at its published count
+        dsb_root = os.path.join(tmp, "dsb")
+        t = time.perf_counter()
+        arrays = lm_dsb_layout(dsb_root)
+        stats["a_write_s"] = time.perf_counter() - t
+        log(f"18a data: {LM_DSB_IMAGES} train and test {LM_DSB_SHAPE} uint8 / uint16 TIFF pairs in "
+            f"{stats['a_write_s']:.2f} s")
+
+        def dsb_loader(split, shuffle, **kwargs):
+            return get_dsb_loader(dsb_root, patch_shape=DSB_PATCH, batch_size=DSB_BATCH, split=split,
+                                  num_workers=LOADER_THREADS, shuffle=shuffle, **kwargs)
+
+        zoo = get_dsb_dataset(dsb_root, DSB_PATCH, split="train", boundaries=True, transform=identity_transform)
+        pairs = [arrays[p] for p in zoo.raw_images]
+        plain = port.data.TensorDataset([r for r, _ in pairs], [lab for _, lab in pairs], patch_shape=DSB_PATCH[1:],
+                                        raw_transform=get_raw_transform(),
+                                        label_transform=BoundaryTransform(add_binary_target=True),
+                                        transform=identity_transform)
+        check_zoo_samples("18a get_dsb_dataset", zoo, plain)
+        del zoo, plain
+        # the SPOCO recipe's loader (experiments/spoco/train_spoco_dsb.py): connected components as int32 labels
+        spoco_kwargs = dict(label_transform=connected_components, label_dtype="int32")
+        x, y = next(iter(dsb_loader("train", True, **spoco_kwargs)))
+        if tuple(x.shape) != (DSB_BATCH,) + DSB_PATCH or tuple(y.shape) != (DSB_BATCH,) + DSB_PATCH \
+                or y.dtype != torch.int32 or x.dtype != torch.float32:
+            raise AssertionError(f"the SPOCO recipe's DSB batch is {tuple(x.shape)} {x.dtype}, "
+                                 f"{tuple(y.shape)} {y.dtype}")
+        x, y = next(iter(dsb_loader("train", False, transform=identity_transform, **spoco_kwargs)))
+        ordered = get_dsb_dataset(dsb_root, DSB_PATCH, split="train").raw_images[:DSB_BATCH]
+        for k, path in enumerate(ordered):
+            expected = connected_components(arrays[path][1]).astype(np.int32)
+            if not np.array_equal(y[k, 0].numpy(), expected):
+                raise AssertionError(f"the SPOCO recipe's DSB labels of {os.path.basename(path)} are not the "
+                                     f"components of its mask")
+        log(f"18a SPOCO loader: batch {tuple(x.shape)} {x.dtype}, labels {tuple(y.shape)} {y.dtype}, the components of "
+            f"the masks in memory (up to {int(y.max())} per image)")
+
+        train, val = dsb_loader("train", True, boundaries=True), dsb_loader("test", False, boundaries=True)
+        log(f"18a loaders: {len(train.dataset)} train and {len(val.dataset)} test images, {len(train)} and {len(val)} "
+            f"batches, transform {getattr(train.dataset.transform, 'init_kwargs', train.dataset.transform)}")
+        np.random.seed(6)
+        model = port.UNet2d(**DSB_MODEL, depth=DSB_DEPTH, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "lm-dsb", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+            logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, LM_FIT, LM_RESUME, len(val), "18a DSB recipe")
+        stats["a_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if resumed.train_loader.dataset.raw_images != train.dataset.raw_images:
+            raise AssertionError("from_checkpoint did not rebuild the DSB zoo loader")
+        timed = DSB_BATCH * (LOADER_THREADS + LM_LOADER_STEPS)
+        stats["a_loader_thread_patches_per_s"] = loader_rate(resumed, dsb_loader("train", True, boundaries=True,
+                                                                                 n_samples=timed),
+                                                             steps=LM_LOADER_STEPS, warmup=LOADER_THREADS)
+        x, y = bare_step(resumed, dsb_loader("test", False, boundaries=True), "18a DSB UNet2d f=64")
+        stats["a_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        log(f"18a loader, {LOADER_THREADS} thread workers, default augmentations, feeding steps: "
+            f"{stats['a_loader_thread_patches_per_s']:.2f} patches/s; the bare step {stats['a_step_ms']:.2f} ms, "
+            f"{DSB_BATCH * 1e3 / stats['a_step_ms']:.2f} patches/s; {nvidia_smi()}")
+        del trainer, resumed, model, train, val, x, y, arrays
+        torch.cuda.empty_cache()
+
+        # 18b: LIVECell's COCO annotations, converted on first use, into the recipe's UNETR
+        lc_root = os.path.join(tmp, "livecell")
+        t = time.perf_counter()
+        images = lm_livecell_layout(lc_root)
+        stats["b_write_s"] = time.perf_counter() - t
+        n_cells = sum(len(np.unique(c)) - 1 for split in images.values() for _, _, c in split)
+        n_images = sum(LM_LIVECELL_IMAGES)
+        t = time.perf_counter()
+        paths = {split: get_livecell_paths(lc_root, split) for split in images}
+        stats["b_convert_s_per_image"] = (time.perf_counter() - t) / n_images
+        log(f"18b data: {LM_LIVECELL_IMAGES} train and val 704x520 uint8 TIFFs, {n_cells} cells as COCO polygons, "
+            f"written in {stats['b_write_s']:.2f} s; converted on first use in "
+            f"{stats['b_convert_s_per_image']:.3f} s per image")
+        for split, written in images.items():
+            for (file_name, _, cells), seg_path in zip(written, paths[split][1]):
+                got = io.load_image(seg_path).astype(np.int64)
+                n_pairs = len(np.unique(cells.astype(np.int64) << 32 | got))
+                if os.path.basename(seg_path) != file_name or not np.array_equal(got > 0, cells > 0) or \
+                        not n_pairs == len(np.unique(cells)) == len(np.unique(got)):
+                    raise AssertionError(f"18b: the converted labels of {file_name} are not the cells drawn")
+        log(f"18b: the converted label TIFFs are the drawn cells, one to one ({n_cells} cells)")
+        zoo = get_livecell_dataset(lc_root, "train", LM_LIVECELL_PATCH, boundaries=True, transform=identity_transform)
+        plain = port.data.TensorDataset([r for _, r, _ in images["train"]], [c for _, _, c in images["train"]],
+                                        patch_shape=LM_LIVECELL_PATCH, raw_transform=get_raw_transform(),
+                                        label_transform=BoundaryTransform(add_binary_target=True),
+                                        transform=identity_transform)
+        check_zoo_samples("18b get_livecell_dataset", zoo, plain)
+        del zoo, plain, images
+
+        def livecell_loader(split, shuffle=False, **kwargs):
+            return get_livecell_loader(lc_root, split, LM_LIVECELL_PATCH, batch_size=VIT_BATCH, boundaries=True,
+                                       num_workers=LOADER_THREADS, shuffle=shuffle, **kwargs)
+
+        train, val = livecell_loader("train", shuffle=True), livecell_loader("val")
+        kwargs = dict(VIT_RECIPES[0][2])
+        np.random.seed(12)
+        torch.manual_seed(12)
+        model = port.models.UNETR(**kwargs, device="cuda", seed=0)
+        skip = model.use_skip_connection
+        n_norms = len(unetr_norm_shapes(model.encoder.embed_dim, skip))
+        trainer = port.default_segmentation_trainer(
+            "lm-livecell", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+            logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, LM_FIT, LM_RESUME, len(val), "18b UNETR recipe",
+                                               norms=(n_norms, n_norms - 1 if skip else n_norms))
+        stats["b_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if resumed.train_loader.dataset.raw_images != train.dataset.raw_images:
+            raise AssertionError("from_checkpoint did not rebuild the LIVECell zoo loader")
+        timed = VIT_BATCH * (LOADER_THREADS + LM_LOADER_STEPS)
+        stats["b_loader_thread_patches_per_s"] = loader_rate(resumed, livecell_loader("train", True, n_samples=timed),
+                                                             steps=LM_LOADER_STEPS, warmup=LOADER_THREADS)
+        x, y = bare_step(resumed, livecell_loader("val"), "18b UNETR vit_b")
+        stats["b_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        log(f"18b loader, {LOADER_THREADS} thread workers, default augmentations, feeding steps: "
+            f"{stats['b_loader_thread_patches_per_s']:.2f} patches/s; the bare step {stats['b_step_ms']:.2f} ms, "
+            f"{VIT_BATCH * 1e3 / stats['b_step_ms']:.2f} patches/s; {nvidia_smi()}")
+        del trainer, resumed, model, train, val, x, y
+    stats["norm_launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"LM zoo: {json.dumps(stats)}; {nvidia_smi()}")
+    torch.cuda.empty_cache()
+    return tuple(launches)
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
@@ -3729,7 +3982,9 @@ def main():
                      "punet": (DSB_BATCH, norm_shapes(DSB_PATCH[1:], [[2, 2]] * len(PUNET_FILTERS), PUNET_FILTERS)),
                      # and the MitoLab recipe's UNet2d at DSB width on 224x224 patches (phase 17)
                      "mitolab": (EM_2D_BATCH, norm_shapes(EM_2D_PATCH, [[2, 2]] * DSB_DEPTH,
-                                                          widths(EM_2D_MODEL["initial_features"], DSB_DEPTH)))}
+                                                          widths(EM_2D_MODEL["initial_features"], DSB_DEPTH))),
+                     # and the last validation batch of the DSB recipe's 50 test images (phase 18)
+                     "dsb_test_tail": (LM_DSB_IMAGES[1] % DSB_BATCH, dsb_shapes)}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
@@ -3810,16 +4065,21 @@ def main():
         log("phase 17: the dataset zoo's EM readers: get_benchmark_loader over TIFF volumes at MitoLab benchmark 5's "
             "published shape into the tracked model, get_mitolab_loader into UNet2d")
         em_fwd, em_bwd = phase_em_zoo(port, inorm)
+
+        log("phase 18: the dataset zoo's light-microscopy readers: get_dsb_loader on dsb2018's layout into the DSB "
+            "recipe's UNet2d (and the SPOCO recipe's loader), get_livecell_loader on LIVECell's COCO layout into UNETR")
+        lm_fwd, lm_bwd = phase_lm_zoo(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd)
+                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd + s2d_bwd + em_bwd)
+                                + md_bwd + s2d_bwd + em_bwd + lm_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
             f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep + "
-            f"{em_fwd} EM zoo; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + "
-            f"{snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} "
-            f"encoder families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM zoo")
+            f"{em_fwd} EM zoo + {lm_fwd} LM zoo; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D "
+            f"recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} "
+            f"self-training + {fam_bwd} encoder families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM "
+            f"zoo + {lm_bwd} LM zoo")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -20,9 +20,10 @@ matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
 text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
-packages, and the dataset zoo's download packages (requests, gdown, rarfile, kaggle, blocked
-here too, with the zoo's every module imported), may be imported inside a function, never at
-module level. The native host library builds under
+packages, and the dataset zoo's download and conversion packages (requests, gdown, rarfile,
+kaggle, nd2, pycocotools, cloud-volume, s3fs and zarr, blocked here too, with the zoo's every
+module imported, the 81 light-microscopy readers among them), may be imported inside a function,
+never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -41,7 +42,8 @@ REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
            "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm", "yaml",
-           "onnx", "tensorstore", "requests", "gdown", "rarfile", "kaggle")
+           "onnx", "tensorstore", "requests", "gdown", "rarfile", "kaggle", "nd2", "pycocotools", "cloudvolume", "s3fs",
+           "zarr")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -57,6 +59,11 @@ assert set(["torch_em_tpu_torch.parallel.halo", "torch_em_tpu_torch.parallel.che
             "torch_em_tpu_torch.utils.medical_io", "torch_em_tpu_torch.utils.debug",
             "torch_em_tpu_torch.data.datasets.util", "torch_em_tpu_torch.data.datasets.electron_microscopy.cem",
             "torch_em_tpu_torch.data.datasets.electron_microscopy.nisb"]) <= set(names)
+lm = "torch_em_tpu_torch.data.datasets.light_microscopy."
+assert len([n for n in names if n.startswith(lm)]) == 81
+assert set(lm + m for m in ("dsb", "livecell", "yeaz", "orgline", "idr0095", "e11bio", "liconn", "parhyale_regen",
+                            "yeastms", "synthmt", "nuc_morph")) <= set(names)
+from torch_em_tpu_torch.data.datasets import get_dsb_loader, get_livecell_loader
 from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_multi_device, train_multi_gpu
 from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
                                          save_sharded_checkpoint, shard_batch)
@@ -161,10 +168,10 @@ def test_source_names_no_jax(path):
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
     # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
-    # the zoo's download packages only inside the functions that need them
+    # the zoo's download and conversion packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
-                         r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3)\b", text,
-                         flags=re.MULTILINE)
+                         r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3|nd2"
+                         r"|pycocotools)\b", text, flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

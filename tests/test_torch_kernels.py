@@ -221,6 +221,8 @@ S2D_PREDICT_ROWS = {262144: (2, 128, 256), 65536: (128, 256, 512), 16384: (256, 
 # the MitoLab step (chip_smoke.py phase 17: UNet2d f=64, depth 4, batch 8 of 224x224): rows are 8 x C
 MITOLAB_ROWS = {50176: (8, 512, 1024), 12544: (512, 1024, 2048), 3136: (1024, 2048, 4096), 784: (2048, 4096, 8192),
                 196: (4096, 8192)}
+# the last validation batch of the DSB recipe's 50 test images (chip_smoke.py phase 18): DSB_ROWS at batch 2
+DSB_TEST_TAIL_ROWS = {length: tuple(r // 4 for r in rows) for length, rows in DSB_ROWS.items()}
 
 
 def _decoder_rows(channels, skip, grid, size, batches, initial_features=64):
@@ -280,9 +282,9 @@ def _expected_path(length, itemsize, direction):
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("rows_of", [TRAINING_ROWS, SERVING_ROWS, DSB_ROWS, UNETR_ROWS, UNIMATCH_ROWS, PUNET_ROWS,
                                      *FAMILY_ROWS.values(), HALO_SLAB_ROWS, SPATIAL_SLAB_ROWS, S2D_PREDICT_ROWS,
-                                     MITOLAB_ROWS],
+                                     MITOLAB_ROWS, DSB_TEST_TAIL_ROWS],
                          ids=["training", "serving", "dsb", "unetr", "unimatch", "punet", *FAMILY_ROWS,
-                              "halo_slab", "spatial_slab", "s2d_predict", "mitolab"])
+                              "halo_slab", "spatial_slab", "s2d_predict", "mitolab", "dsb_test_tail"])
 def test_plan_at_main_path_shapes(rows_of, itemsize, direction):
     inputs = 1 if direction == "forward" else 2
     width = 16 // itemsize

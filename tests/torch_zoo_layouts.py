@@ -1,5 +1,5 @@
-"""Synthetic layouts of the dataset zoo's electron-microscopy readers, and the check that holds
-the port's reader against the JAX package's on them.
+"""Synthetic layouts of the dataset zoo's readers (electron and light microscopy), and the check
+that holds the port's reader against the JAX package's on them.
 
 Each case builds one small layout (8x64x64 volumes, 64x64 images) from a seed, twice: once
 for each package, in folders of its own, since several readers convert their sources on first
@@ -13,9 +13,15 @@ use and cache the result beside them. The check then calls both packages' getter
   label transform (``boundaries``, ``offsets``, ``binary``, one-hot), so the targets are
   compared too;
 - a batch of each loader, with the default augmentations, has the shapes of the JAX loader's;
-- the files a reader converts from its sources are equal, container for container.
+- the files a reader converts from its sources (``converted``) exist and are equal, container
+  for container, and so is every file under both folders afterwards: HDF5 by datasets and
+  attributes, an archive by name, any other file byte for byte.
+
+Each getter is called under the same ``np.random.seed`` on both sides: some readers split their
+files with numpy's global ``RandomState`` on first use.
 """
 
+import functools
 import importlib
 import json
 import zipfile
@@ -47,16 +53,22 @@ class Case:
     loaders: List[Tuple[str, Dict]] = field(default_factory=list)
     converted: List[str] = field(default_factory=list)
     check: Callable = None  # an extra check(jax module, port module, jax root, port root)
+    prepare: Callable = None  # prepare(module, root) on each side before the getters run
     name: str = ""
+    domain: str = "electron_microscopy"
 
     @property
     def id(self):
         return self.name or self.module
 
 
-def modules(package):
-    return importlib.import_module(f"torch_em_tpu.data.datasets.electron_microscopy.{package}"), \
-        importlib.import_module(f"torch_em_tpu_torch.data.datasets.electron_microscopy.{package}")
+LIGHT_MICROSCOPY = "light_microscopy"
+LMCase = functools.partial(Case, domain=LIGHT_MICROSCOPY)
+
+
+def modules(package, domain="electron_microscopy"):
+    return importlib.import_module(f"torch_em_tpu.data.datasets.{domain}.{package}"), \
+        importlib.import_module(f"torch_em_tpu_torch.data.datasets.{domain}.{package}")
 
 
 # builders' pieces
@@ -79,6 +91,15 @@ def write_h5(path, **datasets):
 def save_image(path, array, mode=None):
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray(array, mode=mode).save(path) if mode else Image.fromarray(array).save(path)
+
+
+def save_tif(path, array):
+    """A TIFF written with PIL, a 3-D array as a multi-page stack (PIL writes no time stamp, so
+    both packages' folders get the same bytes)."""
+    if array.ndim == 3:
+        save_stack(path, array)
+    else:
+        save_image(path, array)
 
 
 def save_stack(path, volume):
@@ -157,20 +178,45 @@ def same_container(a, b):
             np.testing.assert_array_equal(da, db)
 
 
+ARCHIVES = (".zip", ".gz", ".tgz", ".tar", ".rar", ".pt")  # torch.save writes a zip with a random record
+
+
+def same_tree(a, b):
+    """Every file under ``a`` and ``b`` equal: the same relative paths; HDF5 files by datasets and
+    attributes; archives (the builders' sources, whose headers hold write times) by name; any
+    other file byte for byte."""
+    a, b = Path(a), Path(b)
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    for rel in files_a:
+        if rel.suffix in (".h5", ".hdf5", ".hdf"):
+            same_container(a / rel, b / rel)
+        elif rel.suffix not in ARCHIVES:
+            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
+
+
+def _call(module, name, root, kwargs, seed=1234):
+    np.random.seed(seed)
+    return getattr(module, name)(str(root), **kwargs)
+
+
 def check_case(case, tmp_path):
     jax_root, port_root = tmp_path / "jax", tmp_path / "port"
     for root in (jax_root, port_root):
         root.mkdir()
         case.build(root)
-    jax_mod, port_mod = modules(case.module)
+    jax_mod, port_mod = modules(case.module, case.domain)
+    if case.prepare is not None:
+        case.prepare(jax_mod, jax_root)
+        case.prepare(port_mod, port_root)
     for name, kwargs in case.paths:
-        expected = getattr(jax_mod, name)(str(jax_root), **kwargs)
-        got = getattr(port_mod, name)(str(port_root), **kwargs)
+        expected = _call(jax_mod, name, jax_root, kwargs)
+        got = _call(port_mod, name, port_root, kwargs)
         assert relative(got, port_root) == relative(expected, jax_root), name
     for k, (name, kwargs) in enumerate(case.datasets):
         kwargs = dict({"transform": identity}, **kwargs)
-        expected = getattr(jax_mod, name)(str(jax_root), **kwargs)
-        got = getattr(port_mod, name)(str(port_root), **kwargs)
+        expected = _call(jax_mod, name, jax_root, kwargs)
+        got = _call(port_mod, name, port_root, kwargs)
         same_samples(expected, got, seed=10 * k)
         del expected, got  # closes their files before the next getter opens them
     for name, kwargs in case.loaders:
@@ -182,5 +228,6 @@ def check_case(case, tmp_path):
     for rel in case.converted:
         assert (jax_root / rel).exists(), rel
         same_container(jax_root / rel, port_root / rel)
+    same_tree(jax_root, port_root)
     if case.check is not None:
         case.check(jax_mod, port_mod, jax_root, port_root)

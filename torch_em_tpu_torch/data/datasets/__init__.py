@@ -5,6 +5,7 @@ The loaders return the port's ``DataLoader`` of torch tensors.
 
 from . import util
 from .electron_microscopy import *  # noqa: F401,F403
+from .light_microscopy import *  # noqa: F401,F403
 
-# light_microscopy, histopathology and medical are not ported yet: they follow, one domain at a
-# time, in that order (ROADMAP.md, Queue 1)
+# histopathology and medical are not ported yet: they follow, one domain at a time, in that order
+# (ROADMAP.md, Queue 1)

@@ -8,7 +8,6 @@ Publication: https://doi.org/10.1016/j.cels.2022.12.006
 """
 
 import json
-import math
 import os
 from glob import glob
 from typing import List, Tuple, Union
@@ -19,6 +18,7 @@ from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
 from ....utils.io import load_image
 from .. import util
+from ..util import _train_test_split
 
 BENCHMARK_DATASETS = {
     1: "mito_benchmarks/c_elegans",
@@ -88,23 +88,6 @@ def _get_non_empty_images(path):
         json.dump({"images": [os.path.relpath(p, path) for p in raw_paths],
                    "labels": [os.path.relpath(p, path) for p in label_paths]}, f)
     return raw_paths, label_paths
-
-
-def _train_test_split(raw_paths, label_paths, test_size: float, random_state: int):
-    """sklearn's ``train_test_split(raw_paths, label_paths, test_size=..., random_state=...)``
-    in numpy: ``ceil(test_size * n)`` items go to the test side, taken from the front of the
-    ``RandomState(random_state)`` permutation, the rest (in permutation order) to the train side.
-    Returns (raw train, raw test, labels train, labels test)."""
-    n = len(raw_paths)
-    if len(label_paths) != n:
-        raise ValueError(f"{n} raw paths but {len(label_paths)} label paths")
-    n_test = math.ceil(test_size * n)
-    if not 0 < n_test < n:
-        raise ValueError(f"test_size={test_size} of {n} samples leaves an empty train or test side")
-    perm = np.random.RandomState(random_state).permutation(n)
-    train, test = perm[n_test:], perm[:n_test]
-    return ([raw_paths[i] for i in train], [raw_paths[i] for i in test],
-            [label_paths[i] for i in train], [label_paths[i] for i in test])
 
 
 def get_mitolab_paths(path: Union[os.PathLike, str], split: str, val_fraction: float = 0.05,

@@ -10,6 +10,7 @@ transforms (:423), resize plumbing (:452) and annotation conversion helpers
 
 import hashlib
 import inspect
+import math
 import os
 import zipfile
 from shutil import copyfileobj
@@ -365,3 +366,21 @@ def natsorted(items):
         return [int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", str(s))]
 
     return sorted(items, key=key)
+
+
+def _train_test_split(*arrays, test_size: float, random_state: Optional[int] = None):
+    """sklearn's ``train_test_split(*arrays, test_size=..., random_state=...)`` in numpy:
+    ``ceil(test_size * n)`` items go to the test side, taken from the front of the permutation
+    that ``RandomState(random_state)`` draws, the rest (in permutation order) to the train side.
+    With ``random_state=None`` the permutation comes from numpy's global ``RandomState``, as
+    sklearn's ``check_random_state(None)`` gives it, so ``np.random.seed`` fixes the split.
+    Returns (train, test) of each array in turn, as lists."""
+    n = len(arrays[0])
+    if any(len(a) != n for a in arrays):
+        raise ValueError(f"the arrays have unequal lengths {[len(a) for a in arrays]}")
+    n_test = math.ceil(test_size * n)
+    if not 0 < n_test < n:
+        raise ValueError(f"test_size={test_size} of {n} samples leaves an empty train or test side")
+    perm = (np.random if random_state is None else np.random.RandomState(random_state)).permutation(n)
+    train, test = perm[n_test:], perm[:n_test]
+    return [[a[i] for i in part] for a in arrays for part in (train, test)]

@@ -60,6 +60,14 @@ def _pil_image():
     return Image
 
 
+def _pil_draw():
+    try:
+        from PIL import ImageDraw
+    except ImportError as e:
+        raise ImportError("drawing annotations needs PIL (Pillow), which is not installed") from e
+    return ImageDraw
+
+
 def _imageio():
     try:
         import imageio.v3 as iio
