@@ -179,7 +179,22 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    pairs in CEM-MitoLab's layout (the numpy split, ``non_empty_images.json``), batch 8; each
    8 iterations and 2 more after ``from_checkpoint``, its loader timed with thread (and, for
    (a), process) workers beside the bare step, the TIFFs' decode timed, and the first samples
-   of each zoo dataset held equal to those of a dataset over the same arrays in memory.
+   of each zoo dataset held equal to those of a dataset over the same arrays in memory;
+18. the dataset zoo's light-microscopy readers: (a) the DSB recipe's ``UNet2d(1, 2, f=64)``
+   through ``get_dsb_loader`` on dsb2018's layout at its published 447 + 50 images (and a
+   batch of the SPOCO recipe's loader, int32 components); (b) the ViM-UNet / UNETR recipe's
+   UNETR vit_b through ``get_livecell_loader`` on LIVECell's layout, its COCO polygons
+   converted on first use and held against the drawn cells; each as phase 17's;
+19. the dataset zoo's histopathology and medical readers: (a) ``UNet2d(3, 2, f=64, Sigmoid)``
+   (the DSB recipe's model on H&E input) with boundaries, batch 8 of 512x512, through
+   ``get_monuseg_loader`` on MoNuSeg's extracted layout, 8 + 2 seeded 1000x1000 RGB TIFFs with
+   Aperio XML of 720 polygons each, rasterized on first use (timed per image) and held equal
+   to the polygons drawn, one instance each; (b) ``UNet3d(1, 16, f=32, Sigmoid)`` on
+   ``OneHotTransform(16)`` targets, batch 2 of (128, 128, 64) in (X, Y, Z) order, through
+   ``get_amos_loader(modality="CT")`` on AMOS' layout, 4 + 2 seeded int16 CT volumes of
+   512x512x128 written with ``medical_io.save_nifti`` (each volume's gunzip and decode timed,
+   read back equal); each as phase 17's (fit, resume, thread loader beside the bare step, the
+   zoo's samples against the arrays in memory).
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -201,7 +216,12 @@ of 2.28e9 elements; 120x256x256 trained), checked against the plain versions
 channel group by channel group, and time them at those slabs' level-0 rows.
 Phase 3 also holds the forward kernel at the rows of ``Shallow2DeepModel``'s
 enhancer on two 512x512 images (batch 2, 1 to 1024 channels), which phase 16
-launches in float32.
+launches in float32. Phases 3 and 5 also hold both kernels at phase 18's DSB
+test tail (batch 2) and at phase 19's steps, and phase 5 times them per step
+there: UNet2d f=64 at batch 8 of 512x512 from 3 input channels (rows 8 x 3 to
+8 x 1024, 262144 down to 4096 elements) and UNet3d f=32 at batch 2 of (128,
+128, 64) with isotropic pooling (rows 2 x 1 to 2 x 512, 1048576 down to 2048
+elements).
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -444,6 +464,23 @@ LM_DSB_IMAGES, LM_DSB_SHAPE = (447, 50), (256, 256)
 LM_LIVECELL_IMAGES, LM_LIVECELL_CELLS, LM_LIVECELL_SHAPE = (64, 16), 320, (520, 704)
 LM_LIVECELL_PATCH = (512, 512)
 LM_FIT, LM_RESUME, LM_LOADER_STEPS = 8, 2, 8
+
+# the dataset zoo's histopathology and medical readers (phase 19); each fits LM_FIT iterations and LM_RESUME more after
+# from_checkpoint. 19a: UNet2d(3 -> 2, f=64, Sigmoid), the DSB recipe's model on H&E input (the repo records no
+# histopathology recipe), through get_monuseg_loader with boundaries on MoNuSeg's extracted layout: HP_MONUSEG_IMAGES
+# (train, test) seeded 1000x1000 RGB TIFFs (of the published 30 and 14), each with an Aperio XML of HP_MONUSEG_NUCLEI
+# polygons (21 623 nuclei over the 30 training images, about 720 an image), rasterized on first use; batch DSB_BATCH of
+# HP_PATCH. 19b: UNet3d(1 -> 16, f=32, Sigmoid) through get_amos_loader(modality="CT") on OneHotTransform(16) targets
+# (15 organs and background) on AMOS' layout: MED_AMOS_VOLUMES (train, val) seeded CT volumes (ids under 500; of the
+# published 200 and 100) written with medical_io.save_nifti, int16 Hounsfield-like values, 512x512 in plane and
+# MED_AMOS_SHAPE[2] slices, in load_nifti's (X, Y, Z) order, each a seeded tile of 15 organs repeated (every patch holds
+# every class); batch MED_BATCH of MED_PATCH, in the same order
+HP_MONUSEG_IMAGES, HP_MONUSEG_SHAPE, HP_MONUSEG_NUCLEI = (8, 2), (1000, 1000), 720
+HP_MODEL = dict(in_channels=3, out_channels=2, initial_features=64, final_activation="Sigmoid")
+HP_PATCH = (512, 512)
+MED_AMOS_VOLUMES, MED_AMOS_SHAPE, MED_AMOS_CLASSES = (4, 2), (512, 512, 128), 16
+MED_MODEL = dict(in_channels=1, out_channels=MED_AMOS_CLASSES, initial_features=32, final_activation="Sigmoid")
+MED_DEPTH, MED_BATCH, MED_PATCH = 4, 2, (128, 128, 64)
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
@@ -3932,6 +3969,280 @@ def phase_lm_zoo(port, inorm):
     return tuple(launches)
 
 
+def hp_monuseg_layout(folder, seed=0):
+    """MoNuSeg's extracted layout: HP_MONUSEG_IMAGES (train, test) seeded HP_MONUSEG_SHAPE RGB TIFFs, the training ones
+    under ``MoNuSeg 2018 Training Data/Tissue Images/`` with their Aperio XML under ``Annotations/``, the test ones with
+    theirs beside them under ``MoNuSegTestData/``. Each image has HP_MONUSEG_NUCLEI nuclei as polygons of 16 vertices
+    (to a tenth of a pixel) on ellipses whose circumscribed circles lie at least 2 px apart and inside the image, so
+    each polygon is its own instance; the H&E-like raw is purple nuclei on pink stroma, blurred, with light noise.
+    Returns {split: [(name, raw, nuclei)]}, ``nuclei`` the polygons drawn with PIL in file order (ids 1, 2, ...)."""
+    from PIL import Image, ImageDraw
+    from scipy import ndimage
+
+    from torch_em_tpu_torch.data.datasets.histopathology.monuseg import ORGAN_SPLITS
+
+    rng = np.random.default_rng(seed)
+    h, w = HP_MONUSEG_SHAPE
+    t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+    train_names = [n for organ in ("breast", "kidney", "liver", "prostate") for n in ORGAN_SPLITS[organ][:2]]
+    test_names = ["TCGA-2Z-A9J9-01A-01-TS1", "TCGA-44-2665-01B-06-BS6"]
+    out = {}
+    for split, names, n in zip(("train", "test"), (train_names, test_names), HP_MONUSEG_IMAGES):
+        base = os.path.join(folder, "MoNuSeg 2018 Training Data" if split == "train" else "MoNuSegTestData")
+        image_dir = os.path.join(base, "Tissue Images") if split == "train" else base
+        xml_dir = os.path.join(base, "Annotations") if split == "train" else base
+        os.makedirs(image_dir, exist_ok=True)
+        os.makedirs(xml_dir, exist_ok=True)
+        out[split] = []
+        for name in names[:n]:
+            centres, radii = np.zeros((0, 2)), np.zeros(0)
+            while len(radii) < HP_MONUSEG_NUCLEI:
+                for c, r in zip(rng.uniform([12, 12], [h - 12, w - 12], (256, 2)), rng.uniform(4.5, 9.0, 256)):
+                    if len(radii) < HP_MONUSEG_NUCLEI and (
+                            not len(radii) or np.min(np.hypot(*(centres - c).T) - radii - r) >= 2):
+                        centres, radii = np.vstack([centres, c]), np.append(radii, r)
+            canvas = Image.new("I", (w, h), 0)
+            draw = ImageDraw.Draw(canvas)
+            regions = []
+            for k, ((cy, cx), a) in enumerate(zip(centres, radii), 1):
+                b, theta = a * rng.uniform(0.6, 0.95), rng.uniform(0, np.pi)
+                # the vertices as the XML gives them to the reader
+                px = [float(f"{v:.1f}") for v in cx + a * np.cos(t) * np.cos(theta) - b * np.sin(t) * np.sin(theta)]
+                py = [float(f"{v:.1f}") for v in cy + a * np.cos(t) * np.sin(theta) + b * np.sin(t) * np.cos(theta)]
+                draw.polygon(list(zip(px, py)), fill=k, outline=k)
+                vertices = "".join(f'<Vertex X="{x:.1f}" Y="{y:.1f}" Z="0" />' for x, y in zip(px, py))
+                regions.append(f'<Region Id="{k}" Type="0"><Vertices>{vertices}</Vertices></Region>')
+            nuclei = np.asarray(canvas).astype(np.int32)
+            colour = np.where((nuclei > 0)[..., None], np.float32([112, 58, 158]), np.float32([232, 188, 214]))
+            raw = ndimage.gaussian_filter(colour, (1.2, 1.2, 0)) + 6 * rng.normal(size=(h, w, 3))
+            raw = np.clip(raw, 0, 255).astype(np.uint8)
+            Image.fromarray(raw).save(os.path.join(image_dir, f"{name}.tif"))
+            with open(os.path.join(xml_dir, f"{name}.xml"), "w") as f:
+                f.write('<?xml version="1.0"?>\n<Annotations MicronsPerPixel="0.252000"><Annotation Id="1"><Regions>'
+                        + "".join(regions) + "</Regions></Annotation></Annotations>\n")
+            out[split].append((name, raw, nuclei))
+    return out
+
+
+def med_amos_volume(rng):
+    """One seeded CT volume of MED_AMOS_SHAPE in (X, Y, Z) order, int16 Hounsfield-like values, and its uint8 labels
+    0-15: a tile of MED_PATCH's shape holds 15 ellipsoid organs, one per class, each with a value of its own (-100 to
+    250 HU) in soft tissue (40 HU), and the volume repeats the tile, so that every training patch holds every class
+    (a class a batch lacks adds a constant to the Dice loss, which would swamp the fall of 8 steps); light noise: 1%
+    of the voxels off by up to 20 HU."""
+    tile = tuple(MED_PATCH)
+    x, y, z = np.ogrid[:tile[0], :tile[1], :tile[2]]
+    raw_tile = np.full(tile, 40, np.int16)
+    labels_tile = np.zeros(tile, np.uint8)
+    for k in range(1, MED_AMOS_CLASSES):
+        while True:
+            c = rng.uniform(0, 1, 3) * tile
+            r = rng.uniform(0.08, 0.2, 3) * tile
+            inside = ((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2 + ((z - c[2]) / r[2]) ** 2 <= 1
+            if (inside & (labels_tile == 0)).sum() >= inside.sum() // 2 > 0:  # at least half of it still free
+                break
+        labels_tile[inside] = k
+        raw_tile[inside] = int(rng.integers(-100, 251))
+    reps = tuple(s // p for s, p in zip(MED_AMOS_SHAPE, tile))
+    assert tuple(r * p for r, p in zip(reps, tile)) == tuple(MED_AMOS_SHAPE), (MED_AMOS_SHAPE, tile)
+    raw, labels = np.tile(raw_tile, reps), np.tile(labels_tile, reps)
+    noisy = rng.random(MED_AMOS_SHAPE) < 0.01
+    raw[noisy] += rng.integers(-20, 21, int(noisy.sum())).astype(np.int16)
+    return raw, labels
+
+
+def med_amos_layout(folder, seed=0):
+    """AMOS' layout: ``<folder>/amos22/{imagesTr,labelsTr,imagesVa,labelsVa}/amos_<id>.nii.gz`` with
+    MED_AMOS_VOLUMES (train, val) CT volumes (ids under 500) written with ``medical_io.save_nifti``, several at once
+    (gzip leaves the interpreter while it compresses). Returns {split: [(name, raw, labels)]}."""
+    from torch_em_tpu_torch.utils.medical_io import save_nifti
+
+    rng = np.random.default_rng(seed)
+    out, writes, pid = {}, [], 0
+    for split, n in zip(("Tr", "Va"), MED_AMOS_VOLUMES):
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(folder, "amos22", f"{sub}{split}"), exist_ok=True)
+        out[split] = []
+        for _ in range(n):
+            pid += 1
+            name = f"amos_{pid:04d}.nii.gz"
+            raw, labels = med_amos_volume(rng)
+            writes += [(os.path.join(folder, "amos22", f"images{split}", name), raw),
+                       (os.path.join(folder, "amos22", f"labels{split}", name), labels)]
+            out[split].append((name, raw, labels))
+    with ThreadPoolExecutor(max_workers=len(writes)) as pool:
+        for done in [pool.submit(save_nifti, path, array) for path, array in writes]:
+            done.result()
+    return out
+
+
+def phase_hp_med_zoo(port, inorm):
+    """The dataset zoo's histopathology and medical readers on the card: 19a UNet2d at DSB width on H&E input through
+    ``get_monuseg_loader`` on MoNuSeg's layout, its XML polygons rasterized on first use; 19b UNet3d on one-hot organ
+    targets through ``get_amos_loader(modality="CT")`` on AMOS' NIfTI volumes; each trained with ``fit`` and resumed
+    with ``from_checkpoint``, its thread loader timed beside the bare step, and its zoo dataset held against a dataset
+    over the same arrays in memory. Returns the kernels' launches of the two training runs."""
+    from torch_em_tpu_torch.data.datasets import (get_amos_dataset, get_amos_loader, get_amos_paths,
+                                                  get_monuseg_dataset, get_monuseg_loader, get_monuseg_paths)
+    from torch_em_tpu_torch.transforms import BoundaryTransform, get_raw_transform
+    from torch_em_tpu_torch.transforms.label import OneHotTransform
+    from torch_em_tpu_torch.utils import io, medical_io
+
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 19a: MoNuSeg's polygons, rasterized on first use, into UNet2d at DSB width
+        hp_root = os.path.join(tmp, "monuseg")
+        t = time.perf_counter()
+        images = hp_monuseg_layout(hp_root)
+        stats["a_write_s"] = time.perf_counter() - t
+        n_images = sum(HP_MONUSEG_IMAGES)
+        t = time.perf_counter()
+        paths = {split: get_monuseg_paths(hp_root, split) for split in images}
+        stats["a_convert_s_per_image"] = (time.perf_counter() - t) / n_images
+        log(f"19a data: {HP_MONUSEG_IMAGES} train and test {HP_MONUSEG_SHAPE} RGB TIFFs with {HP_MONUSEG_NUCLEI} XML "
+            f"polygons each, written in {stats['a_write_s']:.2f} s; converted on first use in "
+            f"{stats['a_convert_s_per_image']:.3f} s per image")
+        by_name = {name: (raw, nuclei) for written in images.values() for name, raw, nuclei in written}
+        converted = [pair for split in paths.values() for pair in zip(*split)]
+        for image_path, label_path in converted:
+            name = os.path.splitext(os.path.basename(image_path))[0]
+            raw, nuclei = by_name[name]
+            got = io.load_image(label_path).astype(np.int32)
+            if os.path.basename(label_path) != f"{name}.png" or not np.array_equal(got, nuclei) or \
+                    len(np.unique(got)) - 1 != HP_MONUSEG_NUCLEI or not np.array_equal(io.load_image(image_path), raw):
+                raise AssertionError(f"19a: the converted image or labels of {name} are not the polygons drawn")
+        if len(converted) != n_images:
+            raise AssertionError(f"19a: {len(converted)} images converted of {n_images}")
+        log(f"19a: the converted labels are the drawn polygons, one instance each ({HP_MONUSEG_NUCLEI} an image, "
+            f"{n_images * HP_MONUSEG_NUCLEI} in all)")
+        zoo = get_monuseg_dataset(hp_root, HP_PATCH, "train", boundaries=True, transform=identity_transform)
+        pairs = [by_name[os.path.splitext(os.path.basename(p))[0]] for p in zoo.raw_images]
+        plain = port.data.TensorDataset([r.transpose(2, 0, 1) for r, _ in pairs], [lab for _, lab in pairs],
+                                        patch_shape=HP_PATCH, with_channels=True, raw_transform=get_raw_transform(),
+                                        label_transform=BoundaryTransform(add_binary_target=True),
+                                        transform=identity_transform)
+        check_zoo_samples("19a get_monuseg_dataset", zoo, plain)
+        del zoo, plain, pairs, by_name, images
+
+        def monuseg_loader(split, shuffle, **kwargs):
+            return get_monuseg_loader(hp_root, HP_PATCH, DSB_BATCH, split, boundaries=True,
+                                      num_workers=LOADER_THREADS, shuffle=shuffle, **kwargs)
+
+        train, val = monuseg_loader("train", True, n_samples=DSB_BATCH * LM_FIT), monuseg_loader("test", False)
+        log(f"19a loaders: {len(train.dataset)} train patches of {HP_MONUSEG_IMAGES[0]} images and "
+            f"{len(val.dataset)} test images, {len(train)} and {len(val)} batches, transform "
+            f"{getattr(train.dataset.transform, 'init_kwargs', train.dataset.transform)}")
+        np.random.seed(7)
+        model = port.UNet2d(**HP_MODEL, depth=DSB_DEPTH, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "hp-monuseg", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+            logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, LM_FIT, LM_RESUME, len(val), "19a MoNuSeg UNet2d")
+        stats["a_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if resumed.train_loader.dataset.raw_images != train.dataset.raw_images:
+            raise AssertionError("from_checkpoint did not rebuild the MoNuSeg zoo loader")
+        timed = DSB_BATCH * (LOADER_THREADS + LM_LOADER_STEPS)
+        stats["a_loader_thread_patches_per_s"] = loader_rate(resumed, monuseg_loader("train", True, n_samples=timed),
+                                                             steps=LM_LOADER_STEPS, warmup=LOADER_THREADS)
+        x, y = bare_step(resumed, monuseg_loader("train", False, n_samples=DSB_BATCH), "19a UNet2d f=64 H&E")
+        stats["a_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        log(f"19a loader, {LOADER_THREADS} thread workers, default augmentations, feeding steps: "
+            f"{stats['a_loader_thread_patches_per_s']:.2f} patches/s; the bare step {stats['a_step_ms']:.2f} ms, "
+            f"{DSB_BATCH * 1e3 / stats['a_step_ms']:.2f} patches/s; {nvidia_smi()}")
+        del trainer, resumed, model, train, val, x, y
+        torch.cuda.empty_cache()
+
+        # 19b: AMOS' CT volumes as NIfTI into UNet3d on one-hot organ targets
+        med_root = os.path.join(tmp, "amos")
+        t = time.perf_counter()
+        volumes = med_amos_layout(med_root)
+        stats["b_write_s"] = time.perf_counter() - t
+        decode = []
+        for split, written in volumes.items():
+            for name, raw, labels in written:
+                for sub, array in (("images", raw), ("labels", labels)):
+                    path = os.path.join(med_root, "amos22", f"{sub}{split}", name)
+                    t = time.perf_counter()
+                    got = medical_io.load_nifti(path)
+                    decode.append(time.perf_counter() - t)
+                    if got.shape != MED_AMOS_SHAPE or got.dtype != array.dtype or not np.array_equal(got, array):
+                        raise AssertionError(f"19b: {sub}{split}/{name} reads back as {got.shape} {got.dtype}")
+        stats["b_decode_s_per_volume"] = decode[0::2]
+        stats["b_decode_s_per_label_volume"] = decode[1::2]
+        sizes = [os.path.getsize(os.path.join(med_root, "amos22", f"images{s}", n)) for s, w in volumes.items()
+                 for n, _, _ in w]
+        log(f"19b data: {MED_AMOS_VOLUMES} train and val CT volumes {MED_AMOS_SHAPE} int16 (X, Y, Z) with uint8 labels "
+            f"0-{MED_AMOS_CLASSES - 1} as .nii.gz ({np.mean(sizes) / 2 ** 20:.1f} MiB a volume) in "
+            f"{stats['b_write_s']:.2f} s; gunzip and decode {np.mean(decode[0::2]):.3f} s a volume, "
+            f"{np.mean(decode[1::2]):.3f} s a label volume")
+        expected = [os.path.join(med_root, "amos22", "imagesTr", n) for n, _, _ in volumes["Tr"]]
+        if get_amos_paths(med_root, "train", modality="CT")[0] != expected or \
+                get_amos_paths(med_root, "train", modality="MRI")[0]:
+            raise AssertionError("19b: get_amos_paths does not list the CT volumes alone")
+        one_hot = OneHotTransform(MED_AMOS_CLASSES)
+        zoo = get_amos_dataset(med_root, MED_PATCH, "train", modality="CT", label_transform=one_hot,
+                               transform=identity_transform)
+        plain = port.data.ConcatDataset(*[port.SegmentationDataset(
+            raw, None, labels, None, patch_shape=MED_PATCH, raw_transform=get_raw_transform(),
+            label_transform=one_hot, transform=identity_transform) for _, raw, labels in volumes["Tr"]])
+        check_zoo_samples("19b get_amos_dataset", zoo, plain)
+        label_patch = volumes["Tr"][0][2][tuple(slice(0, p) for p in MED_PATCH)]
+        stats["b_one_hot_ms"] = time_host_ms(one_hot, label_patch)
+        del zoo, plain, volumes, label_patch
+
+        def amos_loader(split, shuffle, n_samples):
+            return get_amos_loader(med_root, MED_PATCH, MED_BATCH, split, modality="CT", label_transform=one_hot,
+                                   num_workers=LOADER_THREADS, shuffle=shuffle, n_samples=n_samples)
+
+        t = time.perf_counter()
+        train = amos_loader("train", True, MED_BATCH * LM_FIT)
+        stats["b_train_loader_build_s"] = time.perf_counter() - t
+        val = amos_loader("val", False, MED_BATCH)
+        log(f"19b loaders: {len(train.dataset)} train and {len(val.dataset)} val patches, {len(train)} and {len(val)} "
+            f"batches, built in {stats['b_train_loader_build_s']:.2f} s (the train volumes decoded), transform "
+            f"{getattr(train.dataset.datasets[0].transform, 'init_kwargs', None)}; one-hot of a {MED_PATCH} label "
+            f"patch {stats['b_one_hot_ms']:.1f} ms on the host")
+        np.random.seed(8)
+        model = port.UNet3d(**MED_MODEL, depth=MED_DEPTH, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "med-amos", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+            logger=LossLog, save_root=tmp)
+        t = time.perf_counter()
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, LM_FIT, LM_RESUME, len(val), "19b AMOS UNet3d")
+        stats["b_fit_s"] = time.perf_counter() - t
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if [d.raw_path for d in resumed.train_loader.dataset.datasets] != [d.raw_path for d in train.dataset.datasets]:
+            raise AssertionError("from_checkpoint did not rebuild the AMOS zoo loader")
+        timed = MED_BATCH * (LOADER_THREADS + LM_LOADER_STEPS)
+        stats["b_loader_thread_patches_per_s"] = loader_rate(resumed, amos_loader("train", True, timed),
+                                                             steps=LM_LOADER_STEPS, warmup=LOADER_THREADS)
+        x, y = bare_step(resumed, amos_loader("train", False, MED_BATCH), "19b UNet3d f=32 CT")
+        stats["b_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        log(f"19b loader, {LOADER_THREADS} thread workers, default augmentations, one-hot targets, feeding steps: "
+            f"{stats['b_loader_thread_patches_per_s']:.2f} patches/s; the bare step {stats['b_step_ms']:.2f} ms, "
+            f"{MED_BATCH * 1e3 / stats['b_step_ms']:.2f} patches/s; {nvidia_smi()}")
+        del trainer, resumed, model, train, val, x, y
+    stats["norm_launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"HP and medical zoo: {json.dumps(stats)}; {nvidia_smi()}")
+    torch.cuda.empty_cache()
+    return tuple(launches)
+
+
+def time_host_ms(fn, *args, repeats=5):
+    """Median host time of ``fn(*args)`` in ms."""
+    times = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        fn(*args)
+        times.append(time.perf_counter() - t)
+    return float(np.median(times)) * 1e3
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
@@ -3984,7 +4295,14 @@ def main():
                      "mitolab": (EM_2D_BATCH, norm_shapes(EM_2D_PATCH, [[2, 2]] * DSB_DEPTH,
                                                           widths(EM_2D_MODEL["initial_features"], DSB_DEPTH))),
                      # and the last validation batch of the DSB recipe's 50 test images (phase 18)
-                     "dsb_test_tail": (LM_DSB_IMAGES[1] % DSB_BATCH, dsb_shapes)}
+                     "dsb_test_tail": (LM_DSB_IMAGES[1] % DSB_BATCH, dsb_shapes),
+                     # and phase 19's steps: UNet2d at DSB width on 512x512 H&E patches from 3 channels, UNet3d f=32
+                     # on (128, 128, 64) CT patches with isotropic pooling
+                     "monuseg": (DSB_BATCH, norm_shapes(HP_PATCH, [[2, 2]] * DSB_DEPTH,
+                                                        widths(HP_MODEL["initial_features"], DSB_DEPTH),
+                                                        in_channels=HP_MODEL["in_channels"])),
+                     "amos": (MED_BATCH, norm_shapes(MED_PATCH, [[2, 2, 2]] * MED_DEPTH,
+                                                     widths(MED_MODEL["initial_features"], MED_DEPTH)))}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
@@ -4069,17 +4387,22 @@ def main():
         log("phase 18: the dataset zoo's light-microscopy readers: get_dsb_loader on dsb2018's layout into the DSB "
             "recipe's UNet2d (and the SPOCO recipe's loader), get_livecell_loader on LIVECell's COCO layout into UNETR")
         lm_fwd, lm_bwd = phase_lm_zoo(port, inorm)
+
+        log("phase 19: the dataset zoo's histopathology and medical readers: get_monuseg_loader on MoNuSeg's XML "
+            "layout into UNet2d at DSB width, get_amos_loader on AMOS' CT NIfTI volumes into UNet3d")
+        zoo_fwd, zoo_bwd = phase_hp_med_zoo(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd)
+                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd + s2d_bwd + em_bwd + lm_bwd)
+                                + md_bwd + s2d_bwd + em_bwd + lm_bwd + zoo_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
             f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep + "
-            f"{em_fwd} EM zoo + {lm_fwd} LM zoo; backward kernel launches: {train_bwd} training + {recipe_bwd} 3-D "
-            f"recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + {vit_bwd} UNETR and ViM-UNet + {st_bwd} "
-            f"self-training + {fam_bwd} encoder families + {md_bwd} multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM "
-            f"zoo + {lm_bwd} LM zoo")
+            f"{em_fwd} EM zoo + {lm_fwd} LM zoo + {zoo_fwd} histopathology and medical zoo; backward kernel launches: "
+            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + "
+            f"{vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families + {md_bwd} "
+            f"multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM zoo + {lm_bwd} LM zoo + {zoo_bwd} histopathology and "
+            f"medical zoo")
     except Exception:
         traceback.print_exc()
         log("FAILED")

@@ -10,12 +10,8 @@ its public names and signatures, and each has a case in one of the ``test_torch_
 files.
 """
 
-import ast
 import importlib
-import inspect
 import os
-import pkgutil
-import re
 from pathlib import Path
 
 import numpy as np
@@ -24,8 +20,9 @@ import pytest
 import torch_em_tpu.data.datasets.electron_microscopy as jax_em
 import torch_em_tpu_torch.data.datasets.electron_microscopy as port_em
 from torch_em_tpu.utils.io import write_data as jax_write_data
-from torch_zoo_layouts import (IMAGE, PATCH_2D, PATCH_3D, Case, check_case, labels, modules, raw, save_image,
-                               save_stack, write_h5, zip_folder)
+from torch_zoo_layouts import (IMAGE, PATCH_2D, PATCH_3D, Case, check_case, check_domain_matches_jax,
+                               check_every_module_has_a_case, domain_modules, labels, modules, public_names, raw,
+                               save_image, save_stack, write_h5, zip_folder)
 
 
 def build_cremi(root):
@@ -267,46 +264,13 @@ def test_reader_matches_jax(case, tmp_path):
     check_case(case, tmp_path)
 
 
-def _public_names(module):
-    tree = ast.parse(Path(module.__file__).read_text())
-    names = set()
-    for node in tree.body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            names.add(node.name)
-        elif isinstance(node, ast.Assign):
-            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
-    return {n for n in names if not n.startswith("_")}
-
-
-def _parameters(function):
-    return str(inspect.signature(function).replace(return_annotation=inspect.Signature.empty))
-
-
-def _em_modules(package):
-    return sorted(m.name for m in pkgutil.iter_modules(package.__path__))
-
-
 def test_em_modules_and_public_names_match_jax():
-    assert _em_modules(port_em) == _em_modules(jax_em) and len(_em_modules(jax_em)) == 41
-    for name in _em_modules(jax_em):
-        jax_mod, port_mod = modules(name)
-        assert _public_names(port_mod) == _public_names(jax_mod), name
-        for attr in _public_names(jax_mod):
-            jax_obj, port_obj = getattr(jax_mod, attr), getattr(port_mod, attr)
-            if inspect.isfunction(jax_obj):  # the loaders return the port's DataLoader
-                assert _parameters(port_obj) == _parameters(jax_obj), (name, attr)
-    assert sorted(n for n in dir(port_em) if n.startswith("get_")) == \
-        sorted(n for n in dir(jax_em) if n.startswith("get_"))
+    check_domain_matches_jax(jax_em, port_em, "electron_microscopy", 41)
 
 
 def test_every_em_module_has_a_parity_case():
     """Each port EM module has a case in one of the ``test_torch_datasets_em_*`` files."""
-    here = Path(__file__).parent
-    covered = set()
-    for path in sorted(here.glob("test_torch_datasets_em_*.py")):
-        covered.update(re.findall(r'Case\("(\w+)"', path.read_text()))
-    missing = sorted(set(_em_modules(port_em)) - covered)
-    assert not missing, f"EM modules without a parity case: {missing}"
+    check_every_module_has_a_case(port_em, Path(__file__).parent.glob("test_torch_datasets_em_*.py"), "Case")
 
 
 def test_mitolab_reads_all_images_after_the_cache(tmp_path):
@@ -326,8 +290,8 @@ def test_zoo_exports_match():
     """The port's ``data.datasets`` exports the EM getters and ``util`` the JAX package's names."""
     port_zoo = importlib.import_module("torch_em_tpu_torch.data.datasets")
     jax_util = importlib.import_module("torch_em_tpu.data.datasets.util")
-    for name in _em_modules(jax_em):
+    for name in domain_modules(jax_em):
         for getter in (n for n in dir(modules(name)[0]) if n.startswith("get_") and n in dir(jax_em)):
             assert getattr(port_zoo, getter) is getattr(modules(name)[1], getter)
-    assert _public_names(port_zoo.util) == _public_names(jax_util)
+    assert public_names(port_zoo.util) == public_names(jax_util)
     assert os.path.basename(port_zoo.util.__file__) == "util.py"

@@ -11,12 +11,8 @@ JAX package's, with its public names and signatures, and each has a case in one 
 ``test_torch_datasets_lm_*`` files.
 """
 
-import ast
 import importlib
-import inspect
 import json
-import pkgutil
-import re
 from pathlib import Path
 
 import numpy as np
@@ -24,7 +20,8 @@ import pytest
 
 import torch_em_tpu.data.datasets.light_microscopy as jax_lm
 import torch_em_tpu_torch.data.datasets.light_microscopy as port_lm
-from torch_zoo_layouts import (IMAGE, LIGHT_MICROSCOPY, PATCH_2D, PATCH_3D, LMCase, check_case, labels, modules, raw,
+from torch_zoo_layouts import (IMAGE, LIGHT_MICROSCOPY, PATCH_2D, PATCH_3D, LMCase, check_case,
+                               check_domain_matches_jax, check_every_module_has_a_case, labels, modules, raw,
                                same_samples, save_image, save_tif, write_h5)
 
 
@@ -397,46 +394,13 @@ def test_reader_matches_jax(case, tmp_path):
     check_case(case, tmp_path)
 
 
-def _public_names(module):
-    tree = ast.parse(Path(module.__file__).read_text())
-    names = set()
-    for node in tree.body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            names.add(node.name)
-        elif isinstance(node, ast.Assign):
-            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
-    return {n for n in names if not n.startswith("_")}
-
-
-def _parameters(function):
-    return str(inspect.signature(function).replace(return_annotation=inspect.Signature.empty))
-
-
-def _lm_modules(package):
-    return sorted(m.name for m in pkgutil.iter_modules(package.__path__))
-
-
 def test_lm_modules_and_public_names_match_jax():
-    assert _lm_modules(port_lm) == _lm_modules(jax_lm) and len(_lm_modules(jax_lm)) == 81
-    for name in _lm_modules(jax_lm):
-        jax_mod, port_mod = modules(name, LIGHT_MICROSCOPY)
-        assert _public_names(port_mod) == _public_names(jax_mod), name
-        for attr in _public_names(jax_mod):
-            jax_obj, port_obj = getattr(jax_mod, attr), getattr(port_mod, attr)
-            if inspect.isfunction(jax_obj):  # the loaders return the port's DataLoader
-                assert _parameters(port_obj) == _parameters(jax_obj), (name, attr)
-    assert sorted(n for n in dir(port_lm) if n.startswith("get_")) == \
-        sorted(n for n in dir(jax_lm) if n.startswith("get_"))
+    check_domain_matches_jax(jax_lm, port_lm, LIGHT_MICROSCOPY, 81)
 
 
 def test_every_lm_module_has_a_parity_case():
     """Each port light-microscopy module has a case in one of the ``test_torch_datasets_lm_*`` files."""
-    here = Path(__file__).parent
-    covered = set()
-    for path in sorted(here.glob("test_torch_datasets_lm_*.py")):
-        covered.update(re.findall(r'LMCase\("(\w+)"', path.read_text()))
-    missing = sorted(set(_lm_modules(port_lm)) - covered)
-    assert not missing, f"light-microscopy modules without a parity case: {missing}"
+    check_every_module_has_a_case(port_lm, Path(__file__).parent.glob("test_torch_datasets_lm_*.py"), "LMCase")
 
 
 def test_zoo_exports_the_recipes_readers():

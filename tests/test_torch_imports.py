@@ -21,9 +21,10 @@ gives its items, and a trainer's checkpoint exports to a bioimage.io package (it
 text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
 packages, and the dataset zoo's download and conversion packages (requests, gdown, rarfile,
-kaggle, nd2, pycocotools, cloud-volume, s3fs and zarr, blocked here too, with the zoo's every
-module imported, the 81 light-microscopy readers among them), may be imported inside a function,
-never at module level. The native host library builds under
+kaggle, nd2, pycocotools, cloud-volume, s3fs and zarr, and the histopathology and medical readers'
+geopandas, rasterio, shapely, scanpy, huggingface_hub, pydicom and tiffslide, blocked here too, with
+the zoo's every module imported, the 81 light-microscopy, 24 histopathology and 60 medical readers
+among them), may be imported inside a function, never at module level. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -43,7 +44,7 @@ PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
            "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm", "yaml",
            "onnx", "tensorstore", "requests", "gdown", "rarfile", "kaggle", "nd2", "pycocotools", "cloudvolume", "s3fs",
-           "zarr")
+           "zarr", "geopandas", "rasterio", "shapely", "scanpy", "huggingface_hub", "pydicom", "tiffslide")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -64,6 +65,11 @@ assert len([n for n in names if n.startswith(lm)]) == 81
 assert set(lm + m for m in ("dsb", "livecell", "yeaz", "orgline", "idr0095", "e11bio", "liconn", "parhyale_regen",
                             "yeastms", "synthmt", "nuc_morph")) <= set(names)
 from torch_em_tpu_torch.data.datasets import get_dsb_loader, get_livecell_loader
+hp, med = "torch_em_tpu_torch.data.datasets.histopathology.", "torch_em_tpu_torch.data.datasets.medical."
+assert len([n for n in names if n.startswith(hp)]) == 24 and len([n for n in names if n.startswith(med)]) == 60
+assert set([hp + "monuseg", hp + "hest", hp + "puma", hp + "conic", med + "amos", med + "sa_med2d", med + "kits",
+            med + "chaos", med + "plethora"]) <= set(names)
+from torch_em_tpu_torch.data.datasets import get_amos_loader, get_monuseg_loader
 from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_multi_device, train_multi_gpu
 from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
                                          save_sharded_checkpoint, shard_batch)
@@ -171,7 +177,8 @@ def test_source_names_no_jax(path):
     # the zoo's download and conversion packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
                          r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3|nd2"
-                         r"|pycocotools)\b", text, flags=re.MULTILINE)
+                         r"|pycocotools|geopandas|rasterio|shapely|scanpy|huggingface_hub|pydicom|tiffslide)\b", text,
+                         flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

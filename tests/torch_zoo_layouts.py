@@ -1,5 +1,5 @@
-"""Synthetic layouts of the dataset zoo's readers (electron and light microscopy), and the check
-that holds the port's reader against the JAX package's on them.
+"""Synthetic layouts of the dataset zoo's readers (electron and light microscopy, histopathology and
+medical), and the check that holds the port's reader against the JAX package's on them.
 
 Each case builds one small layout (8x64x64 volumes, 64x64 images) from a seed, twice: once
 for each package, in folders of its own, since several readers convert their sources on first
@@ -15,15 +15,27 @@ use and cache the result beside them. The check then calls both packages' getter
 - a batch of each loader, with the default augmentations, has the shapes of the JAX loader's;
 - the files a reader converts from its sources (``converted``) exist and are equal, container
   for container, and so is every file under both folders afterwards: HDF5 by datasets and
-  attributes, an archive by name, any other file byte for byte.
+  attributes, a gzip file (a ``.nii.gz`` volume) by its decompressed bytes, since its header holds
+  the time it was written, another archive by name, any other file byte for byte (the builders
+  write ``.mat`` files with ``save_mat``, which blanks the time in their header).
+
+The ``no_network`` fixture refuses every connection to another host while a test runs: a reader
+that would download something fails instead.
 
 Each getter is called under the same ``np.random.seed`` on both sides: some readers split their
 files with numpy's global ``RandomState`` on first use.
 """
 
+import ast
 import functools
+import gzip
 import importlib
+import inspect
 import json
+import os
+import pkgutil
+import re
+import socket
 import zipfile
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -31,6 +43,7 @@ from typing import Callable, Dict, List, Tuple
 
 import h5py
 import numpy as np
+import pytest
 from PIL import Image
 
 VOLUME, IMAGE = (8, 64, 64), (64, 64)
@@ -56,6 +69,7 @@ class Case:
     prepare: Callable = None  # prepare(module, root) on each side before the getters run
     name: str = ""
     domain: str = "electron_microscopy"
+    relative: bool = False  # call the getters with folders relative to the test's own, named "ref" and "port"
 
     @property
     def id(self):
@@ -64,6 +78,30 @@ class Case:
 
 LIGHT_MICROSCOPY = "light_microscopy"
 LMCase = functools.partial(Case, domain=LIGHT_MICROSCOPY)
+HISTOPATHOLOGY = "histopathology"
+HPCase = functools.partial(Case, domain=HISTOPATHOLOGY)
+MEDICAL = "medical"
+MedCase = functools.partial(Case, domain=MEDICAL)
+
+
+@pytest.fixture
+def no_network(monkeypatch):
+    """Connections to any host but this one raise ``OSError`` for the test's duration."""
+    local = {"localhost", "127.0.0.1", "::1"}
+    getaddrinfo, connect = socket.getaddrinfo, socket.socket.connect
+
+    def guarded_getaddrinfo(host, *args, **kwargs):
+        if host not in local:
+            raise socket.gaierror(f"the zoo's tests reach no other host ({host})")
+        return getaddrinfo(host, *args, **kwargs)
+
+    def guarded_connect(sock, address):
+        if sock.family in (socket.AF_INET, socket.AF_INET6) and address[0] not in local:
+            raise OSError(f"the zoo's tests reach no other host ({address[0]})")
+        return connect(sock, address)
+
+    monkeypatch.setattr(socket, "getaddrinfo", guarded_getaddrinfo)
+    monkeypatch.setattr(socket.socket, "connect", guarded_connect)
 
 
 def modules(package, domain="electron_microscopy"):
@@ -106,6 +144,17 @@ def save_stack(path, volume):
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     frames = [Image.fromarray(s) for s in volume]
     frames[0].save(path, save_all=True, append_images=frames[1:])
+
+
+def save_mat(path, **variables):
+    """A MATLAB file written by ``scipy.io.savemat`` with its header's time stamp blanked, so that
+    both packages' folders get the same bytes."""
+    from scipy.io import savemat
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    savemat(str(path), variables)
+    with open(path, "r+b") as f:
+        f.write(b"MATLAB 5.0 MAT-file".ljust(116))
 
 
 def zip_folder(src, zip_path, arcroot):
@@ -183,14 +232,16 @@ ARCHIVES = (".zip", ".gz", ".tgz", ".tar", ".rar", ".pt")  # torch.save writes a
 
 def same_tree(a, b):
     """Every file under ``a`` and ``b`` equal: the same relative paths; HDF5 files by datasets and
-    attributes; archives (the builders' sources, whose headers hold write times) by name; any
-    other file byte for byte."""
+    attributes; a gzip file that is not a tar archive by its decompressed bytes; other archives (the
+    builders' sources, whose headers hold write times) by name; any other file byte for byte."""
     a, b = Path(a), Path(b)
     files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
     assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
     for rel in files_a:
         if rel.suffix in (".h5", ".hdf5", ".hdf"):
             same_container(a / rel, b / rel)
+        elif rel.suffix == ".gz" and not rel.name.endswith(".tar.gz"):
+            assert gzip.decompress((a / rel).read_bytes()) == gzip.decompress((b / rel).read_bytes()), rel
         elif rel.suffix not in ARCHIVES:
             assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
 
@@ -201,7 +252,17 @@ def _call(module, name, root, kwargs, seed=1234):
 
 
 def check_case(case, tmp_path):
-    jax_root, port_root = tmp_path / "jax", tmp_path / "port"
+    if not case.relative:
+        return _check_case(case, tmp_path / "jax", tmp_path / "port")
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        return _check_case(case, Path("ref"), Path("port"))
+    finally:
+        os.chdir(cwd)
+
+
+def _check_case(case, jax_root, port_root):
     for root in (jax_root, port_root):
         root.mkdir()
         case.build(root)
@@ -231,3 +292,52 @@ def check_case(case, tmp_path):
     same_tree(jax_root, port_root)
     if case.check is not None:
         case.check(jax_mod, port_mod, jax_root, port_root)
+
+
+# module lists
+def public_names(module):
+    """The public names a module defines at its top level (functions, classes, assignments)."""
+    tree = ast.parse(Path(module.__file__).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def _parameters(function):
+    return str(inspect.signature(function).replace(return_annotation=inspect.Signature.empty))
+
+
+def domain_modules(package):
+    return sorted(m.name for m in pkgutil.iter_modules(package.__path__))
+
+
+def check_domain_matches_jax(jax_package, port_package, domain, n_modules):
+    """The port's modules of a domain are the JAX package's, with its public names and signatures, and
+    the port's domain package exports the JAX package's getters."""
+    assert domain_modules(port_package) == domain_modules(jax_package)
+    assert len(domain_modules(jax_package)) == n_modules
+    for name in domain_modules(jax_package):
+        jax_mod, port_mod = modules(name, domain)
+        assert public_names(port_mod) == public_names(jax_mod), name
+        for attr in public_names(jax_mod):
+            jax_obj, port_obj = getattr(jax_mod, attr), getattr(port_mod, attr)
+            if inspect.isfunction(jax_obj):  # the loaders return the port's DataLoader
+                assert _parameters(port_obj) == _parameters(jax_obj), (name, attr)
+    assert sorted(n for n in dir(port_package) if n.startswith("get_")) == \
+        sorted(n for n in dir(jax_package) if n.startswith("get_"))
+    port_zoo = importlib.import_module("torch_em_tpu_torch.data.datasets")
+    for getter in (n for n in dir(jax_package) if n.startswith("get_")):
+        assert getattr(port_zoo, getter) is getattr(port_package, getter)
+
+
+def check_every_module_has_a_case(port_package, test_files, case_name):
+    """Each module of the port's domain package has a ``case_name("<module>"`` case in ``test_files``."""
+    covered = set()
+    for path in sorted(test_files):
+        covered.update(re.findall(rf'{case_name}\("(\w+)"', Path(path).read_text()))
+    missing = sorted(set(domain_modules(port_package)) - covered)
+    assert not missing, f"modules without a parity case: {missing}"

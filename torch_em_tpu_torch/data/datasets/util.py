@@ -330,6 +330,11 @@ def generate_labeled_array_from_xml(shape: Tuple[int, ...], xml_file: str) -> np
     tree = ET.parse(xml_file)
     root = tree.getroot()
     label = np.zeros(shape, dtype="uint32")
+    # each polygon is drawn on one shared canvas and read back within its bounding box (with a margin
+    # for PIL's rounding): its id is new, so what earlier polygons left there never matches it, and the
+    # pixels are those of a fresh full-size canvas per polygon
+    img = Image.new("I", (shape[1], shape[0]), 0)
+    draw = ImageDraw.Draw(img)
     count = 1
     for region in root.iter("Region"):
         vertices = [
@@ -337,10 +342,13 @@ def generate_labeled_array_from_xml(shape: Tuple[int, ...], xml_file: str) -> np
         ]
         if len(vertices) < 3:
             continue
-        img = Image.new("I", (shape[1], shape[0]), 0)
-        ImageDraw.Draw(img).polygon(vertices, outline=count, fill=count)
-        mask = np.asarray(img)
-        label[mask == count] = count
+        xs, ys = [v[0] for v in vertices], [v[1] for v in vertices]
+        x0, y0 = max(math.floor(min(xs)) - 2, 0), max(math.floor(min(ys)) - 2, 0)
+        x1, y1 = min(math.ceil(max(xs)) + 3, shape[1]), min(math.ceil(max(ys)) + 3, shape[0])
+        draw.polygon(vertices, outline=count, fill=count)
+        if x0 < x1 and y0 < y1:
+            mask = np.asarray(img.crop((x0, y0, x1, y1)))
+            label[y0:y1, x0:x1][mask == count] = count
         count += 1
     return label
 
@@ -384,3 +392,50 @@ def _train_test_split(*arrays, test_size: float, random_state: Optional[int] = N
     perm = (np.random if random_state is None else np.random.RandomState(random_state)).permutation(n)
     train, test = perm[n_test:], perm[:n_test]
     return [[a[i] for i in part] for a in arrays for part in (train, test)]
+
+
+def _approximate_mode(class_counts, n_draws, rng):
+    """sklearn's ``utils.extmath._approximate_mode``: how many of ``n_draws`` each class gets, in
+    proportion to ``class_counts``, floored, the rest handed out by the largest remainder with ties
+    broken by ``rng.choice``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            floored[rng.choice(inds, size=add_now, replace=False)] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def _stratified_shuffle_split(y, train_size: float, test_size: float, random_state: int):
+    """The first split of sklearn's ``StratifiedShuffleSplit(train_size=..., test_size=...,
+    random_state=...).split(X, y)`` in numpy, for float sizes: ``floor(train_size * n)`` train and
+    ``ceil(test_size * n)`` test indices, each class allotted by ``_approximate_mode`` and drawn
+    from its own permutation, both sides permuted last, all from ``RandomState(random_state)``.
+    Returns (train indices, test indices)."""
+    y = np.asarray(y)
+    n = len(y)
+    n_train, n_test = math.floor(train_size * n), math.ceil(test_size * n)
+    classes, y_indices, class_counts = np.unique(y, return_inverse=True, return_counts=True)
+    if class_counts.min() < 2:
+        raise ValueError(f"the classes {classes[class_counts < 2].tolist()} have one member; a stratified split "
+                         "needs at least two")
+    if n_train + n_test > n or min(n_train, n_test) < len(classes):
+        raise ValueError(f"{n_train} train and {n_test} test samples of {n} cannot hold each of "
+                         f"{len(classes)} classes")
+    class_indices = np.split(np.argsort(y_indices, kind="stable"), np.cumsum(class_counts)[:-1])
+    rng = np.random.RandomState(random_state)
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(len(classes)):
+        perm = class_indices[i].take(rng.permutation(class_counts[i]), mode="clip")
+        train.extend(perm[:n_i[i]])
+        test.extend(perm[n_i[i]:n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
