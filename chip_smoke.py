@@ -194,7 +194,16 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    ``get_amos_loader(modality="CT")`` on AMOS' layout, 4 + 2 seeded int16 CT volumes of
    512x512x128 written with ``medical_io.save_nifti`` (each volume's gunzip and decode timed,
    read back equal); each as phase 17's (fit, resume, thread loader beside the bare step, the
-   zoo's samples against the arrays in memory).
+   zoo's samples against the arrays in memory);
+20. the quality probes' paths through the functions of ``scripts/torch_parity2d.py`` and
+   ``scripts/torch_parity3d.py``, 20 iterations each, scored on the best checkpoint by the
+   scripts' evaluators: (a) the DSB probe, ``UNet2d(1, 2, f=16, Sigmoid)`` at batch 4 of
+   128x128, on its whole seed-42 data (labels checked against the tracked files' sha256);
+   (b) the tracked DSB, f=64 at batch 8 of 256x256, on its first 32 train and 4 val images;
+   (c) the tracked CREMI model on one train and one val volume of 40x320x320, batch 1 of
+   32x256x256, ``DeviceBoundaryTransform`` on the card, scored on the (0:32, 0:256, 0:256)
+   crop; each with its launches (steps, validations, the scores' forwards), a finite and
+   falling loss and scores in [0, 1]. The full runs are the scripts'.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -221,7 +230,10 @@ test tail (batch 2) and at phase 19's steps, and phase 5 times them per step
 there: UNet2d f=64 at batch 8 of 512x512 from 3 input channels (rows 8 x 3 to
 8 x 1024, 262144 down to 4096 elements) and UNet3d f=32 at batch 2 of (128,
 128, 64) with isotropic pooling (rows 2 x 1 to 2 x 512, 1048576 down to 2048
-elements).
+elements); and at phase 20's DSB probe, UNet2d f=16 at batch 4 of 128x128 (rows
+4 x 1 to 4 x 256, 16384 down to 64 elements), where phase 5 times them per step.
+Phase 3 also holds the forward kernel at batch 4 of the DSB rows (f=64, 256x256),
+phase 20's scoring forwards.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -481,6 +493,18 @@ HP_PATCH = (512, 512)
 MED_AMOS_VOLUMES, MED_AMOS_SHAPE, MED_AMOS_CLASSES = (4, 2), (512, 512, 128), 16
 MED_MODEL = dict(in_channels=1, out_channels=MED_AMOS_CLASSES, initial_features=32, final_activation="Sigmoid")
 MED_DEPTH, MED_BATCH, MED_PATCH = 4, 2, (128, 128, 64)
+
+# the quality probes' paths (phase 20), through the functions of scripts/torch_parity2d.py and
+# scripts/torch_parity3d.py, QP_FIT iterations each: 20a the DSB probe (UNet2d f=16, batch 4 of 128x128) on its whole
+# data, its labels checked against the tracked files' sha256; 20b the tracked DSB (f=64, batch 8 of 256x256) on the
+# first QP_DSB_IMAGES (train, val) images (32 train images make 4 steps an epoch: each epoch writes a checkpoint of
+# 375 MB, and 8 images, one step an epoch, took 32 s of the phase on the card); 20c the tracked CREMI model on one train
+# and one val volume of 40x320x320, the boundary target on the card. The full runs are the scripts'. The DSB probe's
+# model and batch are the script's (phase 20 checks them), for the norm rows of phases 3 and 5
+QP_FIT, QP_DSB_IMAGES, QP_CREMI_VOLUMES = 20, (32, 4), (1, 1)
+DSB_PROBE_FEATURES, DSB_PROBE_BATCH, DSB_PROBE_PATCH = 16, 4, (128, 128)
+# the scripts' evaluation batch of the DSB images (phase 3 holds the forward at batch 4 of the f=64 rows)
+QP_EVAL_BATCH = 4
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
@@ -4233,6 +4257,77 @@ def phase_hp_med_zoo(port, inorm):
     return tuple(launches)
 
 
+def phase_quality_probes(port, inorm):
+    """The quality probes' paths at a smoke run's length, through the scripts' own functions: the DSB probe, the
+    tracked DSB and the tracked CREMI run, each trained QP_FIT iterations and scored by its evaluator on its best
+    checkpoint. Checks the launches (training steps, validations, the scores' forwards), a finite and falling loss
+    and scores in [0, 1]. Returns the kernels' launches of the three runs."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_parity2d
+    import torch_parity3d
+
+    probe = torch_parity2d.SCALES["probe"]
+    if (probe["features"], probe["batch_size"], (probe["size"],) * 2) != (DSB_PROBE_FEATURES, DSB_PROBE_BATCH,
+                                                                           DSB_PROBE_PATCH) or \
+            torch_parity2d.EVAL_BATCH != QP_EVAL_BATCH:
+        raise AssertionError(f"the DSB probe's model, batch or evaluation batch left phases 3 and 5's rows: {probe}")
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        def dsb_score_forwards(paths):  # the val images in batches of QP_EVAL_BATCH
+            return -(-len(paths["val"][0]) // QP_EVAL_BATCH)
+
+        cases = (
+            ("20a DSB probe", "dice_mean", dsb_score_forwards,
+             lambda: torch_parity2d.make_data(os.path.join(tmp, "dsb_probe"), "probe"),
+             lambda paths: torch_parity2d.train_seed(paths, "probe", 0, QP_FIT, "cuda", tmp)),
+            ("20b DSB tracked", "dice_mean", dsb_score_forwards,
+             lambda: torch_parity2d.make_data(os.path.join(tmp, "dsb_tracked"), "tracked", *QP_DSB_IMAGES),
+             lambda paths: torch_parity2d.train_seed(paths, "tracked", 0, QP_FIT, "cuda", tmp)),
+            ("20c CREMI tracked", "dice_boundary", lambda paths: len(paths["val"]),  # one crop a val volume
+             lambda: torch_parity3d.make_data(os.path.join(tmp, "cremi_tracked"), "tracked", *QP_CREMI_VOLUMES),
+             lambda paths: torch_parity3d.train_boundary(paths, 0, QP_FIT, "cuda", tmp, "tracked")))
+        for label, score, score_forwards_of, make_data, train in cases:
+            t = time.perf_counter()
+            paths = make_data()
+            data_s = time.perf_counter() - t
+            np.random.seed(0)
+            torch.manual_seed(0)
+            torch.cuda.synchronize()
+            inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+            t = time.perf_counter()
+            run, trainer = train(paths)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t
+            got = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+            validations, score_forwards = len(trainer.logger.metrics), score_forwards_of(paths)
+            expected = (NORMS_PER_FORWARD * (QP_FIT + len(trainer.val_loader) * validations + score_forwards),
+                        (NORMS_PER_FORWARD - 1) * QP_FIT)
+            log(f"{label}: data {data_s:.2f} s; fit, best checkpoint and score {run_s:.2f} s; launches forward "
+                f"{got[0]}, backward {got[1]} for {QP_FIT} steps, {validations} validations of "
+                f"{len(trainer.val_loader)} batch(es) and {score_forwards} scoring forward(s) (expected {expected})")
+            if got != expected:
+                raise AssertionError(f"{label}: kernel launches {got}, expected {expected}")
+            launches = [launches[0] + got[0], launches[1] + got[1]]
+            losses = trainer.logger.losses
+            first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+            scores = {k: v for k, v in run.items() if k.startswith("dice_")}
+            log(f"{label}: loss first four {first:.4f}, last four {last:.4f}; best checkpoint at iteration "
+                f"{run['best_checkpoint_iteration']}; {json.dumps(scores)}")
+            if len(losses) != QP_FIT or not np.all(np.isfinite(losses)) or not last < first:
+                raise AssertionError(f"{label}: the training loss is not finite or does not fall")
+            if not all(np.isfinite(v) and 0 <= v <= 1 for v in scores.values()) or score not in scores:
+                raise AssertionError(f"{label}: scores {scores}")
+            stats[label.split()[0]] = {"data_s": data_s, "run_s": run_s, score: run[score], "loss": [first, last]}
+            del trainer
+            torch.cuda.empty_cache()
+    stats["norm_launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"quality probes: {json.dumps(stats)}; {nvidia_smi()}")
+    return tuple(launches)
+
+
 def time_host_ms(fn, *args, repeats=5):
     """Median host time of ``fn(*args)`` in ms."""
     times = []
@@ -4302,7 +4397,11 @@ def main():
                                                         widths(HP_MODEL["initial_features"], DSB_DEPTH),
                                                         in_channels=HP_MODEL["in_channels"])),
                      "amos": (MED_BATCH, norm_shapes(MED_PATCH, [[2, 2, 2]] * MED_DEPTH,
-                                                     widths(MED_MODEL["initial_features"], MED_DEPTH)))}
+                                                     widths(MED_MODEL["initial_features"], MED_DEPTH))),
+                     # and phase 20's DSB probe: UNet2d f=16 at batch 4 of 128x128, its validation and scoring
+                     # batches too
+                     "dsb_probe": (DSB_PROBE_BATCH, norm_shapes(DSB_PROBE_PATCH, [[2, 2]] * DSB_DEPTH,
+                                                                widths(DSB_PROBE_FEATURES, DSB_DEPTH)))}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
@@ -4323,7 +4422,9 @@ def main():
         # Shallow2DeepModel's enhancer (phase 16) on two 512x512 images in float32
         predict_shapes = {"s2d_predict": (S2D_PREDICT[0], norm_shapes(S2D_PREDICT[1], [[2, 2]] * S2D_DEPTH,
                                                                       widths(S2D_MODEL["initial_features"],
-                                                                             S2D_DEPTH)))}
+                                                                             S2D_DEPTH))),
+                          # and the tracked DSB's scoring forwards in phase 20 (and its validation batch there)
+                          "dsb_score": (QP_EVAL_BATCH, dsb_shapes)}
         forward = phase_norm_kernel(inorm, shapes, train_shapes, dsb_shapes, snemi_shapes, spoco_shapes, vit_shapes,
                                     st_shapes, sharded_shapes, predict_shapes)
 
@@ -4391,18 +4492,23 @@ def main():
         log("phase 19: the dataset zoo's histopathology and medical readers: get_monuseg_loader on MoNuSeg's XML "
             "layout into UNet2d at DSB width, get_amos_loader on AMOS' CT NIfTI volumes into UNet3d")
         zoo_fwd, zoo_bwd = phase_hp_med_zoo(port, inorm)
+
+        log("phase 20: the quality probes' paths: the DSB probe (UNet2d f=16, 128x128), the tracked DSB (f=64, "
+            "256x256) and the tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py")
+        qp_fwd, qp_bwd = phase_quality_probes(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd)
+                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd + qp_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd + s2d_bwd + em_bwd + lm_bwd + zoo_bwd)
+                                + md_bwd + s2d_bwd + em_bwd + lm_bwd + zoo_bwd + qp_bwd)
         log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
             f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
             f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep + "
-            f"{em_fwd} EM zoo + {lm_fwd} LM zoo + {zoo_fwd} histopathology and medical zoo; backward kernel launches: "
+            f"{em_fwd} EM zoo + {lm_fwd} LM zoo + {zoo_fwd} histopathology and medical zoo + {qp_fwd} quality "
+            f"probes; backward kernel launches: "
             f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + "
             f"{vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families + {md_bwd} "
             f"multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM zoo + {lm_bwd} LM zoo + {zoo_bwd} histopathology and "
-            f"medical zoo")
+            f"medical zoo + {qp_bwd} quality probes")
     except Exception:
         traceback.print_exc()
         log("FAILED")

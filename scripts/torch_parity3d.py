@@ -1,6 +1,7 @@
 """The port's quality points: the 3D parity probes of ``experiments/parity``, run with the port.
 
     python3 scripts/torch_parity3d.py --mode boundary --seeds 0 1 2 3 4 5 6 7 -o OUT
+    python3 scripts/torch_parity3d.py --mode boundary --scale tracked --seeds 0 1 2 -o OUT
     python3 scripts/torch_parity3d.py --mode affinity --seeds 0 1 2 3 -o OUT
     python3 scripts/torch_parity3d.py --mode boundary --seeds 0 --iterations 4 --device cpu -o OUT
 
@@ -9,11 +10,13 @@ card's name and power limit), and runs on the card unless ``--device
 cpu``. Steps:
 
 1. Data: regenerates the probe volumes of ``experiments/parity/make_data3d.py``
-   (seed 13, 6 train and 2 val volumes of 24x96x96) with the port's
-   ``utils.test.make_volume`` into ``OUT/data`` as ``.npy`` and prints a
-   sha256 of each labels volume (uint32, C order), which
-   ``tests/test_torch_parity3d.py`` takes from the HDF5 files of
-   ``experiments/parity/parity_data3d``.
+   (seed 13, 6 train and 2 val volumes of 24x96x96; ``--scale tracked``: 4
+   train and 2 val volumes of 40x320x320, ``--shape 40,320,320 --n-train 4
+   --n-val 2``) with the port's ``utils.test.make_volume`` into ``OUT/data``
+   as ``.npy`` and prints a sha256 of each labels volume (uint32, C order),
+   which ``tests/test_torch_parity3d.py`` takes from the HDF5 files of
+   ``experiments/parity/parity_data3d`` (the tracked-scale volumes are not in
+   the tree: the test holds the first against ``make_data3d.py``'s generator).
 2. ``--mode boundary``, the CREMI-style "pb" protocol of
    ``experiments/parity/run_r5_tpu_seeds.sh`` (``train_tpu3d.py --fixed-val
    --precomputed-boundaries``): ``BoundaryTransform(mode="thick", ndim=3)``
@@ -27,6 +30,26 @@ cpu``. Steps:
    seeds' mean and std beside the 16-seed distributions of
    ``experiments/parity/parity_r5_summary.json`` (JAX package and
    reference torch-em), with each mean gap and Welch's t.
+   ``--scale tracked``, the tracked CREMI run of
+   ``experiments/parity/run_r3_all.sh`` (``train_tpu3d.py --device-transform
+   --patch 32,256,256 --features 32 --tracked-model``): the tracked
+   ``AnisotropicUNet(scale_factors=[[1,2,2],[1,2,2],[2,2,2],[2,2,2]],
+   initial_features=32, anisotropic_kernel=True, Sigmoid)``, raw labels to
+   the card and ``DeviceBoundaryTransform(ndim=3)`` as the trainer's device
+   label transform, patches (32, 256, 256) at batch 1 with the loader's
+   default augmentations, validation on 8 random patches, 1000 iterations
+   (what ``parity_out3d_tracked/tpu_result3d.json`` records); the score is the
+   soft boundary Dice of the best checkpoint's predictions of each val
+   volume's (0:32, 0:256, 0:256) crop against host
+   ``BoundaryTransform(mode="thick", ndim=3)`` targets of the whole volume,
+   cropped the same way (``train_tpu3d.py``, ``evaluate3d.py --patch
+   32,256,256``). The summary sets the seeds' mean beside the JAX package's
+   one run (0.9847, ``parity_out3d_tracked/parity_table3d.json``), with the
+   gap and the one-sample t, and beside the reference's 0.9838 (torch-em
+   trained 800 iterations on 16x128x128 patches, scored at 32x256x256).
+   A tracked point is a hit when the seeds' mean lies within 1% of JAX's.
+   Both scales record each seed's training loss, learning rate and
+   validation metric per epoch through a logger that changes no step.
 3. ``--mode affinity``, the SNEMI-style probe of
    ``experiments/parity/train_affinity3d.py``: six offsets through
    ``AffinityTransform(add_binary_target=True, add_mask=True)``, masked Dice
@@ -40,7 +63,9 @@ cpu``. Steps:
    F1 0.3119, ``parity_out_affinity/affinity_mws_results.json``), with the
    one-sample t of the seeds against it.
 
-Writes ``OUT/<mode>_results.json`` and prints the card's name and power limit
+Writes ``OUT/<mode>_results.json`` (``OUT/boundary_tracked_results.json`` at
+the tracked scale) with cuDNN's and the matmuls' TF32 and determinism flags
+and prints the card's name and power limit
 and the summary as the last line.
 """
 
@@ -61,6 +86,7 @@ import torch_em_tpu_torch as port  # noqa: E402
 from chip_smoke import nvidia_smi  # noqa: E402
 from torch_em_tpu_torch.loss import ApplyAndRemoveMask, DiceLoss, LossWrapper  # noqa: E402
 from torch_em_tpu_torch.metric import matching, rand_index, variation_of_information  # noqa: E402
+from torch_em_tpu_torch.ops.device import DeviceBoundaryTransform  # noqa: E402
 from torch_em_tpu_torch.transforms import AffinityTransform, BoundaryTransform  # noqa: E402
 from torch_em_tpu_torch.utils.segmentation import mutex_watershed_segmentation  # noqa: E402
 from torch_em_tpu_torch.utils.test import make_volume  # noqa: E402
@@ -72,6 +98,13 @@ SCALE_FACTORS = [[1, 2, 2], [2, 2, 2]]
 AFFINITY_OFFSETS = [[-1, 0, 0], [0, -1, 0], [0, 0, -1], [-2, 0, 0], [0, -3, 0], [0, 0, -3]]
 ITERATIONS = {"boundary": 1500, "affinity": 1200}
 SAMPLES_PER_EPOCH = 50
+# the tracked scale (boundary mode): make_data3d.py --shape 40,320,320 --n-train 4 --n-val 2, train_tpu3d.py
+# --device-transform --patch 32,256,256 --features 32 --tracked-model, 1000 iterations
+TRACKED_VOLUME, TRACKED_N_TRAIN, TRACKED_N_VAL = (40, 320, 320), 4, 2
+TRACKED_PATCH, TRACKED_ITERATIONS, TRACKED_VAL_SAMPLES = (32, 256, 256), 1000, 8
+TRACKED_MODEL = dict(in_channels=1, out_channels=1, initial_features=32,
+                     scale_factors=[[1, 2, 2], [1, 2, 2], [2, 2, 2], [2, 2, 2]], anisotropic_kernel=True,
+                     final_activation="Sigmoid")
 
 # experiments/parity/parity_r5_summary.json, "cremi3d_free_seeds_r5": the soft boundary
 # Dice of seeds 0-15 under the pb protocol
@@ -81,6 +114,53 @@ REFERENCE_BOUNDARY_DICE = [0.9632, 0.9624, 0.9434, 0.9672, 0.9734, 0.9706, 0.899
                            0.924, 0.9426, 0.9555, 0.9629, 0.9586, 0.9651, 0.9683, 0.9257]
 # experiments/parity/parity_out_affinity/affinity_mws_results.json: the JAX package's one run
 JAX_AFFINITY = {"mean_voi": 0.6389, "mean_f1": 0.3119}
+# experiments/parity/parity_out3d_tracked/parity_table3d.json: the tracked scale's boundary Dice, the JAX
+# package's one run and the reference's
+JAX_TRACKED_DICE, REFERENCE_TRACKED_DICE = 0.9847, 0.9838
+# a quality point is a hit when the port's mean lies within this share of its yardstick (the north star's rule)
+HIT_SHARE = 0.01
+
+
+class CurveLog:
+    """A trainer logger that records each step's training loss and learning rate and each validation's
+    metric; it reads them and changes no step."""
+
+    def __init__(self, trainer, save_root, **kwargs):
+        self.losses, self.lrs, self.metrics = [], [], []
+
+    def log_train(self, step, loss, lr, x, y, prediction, log_gradients=False):
+        self.losses.append(loss)
+        self.lrs.append(lr)
+
+    def log_validation(self, step, metric, loss, x, y, prediction):
+        self.metrics.append(metric)
+
+    def curves(self, steps_per_epoch):
+        """Per epoch: the mean training loss, the learning rate and the validation metric."""
+        starts = range(0, len(self.losses), steps_per_epoch)
+        return {"train_loss": [float(np.mean(self.losses[i:i + steps_per_epoch])) for i in starts],
+                "lr": [self.lrs[i] for i in starts], "val_metric": list(self.metrics)}
+
+
+def backend_flags():
+    """The switches that decide the card's arithmetic in these runs."""
+    return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+            "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn.deterministic": torch.backends.cudnn.deterministic,
+            "cudnn.benchmark": torch.backends.cudnn.benchmark}
+
+
+def one_sample_t(values, value):
+    """The one-sample t of ``values`` against a single ``value`` (None for fewer than two values or no spread)."""
+    values = np.asarray(values, dtype=np.float64)
+    std = values.std(ddof=1) if len(values) > 1 else 0.0
+    return float((values.mean() - value) / (std / np.sqrt(len(values)))) if std else None
+
+
+def hit(mean, yardstick):
+    """The north star's rule: the relative gap of ``mean`` to ``yardstick`` and whether it lies within HIT_SHARE."""
+    relative = (mean - yardstick) / yardstick
+    return {"yardstick": yardstick, "relative_gap": relative, "hit": bool(abs(relative) <= HIT_SHARE)}
 
 
 def identity(raw):
@@ -96,17 +176,23 @@ def labels_digest(labels: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(labels, dtype=np.uint32).tobytes()).hexdigest()
 
 
-def make_data(folder):
-    """The probe volumes as ``.npy`` under ``folder``/{train,val}; returns {split: [(raw, labels,
-    boundaries) paths]} and prints each labels volume's sha256."""
+def make_data(folder, scale="probe", n_train=None, n_val=None):
+    """The volumes of ``scale`` as ``.npy`` under ``folder``/{train,val}; returns {split: [(raw, labels,
+    boundaries) paths]} and prints each labels volume's sha256. ``n_train``/``n_val`` cut a split to its
+    first volumes (drawn in the same order, so a cut train split moves the val volumes)."""
+    if scale == "probe":
+        shape, counts = VOLUME, (N_TRAIN, N_VAL)
+    else:
+        shape, counts = TRACKED_VOLUME, (TRACKED_N_TRAIN, TRACKED_N_VAL)
+    counts = [c if n is None else n for c, n in zip(counts, (n_train, n_val))]
     rng = np.random.default_rng(DATA_SEED)
     boundaries = BoundaryTransform(mode="thick", ndim=3)
     paths = {}
-    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+    for split, n in zip(("train", "val"), counts):
         os.makedirs(os.path.join(folder, split), exist_ok=True)
         paths[split] = []
         for i in range(n):
-            raw, labels = make_volume(rng, VOLUME)
+            raw, labels = make_volume(rng, shape)
             files = tuple(os.path.join(folder, split, f"vol{i}_{key}.npy") for key in ("raw", "labels", "boundaries"))
             for file, data in zip(files, (raw, labels, boundaries(labels).astype("float32")[0])):
                 np.save(file, data)
@@ -137,33 +223,53 @@ def distribution(values):
             "std": float(values.std(ddof=1)) if len(values) > 1 else None}
 
 
-def predict_crops(model, val, device):
-    """The model's predictions (N_VAL, C, *PATCH) on the val ROIs, float32 on the host."""
+def predict_crops(model, val, device, roi=VAL_ROI):
+    """The model's predictions (N_VAL, C, *patch) on the val volumes' ``roi``, float32 on the host."""
     model.eval()
-    raws = np.stack([np.load(r)[VAL_ROI] for r, _, _ in val])[:, None]
+    raws = np.stack([np.load(r)[roi] for r, _, _ in val])[:, None]
     with torch.no_grad():
         return np.concatenate([model(torch.from_numpy(x[None]).to(device)).float().cpu().numpy() for x in raws])
 
 
-def train_boundary(paths, seed, iterations, device, out):
+def train_boundary(paths, seed, iterations, device, out, scale="probe"):
+    """Train and score one seed; returns its result and the trainer (best checkpoint loaded)."""
     train, val = paths["train"], paths["val"]
-    train_loader = port.default_segmentation_loader(
-        [r for r, _, _ in train], None, [b for _, _, b in train], None, batch_size=1, patch_shape=PATCH, ndim=3,
-        label_dtype="float32", raw_transform=identity, n_samples=SAMPLES_PER_EPOCH)
-    val_loader = port.default_segmentation_loader(
-        [r for r, _, _ in val], None, [b for _, _, b in val], None, batch_size=1, patch_shape=PATCH, ndim=3,
-        label_dtype="float32", raw_transform=identity, rois=[VAL_ROI] * len(val), transform=no_augmentation)
-    model = port.AnisotropicUNet(in_channels=1, out_channels=1, initial_features=8, scale_factors=SCALE_FACTORS,
-                                 final_activation="Sigmoid", device=device, seed=seed)
+    if scale == "probe":
+        patch, roi = PATCH, VAL_ROI
+        train_loader = port.default_segmentation_loader(
+            [r for r, _, _ in train], None, [b for _, _, b in train], None, batch_size=1, patch_shape=PATCH, ndim=3,
+            label_dtype="float32", raw_transform=identity, n_samples=SAMPLES_PER_EPOCH)
+        val_loader = port.default_segmentation_loader(
+            [r for r, _, _ in val], None, [b for _, _, b in val], None, batch_size=1, patch_shape=PATCH, ndim=3,
+            label_dtype="float32", raw_transform=identity, rois=[VAL_ROI] * len(val), transform=no_augmentation)
+        model = port.AnisotropicUNet(in_channels=1, out_channels=1, initial_features=8, scale_factors=SCALE_FACTORS,
+                                     final_activation="Sigmoid", device=device, seed=seed)
+        device_targets = None
+    else:
+        patch = TRACKED_PATCH
+        roi = tuple(slice(0, p) for p in patch)
+
+        def loader(files, n_samples):
+            return port.default_segmentation_loader(
+                [r for r, _, _ in files], None, [lab for _, lab, _ in files], None, batch_size=1, patch_shape=patch,
+                ndim=3, label_dtype="float32", raw_transform=identity, n_samples=n_samples)
+
+        train_loader, val_loader = loader(train, SAMPLES_PER_EPOCH), loader(val, TRACKED_VAL_SAMPLES)
+        model = port.AnisotropicUNet(**TRACKED_MODEL, device=device, seed=seed)
+        device_targets = DeviceBoundaryTransform(ndim=3)
     trainer = port.default_segmentation_trainer(
-        f"parity-boundary-s{seed}", model, train_loader, val_loader, learning_rate=1e-4,
-        optimizer_kwargs={"weight_decay": 0.01}, device=device, save_root=out)
+        f"parity-boundary-{scale}-s{seed}", model, train_loader, val_loader, learning_rate=1e-4,
+        optimizer_kwargs={"weight_decay": 0.01}, device=device, save_root=out, logger=CurveLog,
+        device_label_transform=device_targets)
     trainer.fit(iterations=iterations)
+    trained = trainer.iteration
     trainer.load_checkpoint("best")
-    preds = predict_crops(trainer.model, val, device)
-    targets = np.stack([np.load(b)[VAL_ROI] for _, _, b in val])[:, None]
-    return {"seed": seed, "dice_boundary": soft_dice(preds, targets), "best_val_metric": trainer.best_metric,
-            "iterations": trainer.iteration}
+    preds = predict_crops(trainer.model, val, device, roi)
+    targets = np.stack([np.load(b)[roi] for _, _, b in val])[:, None]
+    run = {"seed": seed, "dice_boundary": soft_dice(preds, targets), "best_val_metric": trainer.best_metric,
+           "iterations": trained, "best_checkpoint_iteration": trainer.iteration,
+           "curves": trainer.logger.curves(len(train_loader))}
+    return run, trainer
 
 
 def affinity_loader(files, n_samples):
@@ -206,7 +312,16 @@ def train_affinity(paths, seed, iterations, device, out):
             "mean_one_minus_rand_index": float(np.mean([v["one_minus_rand_index"] for v in volumes]))}
 
 
-def summarize(mode, runs):
+def summarize(mode, runs, scale="probe"):
+    if mode == "boundary" and scale == "tracked":
+        dice = [r["dice_boundary"] for r in runs]
+        summary = {"port": distribution(dice)}
+        summary["vs_jax"] = {"jax_n1": JAX_TRACKED_DICE, "mean_gap": summary["port"]["mean"] - JAX_TRACKED_DICE,
+                             "one_sample_t": one_sample_t(dice, JAX_TRACKED_DICE)}
+        summary["vs_reference"] = {"reference_n1": REFERENCE_TRACKED_DICE,
+                                   "mean_gap": summary["port"]["mean"] - REFERENCE_TRACKED_DICE}
+        summary["hit"] = hit(summary["port"]["mean"], JAX_TRACKED_DICE)
+        return summary
     if mode == "boundary":
         dice = [r["dice_boundary"] for r in runs]
         summary = {"port": distribution(dice), "jax": distribution(JAX_BOUNDARY_DICE),
@@ -220,42 +335,52 @@ def summarize(mode, runs):
     for key in ("mean_voi", "mean_f1", "mean_adapted_rand_error", "mean_one_minus_rand_index"):
         summary[key] = distribution([r[key] for r in runs])
     for key, jax_value in JAX_AFFINITY.items():
-        port_values = summary[key]
-        gap = port_values["mean"] - jax_value
-        t = gap / (port_values["std"] / np.sqrt(port_values["n"])) if port_values["std"] else None
-        summary[f"{key}_vs_jax"] = {"jax_n1": jax_value, "mean_gap": gap, "one_sample_t": t}
+        summary[f"{key}_vs_jax"] = {"jax_n1": jax_value, "mean_gap": summary[key]["mean"] - jax_value,
+                                    "one_sample_t": one_sample_t([r[key] for r in runs], jax_value)}
     return summary
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--mode", choices=("boundary", "affinity"), required=True)
+    parser.add_argument("--scale", choices=("probe", "tracked"), default="probe",
+                        help="tracked: the tracked CREMI model and scale (boundary mode only)")
     parser.add_argument("--seeds", type=int, nargs="+", required=True)
     parser.add_argument("-o", "--output", required=True)
     parser.add_argument("-n", "--iterations", type=int, default=None,
-                        help="default: 1500 (boundary) or 1200 (affinity), as the JAX probes ran")
+                        help="default: 1500 (boundary), 1000 (boundary, tracked) or 1200 (affinity), as the "
+                             "JAX runs")
     parser.add_argument("-d", "--device", default="cuda")
     args = parser.parse_args(argv)
+    if args.mode == "affinity" and args.scale == "tracked":
+        parser.error("--scale tracked runs the boundary mode only")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("torch_parity3d: no CUDA device is available; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    iterations = ITERATIONS[args.mode] if args.iterations is None else args.iterations
+    tracked = args.scale == "tracked"
+    default = TRACKED_ITERATIONS if tracked else ITERATIONS[args.mode]
+    iterations = default if args.iterations is None else args.iterations
     os.makedirs(args.output, exist_ok=True)
-    paths = make_data(os.path.join(args.output, "data"))
-    train = train_boundary if args.mode == "boundary" else train_affinity
+    paths = make_data(os.path.join(args.output, "data"), args.scale)
     runs = []
     for seed in args.seeds:
         np.random.seed(seed)
         torch.manual_seed(seed)
         t = time.perf_counter()
-        run = train(paths, seed, iterations, args.device, args.output)
+        if args.mode == "boundary":
+            run, _ = train_boundary(paths, seed, iterations, args.device, args.output, args.scale)
+        else:
+            run = train_affinity(paths, seed, iterations, args.device, args.output)
         run["seconds"] = time.perf_counter() - t
         runs.append(run)
-        print(f"{args.mode} seed {seed}: {json.dumps(run)}", flush=True)
-    result = {"mode": args.mode, "device": args.device, "card": nvidia_smi() if args.device != "cpu" else None,
-              "iterations": iterations, "runs": runs, "summary": summarize(args.mode, runs)}
-    with open(os.path.join(args.output, f"{args.mode}_results.json"), "w") as f:
+        print(f"{args.mode} {args.scale} seed {seed}: "
+              f"{json.dumps({k: v for k, v in run.items() if k != 'curves'})}", flush=True)
+    result = {"mode": args.mode, "scale": args.scale, "device": args.device,
+              "card": nvidia_smi() if args.device != "cpu" else None, "backend": backend_flags(),
+              "iterations": iterations, "runs": runs, "summary": summarize(args.mode, runs, args.scale)}
+    name = f"{args.mode}_tracked" if tracked else args.mode
+    with open(os.path.join(args.output, f"{name}_results.json"), "w") as f:
         json.dump(result, f, indent=2)
     if result["card"]:
         print(result["card"], flush=True)

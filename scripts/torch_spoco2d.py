@@ -4,15 +4,16 @@
     python3 scripts/torch_spoco2d.py --seeds 0 --iterations 4 --device cpu -o OUT
 
 Imports only the port (``torch_em_tpu_torch``), ``chip_smoke`` (for the
-card's name and power limit) and ``scripts/torch_parity3d.py`` (its
-statistics), and runs on the card unless ``--device cpu``. Steps:
+card's name and power limit) and ``scripts/torch_parity3d.py`` and
+``scripts/torch_parity2d.py`` (their statistics and the DSB probe's data),
+and runs on the card unless ``--device cpu``. Steps:
 
-1. Data: regenerates ``experiments/parity/parity_data`` (``make_data.py``,
-   seed 42: 128 train and 16 val images of 128x128) with the port's
-   ``utils.test.make_image`` and writes each image and its labels to
-   ``OUT/data/<split>`` as ``.npy``; prints the sha256 of each split's
-   labels (uint32, C order, images stacked) and fails unless it equals that
-   of the tracked HDF5 file.
+1. Data: the DSB probe's (``torch_parity2d.make_data``): regenerates
+   ``experiments/parity/parity_data`` (``make_data.py``, seed 42: 128 train
+   and 16 val images of 128x128) with the port's ``utils.test.make_image``
+   and writes each image and its labels to ``OUT/data/<split>`` as
+   ``.npy``; prints the sha256 of each split's labels (uint32, C order,
+   images stacked) and fails unless it equals that of the tracked HDF5 file.
 2. Training, per seed: ``UNet2d(1 -> 8, initial_features=16)`` with the
    seed as its init seed, batch 4, float32 (``mixed_precision=False``, as
    the JAX script: bf16 distance matrices overflow), ``SPOCOLoss(0.75, 2.0,
@@ -37,7 +38,6 @@ prints the card's name and power limit and the summary as the last line.
 """
 
 import argparse
-import hashlib
 import json
 import os
 import sys
@@ -58,44 +58,16 @@ from torch_em_tpu_torch.metric import rand_index, variation_of_information  # no
 from torch_em_tpu_torch.metric.instance_segmentation_metric import EmbeddingMWS  # noqa: E402
 from torch_em_tpu_torch.trainer import SPOCOTrainer  # noqa: E402
 from torch_em_tpu_torch.utils.grid_search import instance_segmentation_grid_search  # noqa: E402
-from torch_em_tpu_torch.utils.test import make_image  # noqa: E402
+from torch_parity2d import SCALES, make_data  # noqa: E402
 from torch_parity3d import distribution  # noqa: E402
 
-DATA_SEED, SPLITS, SIZE = 42, (("train", 128), ("val", 16)), 128
-# sha256 of the labels of experiments/parity/parity_data/{train,val}.h5 (uint32, C order)
-LABELS_SHA256 = {"train": "411d047a7887f18dd38073db719ba3ac7a270232c846891a268c60527a8b6757",
-                 "val": "375682289ecf8e388ac4d58f5aa76b1ee71e865350322b7c0a85a73d5b99ac19"}
+SIZE = SCALES["probe"]["size"]
 EMBED_DIM, BATCH, ITERATIONS = 8, 4, 2000
 OFFSETS = [[-1, 0], [0, -1], [-3, 0], [0, -3], [-9, 0], [0, -9]]
 GRID = {"delta": [1.0, 1.5, 2.0, 2.5], "min_seg_size": [50, 100, 200, 400]}
 # experiments/parity/parity_out_spoco/spoco_results.json: the JAX package's one run
 # (its 6.2 ground-truth instances are the mean 6.25 of the same images, rounded)
 JAX_SPOCO = {"mean_voi": 1.2461, "mean_one_minus_rand_index": 0.2524, "mean_pred_instances": 6.9}
-
-
-def labels_digest(labels) -> str:
-    return hashlib.sha256(np.ascontiguousarray(labels, dtype=np.uint32).tobytes()).hexdigest()
-
-
-def make_data(folder):
-    """The probe images as ``.npy`` under ``folder``/<split>; returns {split: ([raw paths], [label
-    paths])} and checks each split's labels against the tracked files' sha256."""
-    rng = np.random.default_rng(DATA_SEED)
-    paths = {}
-    for split, n in SPLITS:
-        os.makedirs(os.path.join(folder, split), exist_ok=True)
-        labels, paths[split] = [], ([], [])
-        for i in range(n):
-            raw, lab = make_image(rng, size=SIZE)
-            for files, name, data in zip(paths[split], ("raw", "labels"), (raw, lab)):
-                files.append(os.path.join(folder, split, f"{name}_{i:03d}.npy"))
-                np.save(files[-1], data)
-            labels.append(lab)
-        digest = labels_digest(np.stack(labels))
-        print(f"data {split}: {n} images of {SIZE}x{SIZE}, labels sha256 {digest}", flush=True)
-        if digest != LABELS_SHA256[split]:
-            raise RuntimeError(f"the regenerated {split} labels differ from experiments/parity/parity_data")
-    return paths
 
 
 def embed(model, image, device):

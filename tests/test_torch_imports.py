@@ -9,7 +9,8 @@ port builds itself. The port needs none of the optional ones: here most of
 them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
-scripts ``scripts/torch_parity3d.py`` and ``scripts/torch_spoco2d.py``, and
+scripts ``scripts/torch_parity3d.py``, ``scripts/torch_parity2d.py`` and
+``scripts/torch_spoco2d.py``, and
 reads an HDF5, a zarr and an N5 path and a PNG file, writes HDF5 test data, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
 trainer's, self-training's and classification's) and wandb loggers and a
@@ -78,6 +79,7 @@ import chip_smoke
 assert callable(chip_smoke.main)
 import runpy
 runpy.run_path("scripts/torch_parity3d.py", run_name="probe")
+runpy.run_path("scripts/torch_parity2d.py", run_name="probe")
 runpy.run_path("scripts/torch_spoco2d.py", run_name="probe")
 import types
 import numpy as np
@@ -156,7 +158,8 @@ print(len(names))
 
 def _port_sources():
     return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_spoco2d.py", "torch_s2d_forests.py")]
+        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_parity2d.py", "torch_spoco2d.py",
+                                          "torch_s2d_forests.py")]
 
 
 def test_port_imports_with_jax_stack_blocked():

@@ -7,6 +7,10 @@
 - Its yardsticks equal ``experiments/parity``'s records, and its Welch t
   reproduces the one recorded there for the JAX package against torch-em.
 - Both modes run end to end for 4 iterations on the CPU.
+- The tracked scale: the port's ``make_volume`` at (40, 320, 320) from seed 13 gives the
+  first train volume of ``experiments/parity/make_data3d.py``'s generator (the tracked-scale
+  files are not in the tree), its yardsticks are ``parity_out3d_tracked``'s records, and it
+  runs end to end for 2 iterations at a narrowed width, volume and patch.
 """
 
 import importlib.util
@@ -72,6 +76,26 @@ def test_yardsticks_match_the_records():
         affinity = json.load(f)
     assert probe.JAX_AFFINITY == {"mean_voi": affinity["mean_voi"], "mean_f1": affinity["mean_f1"]}
     assert probe.ITERATIONS["affinity"] == affinity["iterations"]
+    with open(os.path.join(PARITY, "parity_out3d_tracked", "parity_table3d.json")) as f:
+        tracked = json.load(f)
+    assert probe.JAX_TRACKED_DICE == tracked["torch_em_tpu"]["dice_boundary"]
+    assert probe.REFERENCE_TRACKED_DICE == tracked["reference-torch"]["dice_boundary"]
+    with open(os.path.join(PARITY, "parity_out3d_tracked", "tpu_result3d.json")) as f:
+        assert probe.TRACKED_ITERATIONS == json.load(f)["iterations"]
+
+
+def test_tracked_volume_equals_the_jax_generator():
+    """``make_data3d.py --shape 40,320,320 --seed 13``'s first train volume: labels bitwise, raw within 1e-6."""
+    from torch_em_tpu_torch.utils.test import make_volume
+
+    spec = importlib.util.spec_from_file_location("make_data3d", os.path.join(PARITY, "make_data3d.py"))
+    make_data3d = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_data3d)
+    raw, labels = make_volume(np.random.default_rng(probe.DATA_SEED), probe.TRACKED_VOLUME)
+    expected_raw, expected_labels = make_data3d.make_volume(np.random.default_rng(13), (40, 320, 320))
+    assert labels.shape == probe.TRACKED_VOLUME and labels.dtype == expected_labels.dtype
+    np.testing.assert_array_equal(labels, expected_labels)
+    np.testing.assert_allclose(raw, expected_raw, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("mode", ["boundary", "affinity"])
@@ -89,6 +113,28 @@ def test_probe_runs_on_the_cpu(mode, tmp_path):
             assert len(run["per_volume"]) == 2 and np.isfinite(run["mean_voi"]) and 0 <= run["mean_f1"] <= 1
             assert all(v["n_pred_instances"] > 0 for v in run["per_volume"])
         assert summary["mean_voi"]["n"] == 2 and "one_sample_t" in summary["mean_f1_vs_jax"]
+
+
+def test_tracked_scale_runs_on_the_cpu(tmp_path, monkeypatch):
+    """The tracked boundary run with the device label transform, at 4 features on 12x64x64 volumes and
+    8x32x32 patches, for 2 iterations per seed."""
+    monkeypatch.setattr(probe, "TRACKED_VOLUME", (12, 64, 64))
+    monkeypatch.setattr(probe, "TRACKED_PATCH", (8, 32, 32))
+    monkeypatch.setattr(probe, "TRACKED_MODEL", dict(probe.TRACKED_MODEL, initial_features=4))
+    args = ["--mode", "boundary", "--scale", "tracked", "--seeds", "0", "1", "-n", "2", "-d", "cpu"]
+    assert probe.main(args + ["-o", str(tmp_path)]) == 0
+    with open(tmp_path / "boundary_tracked_results.json") as f:
+        result = json.load(f)
+    assert len(os.listdir(tmp_path / "data" / "train")) == 3 * probe.TRACKED_N_TRAIN
+    for run in result["runs"]:
+        assert run["iterations"] == 2 and 0 < run["dice_boundary"] < 1
+        assert len(run["curves"]["val_metric"]) == len(run["curves"]["train_loss"]) == 1
+    summary = result["summary"]
+    assert summary["port"]["n"] == 2 and summary["vs_reference"]["reference_n1"] == 0.9838
+    assert summary["hit"]["yardstick"] == 0.9847 and "one_sample_t" in summary["vs_jax"]
+    assert result["backend"]["cudnn.deterministic"] is False
+    with pytest.raises(SystemExit):
+        probe.main(["--mode", "affinity", "--scale", "tracked", "--seeds", "0", "-o", str(tmp_path)])
 
 
 def test_affinity_validation_patches_match_jax(tmp_path):
