@@ -203,7 +203,16 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    (c) the tracked CREMI model on one train and one val volume of 40x320x320, batch 1 of
    32x256x256, ``DeviceBoundaryTransform`` on the card, scored on the (0:32, 0:256, 0:256)
    crop; each with its launches (steps, validations, the scores' forwards), a finite and
-   falling loss and scores in [0, 1]. The full runs are the scripts'.
+   falling loss and scores in [0, 1]; and, with TF32 off and deterministic algorithms on
+   (``torch_parity3d.deterministic``, the probes' ``--deterministic``, flags printed), (d) the
+   SPOCO probe through ``scripts/torch_spoco2d.py``, ``UNet2d(1, 8, f=16)`` at batch 4 of
+   128x128 in float32 with its moving-average network, the grid-searched embedding decode of
+   the 8 tune images and the VOI / Rand scores of the 8 held-out ones, and (e) the SNEMI
+   probe, ``AnisotropicUNet(1, 7, f=8)`` with ``[[1, 2, 2], [2, 2, 2]]`` at batch 1 of
+   8x64x64 in bf16 on affinity targets, 150 iterations (its loss moves more from patch to patch
+   than in 20), decoded by the mutex watershed on both val crops; each with its launches (two
+   forwards a SPOCO step and a SPOCO validation batch), a finite and falling loss and finite
+   scores. The full runs are the scripts'.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -231,9 +240,11 @@ there: UNet2d f=64 at batch 8 of 512x512 from 3 input channels (rows 8 x 3 to
 8 x 1024, 262144 down to 4096 elements) and UNet3d f=32 at batch 2 of (128,
 128, 64) with isotropic pooling (rows 2 x 1 to 2 x 512, 1048576 down to 2048
 elements); and at phase 20's DSB probe, UNet2d f=16 at batch 4 of 128x128 (rows
-4 x 1 to 4 x 256, 16384 down to 64 elements), where phase 5 times them per step.
-Phase 3 also holds the forward kernel at batch 4 of the DSB rows (f=64, 256x256),
-phase 20's scoring forwards.
+4 x 1 to 4 x 256, 16384 down to 64 elements), which the SPOCO probe (20d) shares,
+and at phase 20e's SNEMI probe, AnisotropicUNet f=8 with [[1, 2, 2], [2, 2, 2]] at
+batch 1 of 8x64x64 (rows 1 x 1 to 1 x 32, 32768 down to 1024 elements), where phase 5
+times them per step. Phase 3 also holds the forward kernel at batch 4 of the DSB rows
+(f=64, 256x256), phase 20's scoring forwards.
 
 The last three lines are the card's name and power limit, a JSON line with
 one entry per kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -503,6 +514,15 @@ MED_DEPTH, MED_BATCH, MED_PATCH = 4, 2, (128, 128, 64)
 # model and batch are the script's (phase 20 checks them), for the norm rows of phases 3 and 5
 QP_FIT, QP_DSB_IMAGES, QP_CREMI_VOLUMES = 20, (32, 4), (1, 1)
 DSB_PROBE_FEATURES, DSB_PROBE_BATCH, DSB_PROBE_PATCH = 16, 4, (128, 128)
+# 20d the SPOCO probe (scripts/torch_spoco2d.py: the DSB probe's images and rows, f=16, batch 4 of 128x128, float32)
+# and 20e the SNEMI probe (scripts/torch_parity3d.py --mode affinity), under the scripts' --deterministic settings;
+# the SNEMI probe's model, batch and patch are the script's (phase 20 checks them), for the rows of phases 3 and 5
+SNEMI_PROBE_FEATURES, SNEMI_PROBE_SCALES, SNEMI_PROBE_PATCH = 8, [[1, 2, 2], [2, 2, 2]], (8, 64, 64)
+SNEMI_PROBE_NORMS = 10  # 2 a ConvBlock: 2 encoder levels, the base, 2 decoder levels
+# the SNEMI probe's masked Dice over 7 channels of one random patch a step falls by about 0.5 in 150 steps at lr 1e-4
+# (0.1 per epoch of 50) and moves by more than that from patch to patch: 20e trains 3 epochs and compares the means of
+# the first and the last fifth of its losses
+QP_SNEMI_FIT = 150
 # the scripts' evaluation batch of the DSB images (phase 3 holds the forward at batch 4 of the f=64 rows)
 QP_EVAL_BATCH = 4
 
@@ -4260,17 +4280,22 @@ def phase_hp_med_zoo(port, inorm):
 def phase_quality_probes(port, inorm):
     """The quality probes' paths at a smoke run's length, through the scripts' own functions: the DSB probe, the
     tracked DSB and the tracked CREMI run, each trained QP_FIT iterations and scored by its evaluator on its best
-    checkpoint. Checks the launches (training steps, validations, the scores' forwards), a finite and falling loss
-    and scores in [0, 1]. Returns the kernels' launches of the three runs."""
+    checkpoint, then the SPOCO and SNEMI probes the same way under the scripts' deterministic settings. Checks the
+    launches (training steps, validations, the scores' forwards), a finite and falling loss and finite scores
+    (Dice and F1 in [0, 1]). Returns the kernels' launches of the five runs."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
     import torch_parity2d
     import torch_parity3d
+    import torch_spoco2d
 
     probe = torch_parity2d.SCALES["probe"]
     if (probe["features"], probe["batch_size"], (probe["size"],) * 2) != (DSB_PROBE_FEATURES, DSB_PROBE_BATCH,
                                                                            DSB_PROBE_PATCH) or \
             torch_parity2d.EVAL_BATCH != QP_EVAL_BATCH:
         raise AssertionError(f"the DSB probe's model, batch or evaluation batch left phases 3 and 5's rows: {probe}")
+    if (torch_spoco2d.SIZE, torch_spoco2d.BATCH) != (DSB_PROBE_PATCH[0], DSB_PROBE_BATCH) or \
+            (torch_parity3d.SCALE_FACTORS, torch_parity3d.PATCH) != (SNEMI_PROBE_SCALES, SNEMI_PROBE_PATCH):
+        raise AssertionError("the SPOCO or SNEMI probe's batch or patch left phases 3 and 5's rows")
     t_phase = time.perf_counter()
     stats = {}
     launches = [0, 0]
@@ -4278,46 +4303,76 @@ def phase_quality_probes(port, inorm):
         def dsb_score_forwards(paths):  # the val images in batches of QP_EVAL_BATCH
             return -(-len(paths["val"][0]) // QP_EVAL_BATCH)
 
+        def unit_scores(run):
+            return {k: v for k, v in run.items() if k.startswith("dice_")}
+
+        def instance_scores(run):
+            return {k: run[k] for k in ("mean_voi", "mean_one_minus_rand_index", "mean_adapted_rand_error",
+                                        "mean_f1") if k in run}
+
+        dsb = {}
+
+        def dsb_probe_data():
+            dsb["paths"] = torch_parity2d.make_data(os.path.join(tmp, "dsb_probe"), "probe")
+            return dsb["paths"]
+
+        plain = contextlib.nullcontext
+        # (label, scores, checked score, iterations, norms a forward, forwards a step and a validation batch,
+        # settings, scoring forwards, data, training)
         cases = (
-            ("20a DSB probe", "dice_mean", dsb_score_forwards,
-             lambda: torch_parity2d.make_data(os.path.join(tmp, "dsb_probe"), "probe"),
-             lambda paths: torch_parity2d.train_seed(paths, "probe", 0, QP_FIT, "cuda", tmp)),
-            ("20b DSB tracked", "dice_mean", dsb_score_forwards,
+            ("20a DSB probe", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, plain, dsb_score_forwards,
+             dsb_probe_data, lambda paths: torch_parity2d.train_seed(paths, "probe", 0, QP_FIT, "cuda", tmp)),
+            ("20b DSB tracked", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, plain, dsb_score_forwards,
              lambda: torch_parity2d.make_data(os.path.join(tmp, "dsb_tracked"), "tracked", *QP_DSB_IMAGES),
              lambda paths: torch_parity2d.train_seed(paths, "tracked", 0, QP_FIT, "cuda", tmp)),
-            ("20c CREMI tracked", "dice_boundary", lambda paths: len(paths["val"]),  # one crop a val volume
+            ("20c CREMI tracked", unit_scores, "dice_boundary", QP_FIT, NORMS_PER_FORWARD, 1, plain,
+             lambda paths: len(paths["val"]),  # one crop a val volume
              lambda: torch_parity3d.make_data(os.path.join(tmp, "cremi_tracked"), "tracked", *QP_CREMI_VOLUMES),
-             lambda paths: torch_parity3d.train_boundary(paths, 0, QP_FIT, "cuda", tmp, "tracked")))
-        for label, score, score_forwards_of, make_data, train in cases:
+             lambda paths: torch_parity3d.train_boundary(paths, 0, QP_FIT, "cuda", tmp, "tracked")),
+            # the model and its moving average a step and a validation batch; one forward per tune and test image
+            ("20d SPOCO probe", instance_scores, "mean_voi", QP_FIT, NORMS_PER_FORWARD, 2, torch_parity3d.deterministic,
+             lambda paths: len(paths["val"][0]), lambda: dsb["paths"],
+             lambda paths: torch_spoco2d.train_seed(paths, 0, QP_FIT, "cuda", tmp)),
+            ("20e SNEMI probe", instance_scores, "mean_f1", QP_SNEMI_FIT, SNEMI_PROBE_NORMS, 1,
+             torch_parity3d.deterministic, lambda paths: len(paths["val"]),  # one crop a val volume
+             lambda: torch_parity3d.make_data(os.path.join(tmp, "snemi_probe"), "probe"),
+             lambda paths: torch_parity3d.train_affinity(paths, 0, QP_SNEMI_FIT, "cuda", tmp)))
+        for label, scores_of, score, fit, norms, forwards, settings, score_forwards_of, make_data, train in cases:
             t = time.perf_counter()
             paths = make_data()
             data_s = time.perf_counter() - t
             np.random.seed(0)
             torch.manual_seed(0)
             torch.cuda.synchronize()
-            inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
-            t = time.perf_counter()
-            run, trainer = train(paths)
-            torch.cuda.synchronize()
-            run_s = time.perf_counter() - t
-            got = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+            with settings():
+                flags = torch_parity3d.backend_flags()
+                inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+                t = time.perf_counter()
+                run, trainer = train(paths)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t
+                got = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
             validations, score_forwards = len(trainer.logger.metrics), score_forwards_of(paths)
-            expected = (NORMS_PER_FORWARD * (QP_FIT + len(trainer.val_loader) * validations + score_forwards),
-                        (NORMS_PER_FORWARD - 1) * QP_FIT)
+            expected = (norms * (forwards * (fit + len(trainer.val_loader) * validations) + score_forwards),
+                        (norms - 1) * fit)
             log(f"{label}: data {data_s:.2f} s; fit, best checkpoint and score {run_s:.2f} s; launches forward "
-                f"{got[0]}, backward {got[1]} for {QP_FIT} steps, {validations} validations of "
-                f"{len(trainer.val_loader)} batch(es) and {score_forwards} scoring forward(s) (expected {expected})")
+                f"{got[0]}, backward {got[1]} for {fit} steps, {validations} validations of "
+                f"{len(trainer.val_loader)} batch(es) and {score_forwards} scoring forward(s) (expected {expected}); "
+                f"flags {json.dumps(flags)}")
             if got != expected:
                 raise AssertionError(f"{label}: kernel launches {got}, expected {expected}")
             launches = [launches[0] + got[0], launches[1] + got[1]]
             losses = trainer.logger.losses
-            first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
-            scores = {k: v for k, v in run.items() if k.startswith("dice_")}
-            log(f"{label}: loss first four {first:.4f}, last four {last:.4f}; best checkpoint at iteration "
+            window = max(4, fit // 5)
+            first, last = float(np.mean(losses[:window])), float(np.mean(losses[-window:]))
+            scores = scores_of(run)
+            log(f"{label}: loss first {window} {first:.4f}, last {window} {last:.4f}; best checkpoint at iteration "
                 f"{run['best_checkpoint_iteration']}; {json.dumps(scores)}")
-            if len(losses) != QP_FIT or not np.all(np.isfinite(losses)) or not last < first:
+            if len(losses) != fit or not np.all(np.isfinite(losses)) or not last < first:
                 raise AssertionError(f"{label}: the training loss is not finite or does not fall")
-            if not all(np.isfinite(v) and 0 <= v <= 1 for v in scores.values()) or score not in scores:
+            bounded = [v for k, v in scores.items() if k.startswith("dice_") or k == "mean_f1"]
+            if score not in scores or not all(np.isfinite(v) and v >= 0 for v in scores.values()) or \
+                    not all(v <= 1 for v in bounded):
                 raise AssertionError(f"{label}: scores {scores}")
             stats[label.split()[0]] = {"data_s": data_s, "run_s": run_s, score: run[score], "loss": [first, last]}
             del trainer
@@ -4401,12 +4456,18 @@ def main():
                      # and phase 20's DSB probe: UNet2d f=16 at batch 4 of 128x128, its validation and scoring
                      # batches too
                      "dsb_probe": (DSB_PROBE_BATCH, norm_shapes(DSB_PROBE_PATCH, [[2, 2]] * DSB_DEPTH,
-                                                                widths(DSB_PROBE_FEATURES, DSB_DEPTH)))}
+                                                                widths(DSB_PROBE_FEATURES, DSB_DEPTH))),
+                     # and phase 20e's SNEMI probe: AnisotropicUNet f=8 at batch 1 of 8x64x64 (its validation and
+                     # scoring forwards take the same rows)
+                     "snemi_probe": (1, norm_shapes(SNEMI_PROBE_PATCH, SNEMI_PROBE_SCALES,
+                                                    widths(SNEMI_PROBE_FEATURES, len(SNEMI_PROBE_SCALES))))}
         # the SNEMI recipe's model differs from the tracked one only after its last norm
         snemi_shapes = {"snemi_serving": tracked_shapes(SNEMI_BLOCK, HALO),
                         "snemi_validation": tracked_shapes(SNEMI_VALIDATE_BLOCK, HALO)}
         assert all(len(s) == NORMS_PER_FORWARD for s in (shapes, train_shapes, dsb_shapes, spoco_shapes,
-                                                         *snemi_shapes.values(), *(s for _, s in st_shapes.values())))
+                                                         *snemi_shapes.values(),
+                                                         *(s for k, (_, s) in st_shapes.items() if k != "snemi_probe")))
+        assert len(st_shapes["snemi_probe"][1]) == SNEMI_PROBE_NORMS
         # the recipe's UNETR (vit_b, skip connections) and ViM-UNet (vim_t) decoders at 512x512
         vit_shapes = {"unetr": (VIT_BATCH, unetr_norm_shapes(768, True)),
                       "vimunet": (VIT_BATCH, unetr_norm_shapes(192, False)),
@@ -4494,7 +4555,8 @@ def main():
         zoo_fwd, zoo_bwd = phase_hp_med_zoo(port, inorm)
 
         log("phase 20: the quality probes' paths: the DSB probe (UNet2d f=16, 128x128), the tracked DSB (f=64, "
-            "256x256) and the tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py")
+            "256x256) and the tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the "
+            "SPOCO and SNEMI probes through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic")
         qp_fwd, qp_bwd = phase_quality_probes(port, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
                                + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd + qp_fwd)

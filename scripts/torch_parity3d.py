@@ -2,7 +2,7 @@
 
     python3 scripts/torch_parity3d.py --mode boundary --seeds 0 1 2 3 4 5 6 7 -o OUT
     python3 scripts/torch_parity3d.py --mode boundary --scale tracked --seeds 0 1 2 -o OUT
-    python3 scripts/torch_parity3d.py --mode affinity --seeds 0 1 2 3 -o OUT
+    python3 scripts/torch_parity3d.py --mode affinity --seeds 0 1 2 3 4 5 --deterministic -o OUT
     python3 scripts/torch_parity3d.py --mode boundary --seeds 0 --iterations 4 --device cpu -o OUT
 
 Imports only the port (``torch_em_tpu_torch``) and ``chip_smoke`` (for the
@@ -59,17 +59,24 @@ cpu``. Steps:
    all ones, ``min_size=10``) and scored against its labels: VOI (split +
    merge), adapted Rand error, 1 - Rand index (the number that script stores
    as ``adapted_rand_error``) and matching F1 at IoU 0.5. The summary sets
-   the seeds' means beside the JAX package's one run (mean VOI 0.6389, mean
-   F1 0.3119, ``parity_out_affinity/affinity_mws_results.json``), with the
-   one-sample t of the seeds against it.
+   the seeds' VOI (and its split and merge parts), F1, adapted Rand error and
+   1 - Rand index beside the JAX package's seeds on the CPU
+   (``scripts/records/jax_cpu_quality_seeds.json``, written by
+   ``scripts/jax_quality_seeds.py``): both sides' mean and std, the gap and
+   Welch's t, a miss at |t| >= 2 on VOI or F1; as history, the JAX
+   package's one TPU run (mean VOI 0.6389, mean F1 0.3119,
+   ``parity_out_affinity/affinity_mws_results.json``) with the one-sample t.
 
-Writes ``OUT/<mode>_results.json`` (``OUT/boundary_tracked_results.json`` at
-the tracked scale) with cuDNN's and the matmuls' TF32 and determinism flags
-and prints the card's name and power limit
-and the summary as the last line.
+``--deterministic`` runs with TF32 off and deterministic algorithms on
+(``deterministic``): the same seed then gives the same weights bitwise
+(each run records the sha256 of its best checkpoint's weights). Writes
+``OUT/<mode>_results.json`` (``OUT/boundary_tracked_results.json`` at the
+tracked scale) with cuDNN's and the matmuls' TF32 and determinism flags and
+prints the card's name and power limit and the summary as the last line.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -119,6 +126,13 @@ JAX_AFFINITY = {"mean_voi": 0.6389, "mean_f1": 0.3119}
 JAX_TRACKED_DICE, REFERENCE_TRACKED_DICE = 0.9847, 0.9838
 # a quality point is a hit when the port's mean lies within this share of its yardstick (the north star's rule)
 HIT_SHARE = 0.01
+# the SNEMI and SPOCO points against the JAX package's seeds on the CPU: a miss at |Welch t| >= MISS_T
+MISS_T = 2.0
+JAX_CPU_RECORD = os.path.join(REPO, "scripts", "records", "jax_cpu_quality_seeds.json")
+# the SNEMI point's metrics, each with the record's key for it
+AFFINITY_KEYS = (("mean_voi", "mean_voi"), ("mean_f1", "mean_f1"), ("mean_voi_split", "mean_voi_split"),
+                 ("mean_voi_merge", "mean_voi_merge"), ("mean_adapted_rand_error", "mean_adapted_rand_error"),
+                 ("mean_one_minus_rand_index", "mean_one_minus_rand_index"))
 
 
 class CurveLog:
@@ -147,7 +161,84 @@ def backend_flags():
     return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "cudnn.deterministic": torch.backends.cudnn.deterministic,
-            "cudnn.benchmark": torch.backends.cudnn.benchmark}
+            "cudnn.benchmark": torch.backends.cudnn.benchmark,
+            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+            "deterministic_warn_only": torch.is_deterministic_algorithms_warn_only_enabled(),
+            "CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+
+
+@contextlib.contextmanager
+def deterministic(on=True):
+    """``--deterministic`` for the block when ``on``: float32 without TF32 and the same result from the
+    same seed. cuBLAS gets a fixed workspace (set before its first call), cuDNN takes deterministic
+    algorithms without benchmarking, and ``torch.use_deterministic_algorithms(True)`` makes every other
+    op deterministic or raise; the 3-D U-Nets then pool through ``models/unet.py:window_max_pool``,
+    whose backward is deterministic (``F.max_pool3d``'s raises in that mode on the card). The flags are
+    as they were after the block."""
+    if not on:
+        yield
+        return
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.benchmark,
+           torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.deterministic) = old[:4]
+        torch.use_deterministic_algorithms(old[4], warn_only=old[5])
+
+
+def read_runs(paths):
+    """The runs of the result files ``paths``, one per seed (the first file that holds a seed gives it), and
+    each file's device, card and flags."""
+    runs, sources = {}, []
+    for path in paths:
+        with open(path) as f:
+            result = json.load(f)
+        sources.append({"file": path, "device": result["device"], "card": result["card"],
+                        "backend": result.get("backend"), "seeds": [r["seed"] for r in result["runs"]]})
+        for run in result["runs"]:
+            runs.setdefault(run["seed"], run)
+    return [runs[seed] for seed in sorted(runs)], sources
+
+
+def state_digest(model) -> str:
+    """The sha256 of a model's state, tensor by tensor in order: equal digests mean bitwise equal weights."""
+    h = hashlib.sha256()
+    for name, tensor in model.state_dict().items():
+        h.update(name.encode())
+        h.update(tensor.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def jax_cpu_record(mode):
+    """The JAX package's seeds of ``mode`` ("spoco" or "affinity") on the CPU: the record that
+    ``scripts/jax_quality_seeds.py`` writes (``scripts/records/jax_cpu_quality_seeds.json``)."""
+    with open(JAX_CPU_RECORD) as f:
+        return json.load(f)["modes"][mode]
+
+
+def against_jax_cpu(runs, mode, keys):
+    """For each (port key, record key) of ``keys``: both sides' mean and std over their seeds, the gap,
+    Welch's t and whether it is a miss (|t| >= MISS_T, the rule of PERF.md section 2)."""
+    record = jax_cpu_record(mode)
+    out = {"jax_cpu_seeds": [s["seed"] for s in record["seeds"]], "port_seeds": [r["seed"] for r in runs]}
+    for key, record_key in keys:
+        port_values, jax_values = [r[key] for r in runs], [s[record_key] for s in record["seeds"]]
+        entry = {"port": distribution(port_values), "jax_cpu": distribution(jax_values),
+                 "mean_gap": float(np.mean(port_values) - np.mean(jax_values)), "welch_t": None, "welch_dof": None,
+                 "miss": None}
+        if len(port_values) > 1 and len(jax_values) > 1 and (np.std(port_values) or np.std(jax_values)):
+            entry["welch_t"], entry["welch_dof"] = welch(port_values, jax_values)
+            entry["miss"] = bool(abs(entry["welch_t"]) >= MISS_T)
+        out[key] = entry
+    return out
 
 
 def one_sample_t(values, value):
@@ -286,10 +377,12 @@ def train_affinity(paths, seed, iterations, device, out):
     loss = LossWrapper(DiceLoss(), transform=ApplyAndRemoveMask())
     model = port.AnisotropicUNet(in_channels=1, out_channels=1 + len(AFFINITY_OFFSETS), initial_features=8,
                                  scale_factors=SCALE_FACTORS, final_activation="Sigmoid", device=device, seed=seed)
+    train_loader = affinity_loader(train, SAMPLES_PER_EPOCH)
     trainer = port.default_segmentation_trainer(
-        f"parity-affinity-s{seed}", model, affinity_loader(train, SAMPLES_PER_EPOCH), affinity_loader(val, 8),
-        loss=loss, metric=loss, learning_rate=1e-4, device=device, save_root=out)
+        f"parity-affinity-s{seed}", model, train_loader, affinity_loader(val, 8),
+        loss=loss, metric=loss, learning_rate=1e-4, device=device, save_root=out, logger=CurveLog)
     trainer.fit(iterations=iterations)
+    trained = trainer.iteration
     trainer.load_checkpoint("best")
     preds = predict_crops(trainer.model, val, device)
     volumes, decode_s = [], 0.0
@@ -304,12 +397,17 @@ def train_affinity(paths, seed, iterations, device, out):
                         "one_minus_rand_index": 1.0 - ri, "matching_f1@0.5": matching(seg, gt)["f1"],
                         "n_pred_instances": int(len(np.unique(seg)) - 1),
                         "n_gt_instances": int(len(np.unique(gt)) - 1)})
-    return {"seed": seed, "best_val_metric": trainer.best_metric, "iterations": trainer.iteration,
-            "per_volume": volumes, "decode_s": decode_s,
-            "mean_voi": float(np.mean([v["voi_split"] + v["voi_merge"] for v in volumes])),
-            "mean_f1": float(np.mean([v["matching_f1@0.5"] for v in volumes])),
-            "mean_adapted_rand_error": float(np.mean([v["adapted_rand_error"] for v in volumes])),
-            "mean_one_minus_rand_index": float(np.mean([v["one_minus_rand_index"] for v in volumes]))}
+    run = {"seed": seed, "best_val_metric": trainer.best_metric, "iterations": trained,
+           "best_checkpoint_iteration": trainer.iteration, "best_state_sha256": state_digest(trainer.model),
+           "per_volume": volumes, "decode_s": decode_s,
+           "mean_voi": float(np.mean([v["voi_split"] + v["voi_merge"] for v in volumes])),
+           "mean_f1": float(np.mean([v["matching_f1@0.5"] for v in volumes])),
+           "mean_voi_split": float(np.mean([v["voi_split"] for v in volumes])),
+           "mean_voi_merge": float(np.mean([v["voi_merge"] for v in volumes])),
+           "mean_adapted_rand_error": float(np.mean([v["adapted_rand_error"] for v in volumes])),
+           "mean_one_minus_rand_index": float(np.mean([v["one_minus_rand_index"] for v in volumes])),
+           "curves": trainer.logger.curves(len(train_loader))}
+    return run, trainer
 
 
 def summarize(mode, runs, scale="probe"):
@@ -331,12 +429,12 @@ def summarize(mode, runs, scale="probe"):
             t, dof = welch(dice, values) if len(dice) > 1 else (None, None)
             summary[f"vs_{side}"] = {"mean_gap": gap, "welch_t": t, "welch_dof": dof}
         return summary
-    summary = {}
-    for key in ("mean_voi", "mean_f1", "mean_adapted_rand_error", "mean_one_minus_rand_index"):
-        summary[key] = distribution([r[key] for r in runs])
-    for key, jax_value in JAX_AFFINITY.items():
-        summary[f"{key}_vs_jax"] = {"jax_n1": jax_value, "mean_gap": summary[key]["mean"] - jax_value,
-                                    "one_sample_t": one_sample_t([r[key] for r in runs], jax_value)}
+    summary = {"vs_jax_cpu": against_jax_cpu(runs, "affinity", AFFINITY_KEYS)}
+    summary["miss"] = any(summary["vs_jax_cpu"][key]["miss"] for key in ("mean_voi", "mean_f1"))
+    # history: the JAX package's one run on a TPU
+    summary["vs_jax_tpu_run"] = {key: {"jax_n1": value, "mean_gap": float(np.mean([r[key] for r in runs]) - value),
+                                       "one_sample_t": one_sample_t([r[key] for r in runs], value)}
+                                 for key, value in JAX_AFFINITY.items()}
     return summary
 
 
@@ -345,19 +443,34 @@ def main(argv=None):
     parser.add_argument("--mode", choices=("boundary", "affinity"), required=True)
     parser.add_argument("--scale", choices=("probe", "tracked"), default="probe",
                         help="tracked: the tracked CREMI model and scale (boundary mode only)")
-    parser.add_argument("--seeds", type=int, nargs="+", required=True)
-    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("--seeds", type=int, nargs="+")
+    parser.add_argument("-o", "--output")
     parser.add_argument("-n", "--iterations", type=int, default=None,
                         help="default: 1500 (boundary), 1000 (boundary, tracked) or 1200 (affinity), as the "
                              "JAX runs")
+    parser.add_argument("--summarize", nargs="+", metavar="RESULTS",
+                        help="print the summary of these result files' runs (one per seed) instead of training")
     parser.add_argument("-d", "--device", default="cuda")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="TF32 off and deterministic algorithms on (see deterministic)")
     args = parser.parse_args(argv)
     if args.mode == "affinity" and args.scale == "tracked":
         parser.error("--scale tracked runs the boundary mode only")
+    if args.summarize:
+        runs, sources = read_runs(args.summarize)
+        print(json.dumps({"sources": sources, "summary": summarize(args.mode, runs, args.scale)}))
+        return 0
+    if not (args.seeds and args.output):
+        parser.error("--seeds and -o are needed unless --summarize is given")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("torch_parity3d: no CUDA device is available; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 2
+    with deterministic(args.deterministic):
+        return run_seeds(args)
+
+
+def run_seeds(args):
     tracked = args.scale == "tracked"
     default = TRACKED_ITERATIONS if tracked else ITERATIONS[args.mode]
     iterations = default if args.iterations is None else args.iterations
@@ -371,7 +484,7 @@ def main(argv=None):
         if args.mode == "boundary":
             run, _ = train_boundary(paths, seed, iterations, args.device, args.output, args.scale)
         else:
-            run = train_affinity(paths, seed, iterations, args.device, args.output)
+            run, _ = train_affinity(paths, seed, iterations, args.device, args.output)
         run["seconds"] = time.perf_counter() - t
         runs.append(run)
         print(f"{args.mode} {args.scale} seed {seed}: "

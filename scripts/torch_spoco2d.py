@@ -1,6 +1,6 @@
 """The port's SPOCO quality point: ``experiments/parity/train_spoco2d.py``, run with the port.
 
-    python3 scripts/torch_spoco2d.py --seeds 0 1 2 3 -o OUT
+    python3 scripts/torch_spoco2d.py --seeds 0 1 2 3 --deterministic -o OUT
     python3 scripts/torch_spoco2d.py --seeds 0 --iterations 4 --device cpu -o OUT
 
 Imports only the port (``torch_em_tpu_torch``), ``chip_smoke`` (for the
@@ -30,11 +30,21 @@ and runs on the card unless ``--device cpu``. Steps:
    script stores as ``adapted_rand_error``), the adapted Rand error, and
    the predicted and ground-truth instance counts.
 
-The summary sets the seeds' means beside the JAX package's one run (mean VOI
-1.2461, 1 - Rand index 0.2524, 6.9 predicted and 6.2 ground-truth instances;
-``experiments/parity/parity_out_spoco/spoco_results.json``) with the
-one-sample t of the seeds against it. Writes ``OUT/spoco_results.json`` and
-prints the card's name and power limit and the summary as the last line.
+``--deterministic`` runs with TF32 off and deterministic algorithms on
+(``torch_parity3d.deterministic``): the same seed then gives the same
+weights bitwise. Each seed records its training loss, learning rate and
+validation metric per epoch and the sha256 of its best checkpoint's weights.
+
+The summary sets the seeds' VOI, 1 - Rand index, adapted Rand error and
+predicted instances beside the JAX package's seeds on the CPU
+(``scripts/records/jax_cpu_quality_seeds.json``, written by
+``scripts/jax_quality_seeds.py``): both sides' mean and std, the gap and
+Welch's t, a miss at |t| >= 2. As history it keeps the JAX package's one
+TPU run (mean VOI 1.2461, 1 - Rand index 0.2524, 6.9 predicted and 6.2
+ground-truth instances; ``experiments/parity/parity_out_spoco/spoco_results.json``)
+with the one-sample t of the seeds against it. Writes
+``OUT/spoco_results.json`` with the backend's flags and prints the card's
+name and power limit and the summary as the last line.
 """
 
 import argparse
@@ -59,7 +69,8 @@ from torch_em_tpu_torch.metric.instance_segmentation_metric import EmbeddingMWS 
 from torch_em_tpu_torch.trainer import SPOCOTrainer  # noqa: E402
 from torch_em_tpu_torch.utils.grid_search import instance_segmentation_grid_search  # noqa: E402
 from torch_parity2d import SCALES, make_data  # noqa: E402
-from torch_parity3d import distribution  # noqa: E402
+from torch_parity3d import (CurveLog, against_jax_cpu, backend_flags, deterministic, distribution,  # noqa: E402
+                            one_sample_t, read_runs, state_digest)
 
 SIZE = SCALES["probe"]["size"]
 EMBED_DIM, BATCH, ITERATIONS = 8, 4, 2000
@@ -68,6 +79,9 @@ GRID = {"delta": [1.0, 1.5, 2.0, 2.5], "min_seg_size": [50, 100, 200, 400]}
 # experiments/parity/parity_out_spoco/spoco_results.json: the JAX package's one run
 # (its 6.2 ground-truth instances are the mean 6.25 of the same images, rounded)
 JAX_SPOCO = {"mean_voi": 1.2461, "mean_one_minus_rand_index": 0.2524, "mean_pred_instances": 6.9}
+# the point's metrics against the JAX package's seeds on the CPU, each with the record's key for it
+SPOCO_KEYS = (("mean_voi", "mean_voi"), ("mean_one_minus_rand_index", "mean_one_minus_rand_index"),
+              ("mean_adapted_rand_error", "mean_adapted_rand_error"), ("mean_pred_instances", "mean_pred_instances"))
 
 
 def embed(model, image, device):
@@ -102,11 +116,12 @@ def train_seed(paths, seed, iterations, device, out):
         f"spoco-s{seed}", model, loader("train", True), loader("val", False),
         loss=SPOCOLoss(delta_var=0.75, delta_dist=2.0, max_instances=64),
         metric=ContrastiveLoss(delta_var=0.75, delta_dist=2.0, max_instances=64), learning_rate=1e-4,
-        mixed_precision=False, device=device, save_root=out, logger=None, trainer_class=SPOCOTrainer)
+        mixed_precision=False, device=device, save_root=out, logger=CurveLog, trainer_class=SPOCOTrainer)
     trainer.generator.manual_seed(seed)
     t = time.perf_counter()
     trainer.fit(iterations=iterations)
     train_s = time.perf_counter() - t
+    trained = trainer.iteration
     trainer.load_checkpoint("best")
 
     raws, labels = paths["val"]
@@ -126,8 +141,9 @@ def train_seed(paths, seed, iterations, device, out):
         are, ri = rand_index(seg, gt)
         images.append({"voi": vi_split + vi_merge, "one_minus_rand_index": 1.0 - ri, "adapted_rand_error": are,
                        "n_pred": int(len(np.unique(seg)) - 1), "n_gt": int(len(np.unique(gt)) - 1)})
-    return {"seed": seed, "best_val_metric": trainer.best_metric, "iterations": trainer.iteration,
-            "train_s": train_s, "grid_search_s": grid_s,
+    return {"seed": seed, "best_val_metric": trainer.best_metric, "iterations": trained,
+            "best_checkpoint_iteration": trainer.iteration, "best_state_sha256": state_digest(trainer.model),
+            "train_s": train_s, "grid_search_s": grid_s, "curves": trainer.logger.curves(len(trainer.train_loader)),
             "decode": {"delta": best_params["delta"], "min_seg_size": int(best_params["min_seg_size"]),
                        "tune_images": n_tune, "tune_accuracy": best_score},
             "per_image": images,
@@ -135,32 +151,45 @@ def train_seed(paths, seed, iterations, device, out):
             "mean_one_minus_rand_index": float(np.mean([r["one_minus_rand_index"] for r in images])),
             "mean_adapted_rand_error": float(np.mean([r["adapted_rand_error"] for r in images])),
             "mean_pred_instances": float(np.mean([r["n_pred"] for r in images])),
-            "mean_gt_instances": float(np.mean([r["n_gt"] for r in images]))}
+            "mean_gt_instances": float(np.mean([r["n_gt"] for r in images]))}, trainer
 
 
 def summarize(runs):
-    summary = {}
-    for key in ("mean_voi", "mean_one_minus_rand_index", "mean_adapted_rand_error", "mean_pred_instances",
-                "mean_gt_instances"):
-        summary[key] = distribution([r[key] for r in runs])
-    for key, jax_value in JAX_SPOCO.items():
-        values = summary[key]
-        gap = values["mean"] - jax_value
-        t = gap / (values["std"] / np.sqrt(values["n"])) if values["std"] else None
-        summary[f"{key}_vs_jax"] = {"jax_n1": jax_value, "mean_gap": gap, "one_sample_t": t}
+    summary = {"vs_jax_cpu": against_jax_cpu(runs, "spoco", SPOCO_KEYS)}
+    summary["miss"] = any(summary["vs_jax_cpu"][key]["miss"] for key, _ in SPOCO_KEYS)
+    summary["mean_gt_instances"] = distribution([r["mean_gt_instances"] for r in runs])
+    # history: the JAX package's one run on a TPU
+    summary["vs_jax_tpu_run"] = {key: {"jax_n1": value, "mean_gap": float(np.mean([r[key] for r in runs]) - value),
+                                       "one_sample_t": one_sample_t([r[key] for r in runs], value)}
+                                 for key, value in JAX_SPOCO.items()}
     return summary
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seeds", type=int, nargs="+", required=True)
-    parser.add_argument("-o", "--output", required=True)
+    parser.add_argument("--seeds", type=int, nargs="+")
+    parser.add_argument("-o", "--output")
     parser.add_argument("-n", "--iterations", type=int, default=ITERATIONS)
     parser.add_argument("-d", "--device", default="cuda")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="TF32 off and deterministic algorithms on (torch_parity3d.deterministic)")
+    parser.add_argument("--summarize", nargs="+", metavar="RESULTS",
+                        help="print the summary of these result files' runs (one per seed) instead of training")
     args = parser.parse_args(argv)
+    if args.summarize:
+        runs, sources = read_runs(args.summarize)
+        print(json.dumps({"sources": sources, "summary": summarize(runs)}))
+        return 0
+    if not (args.seeds and args.output):
+        parser.error("--seeds and -o are needed unless --summarize is given")
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("torch_spoco2d: no CUDA device is available; pass --device cpu to run on the CPU", file=sys.stderr)
         return 2
+    with deterministic(args.deterministic):
+        return run_seeds(args)
+
+
+def run_seeds(args):
     os.makedirs(args.output, exist_ok=True)
     paths = make_data(os.path.join(args.output, "data"))
     runs = []
@@ -168,12 +197,12 @@ def main(argv=None):
         np.random.seed(seed)
         torch.manual_seed(seed)
         t = time.perf_counter()
-        run = train_seed(paths, seed, args.iterations, args.device, args.output)
+        run, _ = train_seed(paths, seed, args.iterations, args.device, args.output)
         run["seconds"] = time.perf_counter() - t
         runs.append(run)
-        print(f"spoco seed {seed}: {json.dumps(run)}", flush=True)
+        print(f"spoco seed {seed}: {json.dumps({k: v for k, v in run.items() if k != 'curves'})}", flush=True)
     result = {"device": args.device, "card": nvidia_smi() if args.device != "cpu" else None,
-              "iterations": args.iterations, "runs": runs, "summary": summarize(runs)}
+              "backend": backend_flags(), "iterations": args.iterations, "runs": runs, "summary": summarize(runs)}
     with open(os.path.join(args.output, "spoco_results.json"), "w") as f:
         json.dump(result, f, indent=2)
     if result["card"]:

@@ -470,3 +470,99 @@ def test_missing_package_error_matches_jax(name, call, error, package, tmp_path,
         assert type(info.value) is error and package in str(info.value)
         messages.append(str(info.value))
     assert messages[0] == messages[1]
+
+
+class _ZarrArray:
+    """What ``zarr.open(...)[key]`` gives the E11bio conversion: an array with ``attrs``."""
+
+    def __init__(self, data, **attrs):
+        self.data, self.attrs = data, attrs
+
+    def __getitem__(self, index):
+        return self.data[index]
+
+
+def _stub_e11bio_packages(monkeypatch, rng):
+    """``s3fs`` and ``zarr`` as the E11bio conversion calls them, serving one seeded crop whose labels
+    are offset by a plane from the raw and hold ids with gaps."""
+    import sys
+    import types
+
+    crop = {"raw": _ZarrArray(raw(rng, (3, 10, 16, 16)), offset=[0, 0, 0], resolution=[2, 1, 1]),
+            "labels": _ZarrArray(rng.choice([0, 3, 7, 20], size=(8, 16, 16)).astype("uint64"),
+                                 offset=[2, 0, 0])}
+    s3fs = types.ModuleType("s3fs")
+    s3fs.S3FileSystem = lambda anon: None
+    s3fs.S3Map = lambda url, s3: url
+    zarr = types.ModuleType("zarr")
+    zarr.open = lambda store, mode: crop
+    monkeypatch.setitem(sys.modules, "s3fs", s3fs)
+    monkeypatch.setitem(sys.modules, "zarr", zarr)
+
+
+def _relabel_to_two(monkeypatch):
+    """The JAX package's ``relabel_consecutive`` cut to the two values its readers unpack."""
+    import torch_em_tpu.ops.host as jax_host
+
+    relabel = jax_host.relabel_consecutive
+    monkeypatch.setattr(jax_host, "relabel_consecutive", lambda seg, *args, **kwargs: relabel(seg, *args, **kwargs)[:2])
+
+
+def test_e11bio_conversion_unpacks_relabel_consecutive(tmp_path, monkeypatch):
+    """E11bio's conversion of a streamed crop takes two values from ``relabel_consecutive``, which returns
+    three: the JAX package's conversion raises there (ValueError: too many values to unpack), the port's
+    takes the first. With the JAX package's ``relabel_consecutive`` cut to two values, both write the same
+    file: raw per channel cropped to the labels' offset, labels relabelled 1..n."""
+    import h5py
+
+    _stub_e11bio_packages(monkeypatch, np.random.default_rng(211))
+    jax_module, port_module = modules("e11bio", LIGHT_MICROSCOPY)
+    with pytest.raises(ValueError, match="too many values to unpack"):
+        jax_module.get_e11bio_data(str(tmp_path / "unpatched"), crop_ids=[0], download=True)
+    port_path, = port_module.get_e11bio_data(str(tmp_path / "port"), crop_ids=[0], download=True)
+    _relabel_to_two(monkeypatch)
+    jax_path, = jax_module.get_e11bio_data(str(tmp_path / "jax"), crop_ids=[0], download=True)
+    with h5py.File(port_path, "r") as got, h5py.File(jax_path, "r") as expected:
+        assert dict(got.attrs) == dict(expected.attrs) and sorted(got["raw"]) == sorted(expected["raw"])
+        for key in [f"raw/{ch}" for ch in expected["raw"]] + ["labels"]:
+            assert got[key].dtype == expected[key].dtype
+            np.testing.assert_array_equal(got[key][:], expected[key][:])
+        assert got["raw/ch_00"].shape == (8, 16, 16)
+        assert sorted(np.unique(got["labels"][:])) == [0, 1, 2, 3]
+
+
+class _Coco:
+    """The three calls of pycocotools' ``COCO`` that OrgLine's conversion makes, over rectangles."""
+
+    def __init__(self, boxes):
+        self.boxes = boxes
+
+    def getAnnIds(self, imgIds):
+        return list(range(len(self.boxes)))
+
+    def loadAnns(self, ids):
+        return [{"id": i, "area": self.boxes[i][2] * self.boxes[i][3], "box": self.boxes[i]} for i in ids]
+
+    def annToMask(self, annotation):
+        x, y, w, h = annotation["box"]
+        mask = np.zeros((48, 64), "uint8")
+        mask[y:y + h, x:x + w] = 1
+        return mask
+
+
+def test_orgline_coco_conversion_unpacks_relabel_consecutive(monkeypatch):
+    """OrgLine's COCO conversion (stomach, breast) takes two values from ``relabel_consecutive``, which
+    returns three: the JAX package's raises there (ValueError: too many values to unpack), the port's
+    takes the first. With the JAX package's function cut to two values, both give the same instances:
+    larger organoids pasted first, pieces under 25 pixels dropped, ids 1..n."""
+    coco = _Coco([(2, 2, 30, 20), (20, 10, 30, 30), (40, 5, 4, 4), (0, 40, 3, 3), (56, 40, 6, 6)])
+    image = {"id": 0, "height": 48, "width": 64}
+    jax_module, port_module = modules("orgline", LIGHT_MICROSCOPY)
+    with pytest.raises(ValueError, match="too many values to unpack"):
+        jax_module._annotations_to_instances(coco, image)
+    got = port_module._annotations_to_instances(coco, image)
+    _relabel_to_two(monkeypatch)
+    expected = jax_module._annotations_to_instances(coco, image)
+    assert got.dtype == expected.dtype == np.uint16
+    np.testing.assert_array_equal(got, expected)
+    assert sorted(np.unique(got)) == [0, 1, 2, 3]

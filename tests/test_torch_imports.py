@@ -10,7 +10,8 @@ them are installed, so a
 subprocess blocks them (``sys.modules[name] = None`` makes an import raise)
 before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py``, ``scripts/torch_parity2d.py`` and
-``scripts/torch_spoco2d.py``, and
+``scripts/torch_spoco2d.py`` (none of the port's files, ``chip_smoke`` or ``scripts/torch_*.py``
+imports ``scripts/jax_quality_seeds.py`` or ``jax_quality_pairs.py``, which import the JAX package), and
 reads an HDF5, a zarr and an N5 path and a PNG file, writes HDF5 test data, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
 trainer's, self-training's and classification's) and wandb loggers and a
@@ -157,9 +158,7 @@ print(len(names))
 
 
 def _port_sources():
-    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + [
-        REPO / "scripts" / name for name in ("torch_parity3d.py", "torch_parity2d.py", "torch_spoco2d.py",
-                                          "torch_s2d_forests.py")]
+    return sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted((REPO / "scripts").glob("torch_*.py"))
 
 
 def test_port_imports_with_jax_stack_blocked():
@@ -173,6 +172,9 @@ def test_port_imports_with_jax_stack_blocked():
 def test_source_names_no_jax(path):
     text = path.read_text()
     assert "torch_em_tpu." not in text
+    # the JAX package's seed driver and controlled pairs (scripts/jax_quality_*.py) write records the port reads
+    assert not re.search(r"^\s*(from|import)\s+jax_quality_|import_module\(.jax_quality_|jax_quality_\w+\.py.\)", text,
+                         flags=re.MULTILINE)
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)

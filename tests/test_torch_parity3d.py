@@ -112,7 +112,7 @@ def test_probe_runs_on_the_cpu(mode, tmp_path):
         for run in result["runs"]:
             assert len(run["per_volume"]) == 2 and np.isfinite(run["mean_voi"]) and 0 <= run["mean_f1"] <= 1
             assert all(v["n_pred_instances"] > 0 for v in run["per_volume"])
-        assert summary["mean_voi"]["n"] == 2 and "one_sample_t" in summary["mean_f1_vs_jax"]
+        assert summary["vs_jax_cpu"]["mean_voi"]["port"]["n"] == 2 and "one_sample_t" in summary["vs_jax_tpu_run"]["mean_f1"]
 
 
 def test_tracked_scale_runs_on_the_cpu(tmp_path, monkeypatch):

@@ -74,7 +74,7 @@ def get_e11bio_data(path: Union[os.PathLike, str], split: str = "instance",
         lz, ly, lx = labels_arr.shape
         raw_arr = raw_arr[:, z0:z0 + lz, y0:y0 + ly, x0:x0 + lx]
 
-        labels_arr, _ = relabel_consecutive(labels_arr)
+        labels_arr = relabel_consecutive(labels_arr)[0]
 
         with h5py.File(h5_path, "w") as out:
             out.attrs["crop_id"] = crop_id

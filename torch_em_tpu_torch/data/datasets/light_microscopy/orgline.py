@@ -60,7 +60,7 @@ def _annotations_to_instances(coco, image_metadata):
     seg = cc
     seg_ids, sizes = np.unique(seg, return_counts=True)
     seg[np.isin(seg, seg_ids[sizes < min_size])] = 0
-    seg, _ = relabel_consecutive(seg)
+    seg = relabel_consecutive(seg)[0]
     return seg.astype("uint16")
 
 

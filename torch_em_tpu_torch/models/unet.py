@@ -13,6 +13,11 @@ outputs, the full-resolution one first. The JAX package's TPU layout work (width
 packing, phase convs, the norm fold, the 2.5D mode) computes the same math
 and has no counterpart here.
 
+Under ``torch.use_deterministic_algorithms(True)`` the 3-D encoders pool
+through ``window_max_pool``: the same values, with a backward that adds
+nothing with atomics (PyTorch refuses the backward of ``F.max_pool3d`` on
+the card in that mode; ``F.max_pool2d``'s and ``F.interpolate``'s run).
+
 ``dtype`` is the compute type, as flax's ``dtype``: parameters stay float32
 and are cast to it at each use; the output is float32. A trainer with
 ``mixed_precision`` sets it to bfloat16 for its steps. The factories record
@@ -37,7 +42,7 @@ from .base import get_activation, resolve_device
 __all__ = [
     "UNet2d", "UNet3d", "AnisotropicUNet", "UNetModule", "POSTPROCESSING",
     "AccumulateChannels", "ConvBlock", "Upsampler", "InstanceNorm", "InstanceNormTrackStats",
-    "GroupNorm", "BatchNorm",
+    "GroupNorm", "BatchNorm", "window_max_pool",
 ]
 
 
@@ -287,6 +292,47 @@ class Upsampler(nn.Module):
         return F.interpolate(x, size=size, mode=self.mode, align_corners=False)
 
 
+class _WindowMax(torch.autograd.Function):
+    """Max pooling with window == stride: each window reshaped onto a last axis and reduced there;
+    the backward hands each gradient to its window's first maximum (as ``F.max_pool``) through a
+    one-hot product, so no element is added to twice."""
+
+    @staticmethod
+    def forward(ctx, x, window):
+        cut = [s // w * w for s, w in zip(x.shape[2:], window)]
+        xc = x[(slice(None), slice(None)) + tuple(slice(0, c) for c in cut)]
+        n, c, dim = x.shape[0], x.shape[1], len(window)
+        split = [n, c] + [v for c_, w in zip(cut, window) for v in (c_ // w, w)]
+        order = [0, 1] + [2 + 2 * i for i in range(dim)] + [3 + 2 * i for i in range(dim)]
+        windows = xc.reshape(split).permute(order).reshape(split[0:2] + split[2::2] + [-1])
+        value, index = windows.max(dim=-1)
+        ctx.save_for_backward(index)
+        ctx.window, ctx.shape, ctx.split, ctx.order = window, x.shape, split, order
+        return value
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        k = int(np.prod(ctx.window))
+        onehot = index[..., None] == torch.arange(k, device=grad.device)
+        g = onehot.to(grad.dtype) * grad[..., None]
+        dim = len(ctx.window)
+        g = g.reshape(ctx.split[0:2] + ctx.split[2::2] + ctx.split[3::2])
+        g = g.permute(np.argsort(ctx.order).tolist()).reshape(ctx.split[0:2] + [
+            ctx.split[2 + 2 * i] * ctx.split[3 + 2 * i] for i in range(dim)])
+        pad = []
+        for full, got in zip(ctx.shape[2:][::-1], g.shape[2:][::-1]):
+            pad += [0, full - got]
+        return F.pad(g, pad), None
+
+
+def window_max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """``F.max_pool{2,3}d(x, window, window)`` whose backward adds nothing with atomics: the U-Net's
+    encoder takes it for 3-D pooling under ``torch.use_deterministic_algorithms(True)``, where PyTorch
+    raises on the backward of ``F.max_pool3d`` on the card. Equal to ``F.max_pool`` forward and backward."""
+    return _WindowMax.apply(x, tuple(int(w) for w in window))
+
+
 class Encoder(nn.Module):
     def __init__(self, blocks, scale_factors):
         super().__init__()
@@ -298,8 +344,11 @@ class Encoder(nn.Module):
         for block, sf in zip(self.blocks, self.scale_factors):
             x = block(x)
             skips.append(x)
-            pool = F.max_pool3d if len(sf) == 3 else F.max_pool2d
-            x = pool(x, kernel_size=sf, stride=sf)
+            if len(sf) == 3 and torch.are_deterministic_algorithms_enabled():
+                x = window_max_pool(x, sf)
+            else:
+                pool = F.max_pool3d if len(sf) == 3 else F.max_pool2d
+                x = pool(x, kernel_size=sf, stride=sf)
         return x, skips
 
 

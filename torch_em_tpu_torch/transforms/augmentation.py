@@ -477,12 +477,16 @@ class AugmentationPipeline:
     order 1 for float tensors and order 0 for the others.
 
     Call it with numpy arrays for the host path, or use :meth:`apply_batched` with a
-    ``torch.Generator`` on the tensors' device."""
+    ``torch.Generator`` on the tensors' device. Without a ``seed`` the host path's generator
+    takes one from torch's global generator, as the loader's shuffle does, so
+    ``torch.manual_seed`` fixes its draws (the JAX package's takes fresh entropy)."""
 
     def __init__(self, *augmentations: _Augmentation, dtype: torch.dtype = torch.float32,
                  seed: Optional[int] = None):
         self.augmentations = list(augmentations)
         self.dtype = dtype
+        if seed is None:
+            seed = int(torch.empty((), dtype=torch.int64).random_().item())
         self._np_rng = np.random.default_rng(seed)
         self._lock = threading.Lock()
         self.halo = self.compute_halo()
