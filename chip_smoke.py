@@ -203,8 +203,7 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    (c) the tracked CREMI model on one train and one val volume of 40x320x320, batch 1 of
    32x256x256, ``DeviceBoundaryTransform`` on the card, scored on the (0:32, 0:256, 0:256)
    crop; each with its launches (steps, validations, the scores' forwards), a finite and
-   falling loss and scores in [0, 1]; and, with TF32 off and deterministic algorithms on
-   (``torch_parity3d.deterministic``, the probes' ``--deterministic``, flags printed), (d) the
+   falling loss and scores in [0, 1]; then (d) the
    SPOCO probe through ``scripts/torch_spoco2d.py``, ``UNet2d(1, 8, f=16)`` at batch 4 of
    128x128 in float32 with its moving-average network, the grid-searched embedding decode of
    the 8 tune images and the VOI / Rand scores of the 8 held-out ones, and (e) the SNEMI
@@ -212,7 +211,13 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    8x64x64 in bf16 on affinity targets, 150 iterations (its loss moves more from patch to patch
    than in 20), decoded by the mutex watershed on both val crops; each with its launches (two
    forwards a SPOCO step and a SPOCO validation batch), a finite and falling loss and finite
-   scores. The full runs are the scripts'.
+   scores. All five run with TF32 off and deterministic algorithms on
+   (``torch_parity3d.deterministic``, the scripts' ``--deterministic``; flags printed). The
+   full runs are the scripts';
+21. the public names ``ConvBlock2d``, ``ConvBlock3d``, ``Upsampler2d`` and ``Upsampler3d``
+   (both upsampling modes) built on the card at the tracked widths, each held bitwise against
+   its ``ConvBlock(..., dim)`` or ``Upsampler(..., dim)`` form on the same weights and bf16
+   input, deterministic cuDNN; and ``ops.native.is_available()``.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -515,7 +520,8 @@ MED_DEPTH, MED_BATCH, MED_PATCH = 4, 2, (128, 128, 64)
 QP_FIT, QP_DSB_IMAGES, QP_CREMI_VOLUMES = 20, (32, 4), (1, 1)
 DSB_PROBE_FEATURES, DSB_PROBE_BATCH, DSB_PROBE_PATCH = 16, 4, (128, 128)
 # 20d the SPOCO probe (scripts/torch_spoco2d.py: the DSB probe's images and rows, f=16, batch 4 of 128x128, float32)
-# and 20e the SNEMI probe (scripts/torch_parity3d.py --mode affinity), under the scripts' --deterministic settings;
+# and 20e the SNEMI probe (scripts/torch_parity3d.py --mode affinity); all five under the scripts' --deterministic
+# settings;
 # the SNEMI probe's model, batch and patch are the script's (phase 20 checks them), for the rows of phases 3 and 5
 SNEMI_PROBE_FEATURES, SNEMI_PROBE_SCALES, SNEMI_PROBE_PATCH = 8, [[1, 2, 2], [2, 2, 2]], (8, 64, 64)
 SNEMI_PROBE_NORMS = 10  # 2 a ConvBlock: 2 encoder levels, the base, 2 decoder levels
@@ -4280,7 +4286,7 @@ def phase_hp_med_zoo(port, inorm):
 def phase_quality_probes(port, inorm):
     """The quality probes' paths at a smoke run's length, through the scripts' own functions: the DSB probe, the
     tracked DSB and the tracked CREMI run, each trained QP_FIT iterations and scored by its evaluator on its best
-    checkpoint, then the SPOCO and SNEMI probes the same way under the scripts' deterministic settings. Checks the
+    checkpoint, then the SPOCO and SNEMI probes the same way, all under the scripts' deterministic settings. Checks the
     launches (training steps, validations, the scores' forwards), a finite and falling loss and finite scores
     (Dice and F1 in [0, 1]). Returns the kernels' launches of the five runs."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
@@ -4316,25 +4322,25 @@ def phase_quality_probes(port, inorm):
             dsb["paths"] = torch_parity2d.make_data(os.path.join(tmp, "dsb_probe"), "probe")
             return dsb["paths"]
 
-        plain = contextlib.nullcontext
+        settled = torch_parity3d.deterministic  # the scripts' --deterministic
         # (label, scores, checked score, iterations, norms a forward, forwards a step and a validation batch,
         # settings, scoring forwards, data, training)
         cases = (
-            ("20a DSB probe", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, plain, dsb_score_forwards,
+            ("20a DSB probe", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, settled, dsb_score_forwards,
              dsb_probe_data, lambda paths: torch_parity2d.train_seed(paths, "probe", 0, QP_FIT, "cuda", tmp)),
-            ("20b DSB tracked", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, plain, dsb_score_forwards,
+            ("20b DSB tracked", unit_scores, "dice_mean", QP_FIT, NORMS_PER_FORWARD, 1, settled, dsb_score_forwards,
              lambda: torch_parity2d.make_data(os.path.join(tmp, "dsb_tracked"), "tracked", *QP_DSB_IMAGES),
              lambda paths: torch_parity2d.train_seed(paths, "tracked", 0, QP_FIT, "cuda", tmp)),
-            ("20c CREMI tracked", unit_scores, "dice_boundary", QP_FIT, NORMS_PER_FORWARD, 1, plain,
+            ("20c CREMI tracked", unit_scores, "dice_boundary", QP_FIT, NORMS_PER_FORWARD, 1, settled,
              lambda paths: len(paths["val"]),  # one crop a val volume
              lambda: torch_parity3d.make_data(os.path.join(tmp, "cremi_tracked"), "tracked", *QP_CREMI_VOLUMES),
              lambda paths: torch_parity3d.train_boundary(paths, 0, QP_FIT, "cuda", tmp, "tracked")),
             # the model and its moving average a step and a validation batch; one forward per tune and test image
-            ("20d SPOCO probe", instance_scores, "mean_voi", QP_FIT, NORMS_PER_FORWARD, 2, torch_parity3d.deterministic,
+            ("20d SPOCO probe", instance_scores, "mean_voi", QP_FIT, NORMS_PER_FORWARD, 2, settled,
              lambda paths: len(paths["val"][0]), lambda: dsb["paths"],
              lambda paths: torch_spoco2d.train_seed(paths, 0, QP_FIT, "cuda", tmp)),
             ("20e SNEMI probe", instance_scores, "mean_f1", QP_SNEMI_FIT, SNEMI_PROBE_NORMS, 1,
-             torch_parity3d.deterministic, lambda paths: len(paths["val"]),  # one crop a val volume
+             settled, lambda paths: len(paths["val"]),  # one crop a val volume
              lambda: torch_parity3d.make_data(os.path.join(tmp, "snemi_probe"), "probe"),
              lambda paths: torch_parity3d.train_affinity(paths, 0, QP_SNEMI_FIT, "cuda", tmp)))
         for label, scores_of, score, fit, norms, forwards, settings, score_forwards_of, make_data, train in cases:
@@ -4381,6 +4387,61 @@ def phase_quality_probes(port, inorm):
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"quality probes: {json.dumps(stats)}; {nvidia_smi()}")
     return tuple(launches)
+
+
+# phase 21: the partials at the tracked widths (the tracked model's second level and its upsampler into the first,
+# anisotropic; the DSB model's second level in 2-D and its upsampler), bf16 on the card: (partial, its dim form's
+# arguments, input shape)
+NAMES_CASES = (
+    ("ConvBlock3d", dict(in_channels=32, out_channels=64, kernel_size=(1, 3, 3), padding=(0, 1, 1)),
+     (1, 32, 32, 128, 128)),
+    ("ConvBlock2d", dict(in_channels=64, out_channels=128), (DSB_BATCH, 64, 128, 128)),
+    ("Upsampler3d", dict(in_channels=64, out_channels=32, scale_factor=(1, 2, 2)), (1, 64, 32, 64, 64)),
+    ("Upsampler3d", dict(in_channels=64, out_channels=32, scale_factor=(1, 2, 2), mode="nearest"),
+     (1, 64, 32, 64, 64)),
+    ("Upsampler2d", dict(in_channels=128, out_channels=64, scale_factor=2), (DSB_BATCH, 128, 64, 64)),
+    ("Upsampler2d", dict(in_channels=128, out_channels=64, scale_factor=2, mode="nearest"), (DSB_BATCH, 128, 64, 64)),
+)
+
+
+def phase_public_names(unet_module, inorm):
+    """Each public partial on the card against its ``dim`` form, bitwise, on the same weights and bf16 input with
+    deterministic cuDNN; the native library's ``is_available()``. The norm launches of these forwards are logged
+    and left out of the kernels line: they compare two forms of one path."""
+    from torch_em_tpu_torch.ops import native
+
+    t = time.perf_counter()
+    old = deterministic_f32()
+    inorm.instance_norm.launches = 0
+    try:
+        for i, (name, kwargs, shape) in enumerate(NAMES_CASES):
+            dim = 3 if name.endswith("3d") else 2
+            full_cls = unet_module.ConvBlock if name.startswith("ConvBlock") else unet_module.Upsampler
+            full_form = full_cls(**kwargs, dim=dim)
+            for m in full_form.modules():
+                if isinstance(m, unet_module._Conv):
+                    m.reset_parameters(torch.Generator().manual_seed(i))
+            partial_form = getattr(unet_module, name)(**kwargs)
+            partial_form.load_state_dict(full_form.state_dict(), strict=True)
+            full_form, partial_form = full_form.cuda(), partial_form.cuda()
+            x = torch.randn(shape, generator=card_generator(i), device="cuda").to(torch.bfloat16)
+            with torch.inference_mode():
+                got, expected = partial_form(x), full_form(x)
+            equal = torch.equal(got, expected)
+            log(f"21 {name}({', '.join(f'{k}={v}' for k, v in kwargs.items())}) on {tuple(shape)} bf16: output "
+                f"{tuple(got.shape)}, equal to {full_cls.__name__}(dim={dim}) bitwise: {equal}")
+            if not equal or tuple(got.shape[:2]) != (shape[0], kwargs["out_channels"]) or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"21 {name} differs from its dim form or is not finite")
+        available = native.is_available()
+        expected_launches = 2 * 2 * sum(name.startswith("ConvBlock") for name, _, _ in NAMES_CASES)
+        log(f"21 ops.native.is_available(): {available}; norm launches of the comparisons "
+            f"{inorm.instance_norm.launches} (expected {expected_launches}: 2 a ConvBlock forward, both forms); "
+            f"{time.perf_counter() - t:.2f} s")
+        if available is not True or inorm.instance_norm.launches != expected_launches:
+            raise AssertionError("21 the native library is not available or the blocks' norms did not launch")
+    finally:
+        restore(old)
 
 
 def time_host_ms(fn, *args, repeats=5):
@@ -4558,6 +4619,10 @@ def main():
             "256x256) and the tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the "
             "SPOCO and SNEMI probes through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic")
         qp_fwd, qp_bwd = phase_quality_probes(port, inorm)
+
+        log("phase 21: ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; "
+            "ops.native.is_available()")
+        phase_public_names(unet_module, inorm)
         forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
                                + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd + qp_fwd)
         backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd

@@ -1,7 +1,7 @@
 """The port's DSB-2D quality points: ``experiments/parity/{make_data,train_tpu,evaluate}.py``, run with the port.
 
-    python3 scripts/torch_parity2d.py --scale probe --seeds 0 1 2 3 4 -o OUT
-    python3 scripts/torch_parity2d.py --scale tracked --seeds 0 1 2 -o OUT
+    python3 scripts/torch_parity2d.py --scale probe --seeds 0 1 2 3 4 --deterministic -o OUT
+    python3 scripts/torch_parity2d.py --scale tracked --seeds 0 1 2 --deterministic -o OUT
     python3 scripts/torch_parity2d.py --scale probe --seeds 0 --iterations 4 --device cpu -o OUT
 
 Imports only the port (``torch_em_tpu_torch``), ``chip_smoke`` (for the
@@ -33,7 +33,14 @@ statistics and training-curve logger), and runs on the card unless
 3. Evaluation (``evaluate.py``): the best checkpoint's predictions of the 16
    val images, in batches of 4, scored by soft Dice per channel over the
    whole set against ``BoundaryTransform`` targets of the val labels:
-   foreground, boundary and their mean.
+   foreground, boundary and their mean. The run also records the sha256 of the
+   best checkpoint's weights (``torch_parity3d.state_digest``): equal digests
+   from two processes mean the seed repeats bitwise.
+
+``--deterministic`` runs under ``torch_parity3d.deterministic`` (TF32 off,
+cuDNN's deterministic algorithms without benchmarking, and
+``torch.use_deterministic_algorithms(True)``); the result file records the
+flags either way.
 
 The summary sets the seeds' mean Dice beside the recorded yardsticks: at the
 probe scale torch-em's and the JAX package's three runs each
@@ -65,7 +72,8 @@ from chip_smoke import nvidia_smi  # noqa: E402
 from torch_em_tpu_torch.data import ImageCollectionDataset  # noqa: E402
 from torch_em_tpu_torch.transforms import BoundaryTransform, get_augmentations  # noqa: E402
 from torch_em_tpu_torch.utils.test import make_image  # noqa: E402
-from torch_parity3d import CurveLog, backend_flags, distribution, hit, one_sample_t, welch  # noqa: E402
+from torch_parity3d import (CurveLog, backend_flags, deterministic, distribution, hit, one_sample_t,  # noqa: E402
+                            state_digest, welch)
 
 DATA_SEED, SPLITS = 42, (("train", 128), ("val", 16))
 # make_data.py's image side, train_tpu.py's width, batch and iterations at each scale (the tracked one:
@@ -168,7 +176,8 @@ def train_seed(paths, scale, seed, iterations, device, out):
     fg, bd = dice_per_channel(preds, targets)
     run = {"seed": seed, "dice_foreground": float(fg), "dice_boundary": float(bd),
            "dice_mean": float((fg + bd) / 2), "best_val_metric": trainer.best_metric, "iterations": trained,
-           "best_checkpoint_iteration": trainer.iteration, "train_s": train_s,
+           "best_checkpoint_iteration": trainer.iteration, "best_state_sha256": state_digest(trainer.model),
+           "train_s": train_s,
            "curves": trainer.logger.curves(len(train_loader))}
     return run, trainer
 
@@ -200,10 +209,17 @@ def main(argv=None):
     parser.add_argument("-n", "--iterations", type=int, default=None,
                         help="default: 1500 (probe) or 3000 (tracked), as the JAX runs")
     parser.add_argument("-d", "--device", default="cuda")
+    parser.add_argument("--deterministic", action="store_true",
+                        help="TF32 off and deterministic algorithms on (torch_parity3d.deterministic)")
     args = parser.parse_args(argv)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("torch_parity2d: no CUDA device is available; pass --device cpu to run on the CPU", file=sys.stderr)
         return 2
+    with deterministic(args.deterministic):
+        return run_seeds(args)
+
+
+def run_seeds(args):
     iterations = SCALES[args.scale]["iterations"] if args.iterations is None else args.iterations
     os.makedirs(args.output, exist_ok=True)
     paths = make_data(os.path.join(args.output, "data"), args.scale)

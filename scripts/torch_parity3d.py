@@ -359,6 +359,7 @@ def train_boundary(paths, seed, iterations, device, out, scale="probe"):
     targets = np.stack([np.load(b)[roi] for _, _, b in val])[:, None]
     run = {"seed": seed, "dice_boundary": soft_dice(preds, targets), "best_val_metric": trainer.best_metric,
            "iterations": trained, "best_checkpoint_iteration": trainer.iteration,
+           "best_state_sha256": state_digest(trainer.model),
            "curves": trainer.logger.curves(len(train_loader))}
     return run, trainer
 

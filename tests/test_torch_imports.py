@@ -76,6 +76,9 @@ from torch_em_tpu_torch.multi_gpu_training import DataParallelTrainer, train_mul
 from torch_em_tpu_torch.parallel import (get_mesh, halo_sharded_predict, replicate, restore_sharded_checkpoint,
                                          save_sharded_checkpoint, shard_batch)
 from torch_em_tpu_torch.data import DistributedIndexSampler
+from torch_em_tpu_torch.models.unet import ConvBlock2d, ConvBlock3d, Upsampler2d, Upsampler3d
+from torch_em_tpu_torch.ops.native import is_available
+assert callable(is_available)
 import chip_smoke
 assert callable(chip_smoke.main)
 import runpy

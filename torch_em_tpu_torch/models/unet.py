@@ -29,6 +29,7 @@ follow torch-em's state-dict layout (``encoder.blocks.<i>.block.{1,4}``,
 torch-em checkpoints load, and ``utils.convert`` carries JAX weights over.
 """
 
+from functools import partial
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -41,8 +42,8 @@ from .base import get_activation, resolve_device
 
 __all__ = [
     "UNet2d", "UNet3d", "AnisotropicUNet", "UNetModule", "POSTPROCESSING",
-    "AccumulateChannels", "ConvBlock", "Upsampler", "InstanceNorm", "InstanceNormTrackStats",
-    "GroupNorm", "BatchNorm", "window_max_pool",
+    "AccumulateChannels", "ConvBlock", "ConvBlock2d", "ConvBlock3d", "Upsampler", "Upsampler2d", "Upsampler3d",
+    "InstanceNorm", "InstanceNormTrackStats", "GroupNorm", "BatchNorm", "window_max_pool",
 ]
 
 
@@ -274,22 +275,44 @@ class ConvBlock(nn.Module):
         return self.block(x)
 
 
+ConvBlock2d = partial(ConvBlock, dim=2)
+ConvBlock3d = partial(ConvBlock, dim=3)
+
+# jax.image.resize's method names: linear and its aliases, nearest, and the methods not ported
+_LINEAR, _NEAREST = ("linear", "bilinear", "trilinear", "triangle"), ("nearest",)
+_NOT_PORTED = ("cubic", "bicubic", "tricubic", "lanczos3", "lanczos5")
+
+
 class Upsampler(nn.Module):
-    """1x1 conv, then linear interpolation by the per-axis scale factor.
+    """1x1 conv, then interpolation by the per-axis scale factor.
 
-    The conv runs before the interpolation, as in the JAX package: the two
-    commute, and the conv then touches fewer voxels."""
+    ``mode`` is the JAX package's (a ``jax.image.resize`` method): ``"linear"``
+    (the default) interpolates linearly, ``"nearest"`` takes the nearest input
+    pixel; both with half-pixel centres (``align_corners=False``,
+    ``"nearest-exact"``). The conv runs before the interpolation, as in the JAX
+    package: the two commute, and the conv then touches fewer voxels."""
 
-    def __init__(self, in_channels, out_channels, scale_factor, dim):
+    def __init__(self, in_channels, out_channels, scale_factor, dim, mode: str = "linear"):
         super().__init__()
+        if mode in _NOT_PORTED:
+            raise NotImplementedError(f"Upsampler mode {mode!r} is not ported; 'linear' and 'nearest' are")
+        if mode not in _LINEAR + _NEAREST:
+            raise ValueError(f"Invalid upsampling mode: {mode!r}")
         self.scale_factor = _to_tuple(scale_factor, dim)
-        self.mode = "trilinear" if dim == 3 else "bilinear"
+        self.mode = mode
+        linear = mode in _LINEAR
+        self._interpolation = ("trilinear" if dim == 3 else "bilinear") if linear else "nearest-exact"
+        self._align_corners = False if linear else None
         self.conv = _Conv(dim, in_channels, out_channels, 1, 0)
 
     def forward(self, x):
         x = self.conv(x)
         size = [s * f for s, f in zip(x.shape[2:], self.scale_factor)]
-        return F.interpolate(x, size=size, mode=self.mode, align_corners=False)
+        return F.interpolate(x, size=size, mode=self._interpolation, align_corners=self._align_corners)
+
+
+Upsampler2d = partial(Upsampler, dim=2)
+Upsampler3d = partial(Upsampler, dim=3)
 
 
 class _WindowMax(torch.autograd.Function):

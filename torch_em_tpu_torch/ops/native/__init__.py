@@ -5,7 +5,9 @@ The port's own copy of the JAX package's ``ops/native``. ``tem_native.cpp``
 beside this file is built with ``g++ -O3 -std=c++17 -fPIC -shared`` at first
 use into ``torch_em_tpu_torch/_build/tem_native-<hash>/``, keyed by a hash of
 the source and the flags (``ops/_build.py:compile_library``). A failed build
-raises; nothing falls back to another implementation.
+raises; nothing falls back to another implementation. ``is_available()``
+answers whether the library builds and loads here; no path of the port asks it
+to choose another implementation.
 """
 
 import ctypes
@@ -18,7 +20,7 @@ import numpy as np
 
 from .._build import compile_library
 
-__all__ = ["watershed", "mutex_watershed", "connected_components_labels", "load_library"]
+__all__ = ["watershed", "mutex_watershed", "connected_components_labels", "load_library", "is_available"]
 
 SOURCE = Path(__file__).resolve().parent / "tem_native.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
@@ -44,6 +46,16 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.watershed, lib.mutex_watershed, lib.connected_components_labels):
         fn.restype = None
     return lib
+
+
+def is_available() -> bool:
+    """Whether ``load_library()`` builds and loads the native library (a query: a failed build
+    raises again at the next call of an op)."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _ptr(arr: np.ndarray, ctype):
