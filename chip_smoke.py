@@ -218,6 +218,27 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    (both upsampling modes) built on the card at the tracked widths, each held bitwise against
    its ``ConvBlock(..., dim)`` or ``Upsampler(..., dim)`` form on the same weights and bf16
    input, deterministic cuDNN; and ``ops.native.is_available()``.
+22. HDF5 with no h5py (``utils/hdf5.py``): (a) ``bench.py``'s loader volume (64x512x512 float32
+   raw, uint32 labels, (32, 128, 128) chunks) written by the port, once with no filter and once
+   with gzip (``write_data``), write seconds and sizes; the reader's MB/s over random 32x256x256
+   windows; (b) the tracked AnisotropicUNet (bf16, ``DiceLoss``, AdamW at lr 1e-4) trained 8
+   steps and resumed for 2 from ``SegmentationDataset`` over the h5 file with ``AffinityTransform``
+   on the host and thread workers, the loader's patches/s from both files beside the bare step's
+   and phase 7's ``.npy`` loader; (c) the 12 tracked ``experiments/parity/parity_data*/**/*.h5``
+   files read by the port, each labels volume's sha256 held against the one the parity scripts
+   give it (``torch_parity2d.LABELS_SHA256``, ``torch_parity3d.make_data``'s regenerated volumes),
+   and ``default_segmentation_loader`` over ``parity_data3d/train/vol*.h5`` into the 3-D probe
+   model for a few steps; (d) an LZF-filtered dataset grown tile by tile, as
+   ``orion_crc.py`` writes it, read back through the native LZF build.
+
+Phases 1 to 7, 22 and 15 run one after another in this process, alone on the card: the
+kernels' times of the last lines come from phases 3 and 5, phase 22's loader rates are
+compared with phase 7's, and phase 15's two ranks need 50 GiB of the card. The other phases
+of 8 to 21 then run at the same time in ``FANOUT`` groups, each
+group one child process (``chip_smoke.py --phases 12,14``) that runs its phases in order on the
+same card, with a share of the host's cores; the child's lines, on a clock that starts with this
+process, are printed when all groups have ended, and a failed group stops the others. Times
+printed by those phases are therefore taken beside the other groups' work.
 
 Phases 3 and 5 also hold both kernels at the self-training steps' shapes
 (UniMatch v2's student at batch 16 of the DSB shapes; the Probabilistic
@@ -257,10 +278,12 @@ device, or when any phase fails, it exits nonzero and prints no result line.
 """
 
 import contextlib
+import ctypes
 import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -274,6 +297,9 @@ import numpy as np
 import torch
 
 T0 = time.perf_counter()
+# a child process of the fan-out logs on the clock of the process that started it
+if "CHIP_SMOKE_T0" in os.environ:
+    T0 -= time.time() - float(os.environ["CHIP_SMOKE_T0"])
 
 TRACKED = dict(
     in_channels=1, out_channels=1, scale_factors=[[1, 2, 2], [1, 2, 2], [2, 2, 2], [2, 2, 2]],
@@ -531,6 +557,24 @@ SNEMI_PROBE_NORMS = 10  # 2 a ConvBlock: 2 encoder levels, the base, 2 decoder l
 QP_SNEMI_FIT = 150
 # the scripts' evaluation batch of the DSB images (phase 3 holds the forward at batch 4 of the f=64 rows)
 QP_EVAL_BATCH = 4
+
+# HDF5 on the card (phase 22): bench.py's loader volume and chunks; the tracked model trained H5_FIT steps and resumed
+# for H5_RESUME from it (bench.py's random labels teach nothing, so the loss need not fall); H5_WINDOWS random
+# windows of TRAIN_PATCH time the reader; the 3-D probe model H5_PROBE_FIT + H5_PROBE_RESUME steps over the tracked
+# parity volumes; LZF tiles grown along an unlimited axis as histopathology/orion_crc.py writes them
+H5_VOLUME, H5_CHUNKS = (64, 512, 512), (32, 128, 128)
+H5_FIT, H5_RESUME, H5_WINDOWS = 8, 2, 6
+H5_PROBE_FIT, H5_PROBE_RESUME = 4, 2
+H5_LZF_TILES, H5_LZF_TILE = 12, (256, 256)
+H5_PARITY_FILES = 12
+# the loader rates of one run, for phase 22's comparison with phase 7's .npy loader
+LOADER_RATES = {}
+# phases 8 to 21 but 15 run at the same time in these groups of one child process each, about equal in length
+# (phase 12 with 14: they train on the same images, and their card memory peaks near 32 and 28 GiB; phase 15,
+# whose two ranks hold 25 GiB each, runs alone before them); a group ends within FANOUT_DEADLINE s of the start of
+# the run or is stopped
+FANOUT = ((12, 14), (8, 16, 19, 21), (9, 10, 11, 13), (17, 18, 20))
+FANOUT_DEADLINE = 1100
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
 NORM_KERNELS = re.compile(r"row_in_registers|row_in_cluster|row_through_l2")
@@ -1625,6 +1669,7 @@ def phase_factory_3d(port, inorm, device_ops):
         for mode, modes_loader in (("no transform", no_transform), ("default flips", loader(n)),
                                    ("flips + RandomElasticDeformation3D", loader(n, transform=elastic))):
             rate = loader_rate(resumed, modes_loader)
+            LOADER_RATES[f"7 {mode}"] = rate
             log(f"3-D loader, {mode}, {LOADER_THREADS} threads, DeviceAffinityTransform in the step: "
                 f"{rate:.2f} patches/s ({1e3 / rate:.1f} ms per patch)")
         raw, lab = ds.datasets[0]._get_sample(0)
@@ -4444,6 +4489,197 @@ def phase_public_names(unet_module, inorm):
         restore(old)
 
 
+def h5_windows(n, seed):
+    """``n`` random TRAIN_PATCH windows of H5_VOLUME."""
+    rng = np.random.default_rng(seed)
+    highs = [v - p + 1 for v, p in zip(H5_VOLUME, TRAIN_PATCH)]
+    return [tuple(slice(int(a), int(a) + p) for a, p in zip(rng.integers(0, highs), TRAIN_PATCH)) for _ in range(n)]
+
+
+def lzf_tiles(rng):
+    """H5_LZF_TILES (3, *H5_LZF_TILE) uint8 H&E-like tiles and uint32 label tiles: smooth noise, quantized, which
+    LZF shrinks, and one tile of white noise, which it does not (the optional filter is skipped there)."""
+    from scipy import ndimage
+
+    he, inst = [], []
+    for n in range(H5_LZF_TILES):
+        field = ndimage.gaussian_filter(rng.random((3,) + H5_LZF_TILE, dtype=np.float32), (0, 6, 6))
+        if n == H5_LZF_TILES - 1:
+            he.append(rng.integers(0, 256, (3,) + H5_LZF_TILE, dtype=np.uint8))
+        else:
+            he.append(np.clip((field - field.mean()) * 2000 + 128, 0, 255).astype(np.uint8))
+        inst.append((field[0] > field[0].mean()).astype(np.uint32) * (n + 1))
+    return he, inst
+
+
+def phase_hdf5(port, inorm):
+    """HDF5 on the card with the port's own module (22a-d in the module docstring); returns the kernels' launches
+    of the two training runs."""
+    import glob
+    import hashlib
+
+    from torch_em_tpu_torch.ops.device import DeviceBoundaryTransform
+    from torch_em_tpu_torch.ops.native import lzf
+    from torch_em_tpu_torch.transforms.label import AffinityTransform
+    from torch_em_tpu_torch.utils import hdf5, io
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_parity2d
+    import torch_parity3d
+
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory() as tmp:
+        # 22a: bench.py's loader volume, written without a filter (as bench.py does) and with gzip (write_data)
+        rng = np.random.default_rng(0)
+        raw = rng.random(H5_VOLUME, dtype=np.float32)
+        labels = rng.integers(1, 500, H5_VOLUME).astype("uint32")
+        files = {"none": os.path.join(tmp, "vol.h5"), "gzip": os.path.join(tmp, "vol_gzip.h5")}
+        t = time.perf_counter()
+        with hdf5.File(files["none"], "w") as f:
+            f.create_dataset("raw", data=raw, chunks=H5_CHUNKS)
+            f.create_dataset("labels", data=labels, chunks=H5_CHUNKS)
+        stats["write_none_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        io.write_data(files["gzip"], "raw", raw, chunks=H5_CHUNKS)
+        io.write_data(files["gzip"], "labels", labels, chunks=H5_CHUNKS)
+        stats["write_gzip_s"] = time.perf_counter() - t
+        windows = h5_windows(H5_WINDOWS, 1)
+        window_bytes = 2 * int(np.prod(TRAIN_PATCH)) * 4
+        for key, path in files.items():
+            stats[f"size_{key}_mib"] = os.path.getsize(path) / 2 ** 20
+            with hdf5.File(path) as f:
+                ds_raw, ds_labels = f["raw"], f["labels"]
+                if (ds_raw.chunks, ds_labels.chunks, ds_raw.compression, ds_labels.dtype) != (
+                        H5_CHUNKS, H5_CHUNKS, None if key == "none" else "gzip", np.dtype("uint32")):
+                    raise AssertionError(f"22a {key}: {ds_raw.chunks} {ds_raw.compression} {ds_labels.dtype}")
+                t = time.perf_counter()
+                read = [(ds_raw[w], ds_labels[w]) for w in windows]
+                seconds = time.perf_counter() - t
+            stats[f"read_{key}_mb_per_s"] = window_bytes * len(windows) / seconds / 1e6
+            for w, (r, lab) in zip(windows, read):
+                if not (np.array_equal(r, raw[w]) and np.array_equal(lab, labels[w])):
+                    raise AssertionError(f"22a {key}: the window {w} reads back otherwise than written")
+            log(f"22a {key}: wrote raw and labels {H5_VOLUME} in {H5_CHUNKS} chunks in "
+                f"{stats['write_' + key + '_s']:.2f} s, {stats['size_' + key + '_mib']:.1f} MiB; read {len(windows)} "
+                f"random {TRAIN_PATCH} windows of both in {seconds:.3f} s, "
+                f"{stats['read_' + key + '_mb_per_s']:.0f} MB/s, one thread, each equal to what was written")
+        del raw, labels, read
+
+        # 22b: the tracked model from SegmentationDataset over the h5 file, AffinityTransform on the host
+        def h5_loader(path, n_samples, shuffle=True):
+            dataset = port.SegmentationDataset(
+                path, "raw", path, "labels", patch_shape=TRAIN_PATCH, n_samples=n_samples,
+                label_transform=AffinityTransform(offsets=OFFSETS, add_mask=False))
+            return port.DataLoader(dataset, batch_size=1, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+        np.random.seed(5)
+        model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+        trainer = port.default_segmentation_trainer(
+            "h5-tracked", model, h5_loader(files["none"], H5_FIT), h5_loader(files["none"], 1, shuffle=False),
+            learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, H5_FIT, H5_RESUME, 1, "22b tracked model from h5",
+                                               falling=False)
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if resumed.train_loader.dataset.raw_path != files["none"]:
+            raise AssertionError("22b from_checkpoint did not rebuild the h5 dataset")
+        for key, path in files.items():
+            stats[f"loader_{key}_patches_per_s"] = loader_rate(resumed, h5_loader(path, 2 + LOADER_STEPS))
+        x, y = (v.cuda() for v in next(iter(h5_loader(files["none"], 1, shuffle=False))))
+        stats["step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+        npy = LOADER_RATES.get("7 no transform")
+        log(f"22b loader, {LOADER_THREADS} thread workers, AffinityTransform on the host: "
+            f"{stats['loader_none_patches_per_s']:.2f} patches/s from the unfiltered h5, "
+            f"{stats['loader_gzip_patches_per_s']:.2f} from the gzip h5; bare step {stats['step_ms']:.2f} ms device "
+            f"(CUDA events), {1e3 / stats['step_ms']:.2f} patches/s; phase 7's .npy loader (no transform, affinities "
+            f"on the card) {'not run' if npy is None else f'{npy:.2f}'} patches/s; {nvidia_smi()}")
+        del trainer, resumed, model, x, y
+        torch.cuda.empty_cache()
+
+        # 22c: the tracked parity files, read by the port, against the parity scripts' digests
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "parity")
+        parity = sorted(glob.glob(os.path.join(root, "parity_data*", "**", "*.h5"), recursive=True))
+        if len(parity) != H5_PARITY_FILES:
+            raise AssertionError(f"22c found {len(parity)} tracked parity files, not {H5_PARITY_FILES}")
+        t = time.perf_counter()
+        digests = {}
+        for path in parity:
+            with hdf5.File(path) as f:
+                digests[os.path.relpath(path, root)] = hashlib.sha256(
+                    np.ascontiguousarray(f["labels"][()], dtype=np.uint32).tobytes()).hexdigest()
+        stats["parity_read_s"] = time.perf_counter() - t
+        expected = {}
+        for folder, scale in (("parity_data", "probe"), ("parity_data256", "tracked")):
+            for split, digest in torch_parity2d.LABELS_SHA256[scale].items():
+                expected[os.path.join(folder, f"{split}.h5")] = digest
+        regenerated = torch_parity3d.make_data(os.path.join(tmp, "parity3d"))
+        for split, volumes in regenerated.items():
+            for i, (_, labels_path, _) in enumerate(volumes):
+                expected[os.path.join("parity_data3d", split, f"vol{i}.h5")] = torch_parity3d.labels_digest(
+                    np.load(labels_path))
+        if digests != expected:
+            differ = sorted(k for k in set(digests) | set(expected) if digests.get(k) != expected.get(k))
+            raise AssertionError(f"22c labels sha256 differ from the parity scripts' for {differ}")
+        log(f"22c read the labels of all {len(parity)} tracked parity h5 files in {stats['parity_read_s']:.2f} s; "
+            f"each sha256 equals the parity scripts' (torch_parity2d.LABELS_SHA256, torch_parity3d.make_data)")
+        train3d = sorted(glob.glob(os.path.join(root, "parity_data3d", "train", "vol*.h5")))
+
+        def probe_loader(n_samples, shuffle=True):
+            return port.default_segmentation_loader(
+                train3d, "raw", train3d, "labels", batch_size=1, patch_shape=torch_parity3d.PATCH, ndim=3,
+                label_dtype="float32", n_samples=n_samples, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+        model = port.AnisotropicUNet(in_channels=1, out_channels=1, initial_features=SNEMI_PROBE_FEATURES,
+                                     scale_factors=SNEMI_PROBE_SCALES, final_activation="Sigmoid", device="cuda",
+                                     seed=0)
+        trainer = port.default_segmentation_trainer(
+            "h5-probe3d", model, probe_loader(H5_PROBE_FIT), probe_loader(1, shuffle=False), learning_rate=1e-4,
+            device="cuda", logger=LossLog, save_root=tmp, device_label_transform=DeviceBoundaryTransform(ndim=3))
+        resumed, fit_launches = fit_and_resume(port, inorm, trainer, H5_PROBE_FIT, H5_PROBE_RESUME, 1,
+                                               "22c 3-D probe model over parity_data3d/train/vol*.h5",
+                                               norms=(SNEMI_PROBE_NORMS, SNEMI_PROBE_NORMS - 1), falling=False)
+        launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+        if len(resumed.train_loader.dataset.datasets) != len(train3d):
+            raise AssertionError("22c from_checkpoint did not rebuild the loader over the six volumes")
+        del trainer, resumed, model
+
+        # 22d: an LZF-filtered dataset grown along its unlimited axis tile by tile, as orion_crc.py writes it
+        t = time.perf_counter()
+        library = lzf.load_library()._name
+        stats["lzf_build_s"] = time.perf_counter() - t
+        he, inst = lzf_tiles(np.random.default_rng(2))
+        path = os.path.join(tmp, "tiles.h5")
+        t = time.perf_counter()
+        with hdf5.File(path, "w") as f:
+            f.attrs["slide_name"] = "smoke"
+            he_ds = f.create_dataset("images/he", shape=(3, 0) + H5_LZF_TILE, maxshape=(3, None) + H5_LZF_TILE,
+                                     compression="lzf", chunks=(3, 1) + H5_LZF_TILE, dtype="uint8")
+            inst_ds = f.create_dataset("labels/instances", shape=(0,) + H5_LZF_TILE, maxshape=(None,) + H5_LZF_TILE,
+                                       compression="lzf", chunks=(1,) + H5_LZF_TILE, dtype="uint32")
+            for n in range(H5_LZF_TILES):
+                he_ds.resize(n + 1, axis=1)
+                inst_ds.resize(n + 1, axis=0)
+                he_ds[:, n] = he[n]
+                inst_ds[n] = inst[n]
+        stats["lzf_write_s"] = time.perf_counter() - t
+        with hdf5.File(path) as f:
+            he_back, inst_back = f["images/he"][...], f["labels/instances"][...]
+            masks = [mask for _, _, mask in f["images/he"]._state().chunk_index().values()]
+            ok = (f.attrs["slide_name"] == "smoke" and f["images/he"].compression == "lzf"
+                  and np.array_equal(he_back, np.stack(he, axis=1)) and np.array_equal(inst_back, np.stack(inst)))
+        raw_bytes = sum(a.nbytes for a in he + inst)
+        log(f"22d LZF: {library} built and loaded in {stats['lzf_build_s']:.2f} s; {H5_LZF_TILES} tiles grown along "
+            f"the unlimited axis in {stats['lzf_write_s']:.2f} s, {os.path.getsize(path) / raw_bytes:.3f} of their "
+            f"{raw_bytes / 2 ** 20:.1f} MiB; {masks.count(1)} of {len(masks)} H&E chunks stored unfiltered (LZF "
+            f"would not shrink them); read back equal: {ok}")
+        if not ok or masks.count(1) != 1:
+            raise AssertionError("22d the LZF tiles do not read back as written")
+    log(f"22: {launches[0]} forward and {launches[1]} backward norm launches; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"numbers {json.dumps({k: round(v, 3) for k, v in stats.items()})}")
+    return launches
+
+
 def time_host_ms(fn, *args, repeats=5):
     """Median host time of ``fn(*args)`` in ms."""
     times = []
@@ -4458,6 +4694,156 @@ def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree, key=str) for leaf in _tree_leaves(tree[key])]
     return [tree]
+
+
+PHASE_TITLES = {
+    8: "AugmentationPipeline.apply_batched on the card against the CPU",
+    9: "the DSB recipe, UNet2d at DSB width, and the CLI",
+    10: "the SNEMI recipe, affinities and the mutex watershed",
+    11: "the SPOCO recipe, embeddings, the EMA network and the grid search; the other norms",
+    12: "the ViM-UNet / UNETR recipe, UNETR vit_b and ViM-UNet vim_t at 512x512; UNETR3D",
+    13: "self-training at DSB width: MeanTeacher, FixMatch, UniMatch v2, the Probabilistic U-Net, FlashOptim",
+    14: "the other encoder families in UNETR (SAM2, DINOv2, DINOv3, MAE, ScaleMAE, SAM3) and the 3-D ResNet "
+        "classification",
+    15: "the multi-device paths: train_multi_gpu over NCCL, two processes on the card over gloo (data-parallel step, "
+        "halo-sharded serving, the spatially sharded step), two replicas in predict_with_halo",
+    16: "Shallow2Deep: the enhancer on the committed forests' predictions, the bioimage.io export, validation, import "
+        "and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage",
+    17: "the dataset zoo's EM readers: get_benchmark_loader over TIFF volumes at MitoLab benchmark 5's published shape "
+        "into the tracked model, get_mitolab_loader into UNet2d",
+    18: "the dataset zoo's light-microscopy readers: get_dsb_loader on dsb2018's layout into the DSB recipe's UNet2d "
+        "(and the SPOCO recipe's loader), get_livecell_loader on LIVECell's COCO layout into UNETR",
+    19: "the dataset zoo's histopathology and medical readers: get_monuseg_loader on MoNuSeg's XML layout into UNet2d "
+        "at DSB width, get_amos_loader on AMOS' CT NIfTI volumes into UNet3d",
+    20: "the quality probes' paths: the DSB probe (UNet2d f=16, 128x128), the tracked DSB (f=64, 256x256) and the "
+        "tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the SPOCO and SNEMI probes "
+        "through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic",
+    21: "ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; ops.native.is_available()",
+}
+# the phases of the fan-out that launch the norm kernels, by the name of their path in the launches line
+FANOUT_NAMES = {9: "DSB", 10: "SNEMI", 11: "SPOCO", 12: "UNETR and ViM-UNet", 13: "self-training",
+                14: "encoder families", 15: "multi-device", 16: "Shallow2Deep", 17: "EM zoo", 18: "LM zoo",
+                19: "histopathology and medical zoo", 20: "quality probes"}
+
+
+def run_phases(numbers):
+    """Run phases ``numbers`` (of 8 to 21) in order in this process; returns {phase: [forward, backward]}, the
+    norm kernels' launches of each."""
+    import torch_em_tpu_torch as port
+    import torch_em_tpu_torch.models.unet as unet_module
+    import torch_em_tpu_torch.ops.device as device_ops
+    import torch_em_tpu_torch.ops.instance_norm as inorm
+
+    launches, livecell = {}, None
+    with tempfile.TemporaryDirectory() as livecell_dir:
+        for number in numbers:
+            log(f"phase {number}: {PHASE_TITLES[number]}")
+            if number in (12, 14) and livecell is None:
+                # phases 12 and 14 train on the same LIVECell-sized images
+                livecell = livecell_images(livecell_dir)
+                log(f"LIVECell-sized data: {len(livecell[0])} images {np.load(livecell[0][0]).shape}")
+            got = (0, 0)
+            if number == 8:
+                phase_apply_batched(port)
+            elif number == 9:
+                got = phase_dsb(port, inorm)
+            elif number == 10:
+                got = phase_snemi(port, inorm, device_ops)
+            elif number == 11:
+                got = phase_spoco(port, inorm)
+                phase_norm_variants(port)
+            elif number == 12:
+                got = phase_vit_recipes(port, inorm, *livecell)
+            elif number == 13:
+                got = phase_self_training(port, inorm)
+            elif number == 14:
+                got = phase_encoder_families(port, inorm, *livecell)
+            elif number == 15:
+                got = phase_multi_device(port, inorm, device_ops)
+            elif number == 16:
+                got = phase_shallow2deep(port, inorm)
+            elif number == 17:
+                got = phase_em_zoo(port, inorm)
+            elif number == 18:
+                got = phase_lm_zoo(port, inorm)
+            elif number == 19:
+                got = phase_hp_med_zoo(port, inorm)
+            elif number == 20:
+                got = phase_quality_probes(port, inorm)
+            elif number == 21:
+                phase_public_names(unet_module, inorm)
+            else:
+                raise ValueError(f"no phase {number} among 8 to 21")
+            launches[number] = [int(got[0]), int(got[1])]
+            # the next phase, and the other groups, get the card memory this one held
+            torch.cuda.empty_cache()
+    return launches
+
+
+def run_fanout(groups):
+    """Run each group of phases in a child process of its own, all groups at once on the card, each with
+    ``OMP_NUM_THREADS`` set to its share of the host's cores; print the children's lines, group by group, when all
+    have ended. A group that fails, or that has not ended ``FANOUT_DEADLINE`` s after the run's start, stops the
+    others (with every process they started) and raises. Returns {phase: [forward, backward]} launches."""
+    threads = max(1, (os.cpu_count() or len(groups)) // len(groups))
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               CHIP_SMOKE_T0=repr(time.time() - (time.perf_counter() - T0)))
+    children = []
+    # a stop of this process (SIGTERM) stops the children too
+    old_handler = signal.signal(signal.SIGTERM, lambda *_: sys.exit(128 + signal.SIGTERM))
+    try:
+        for group in groups:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+            children.append((group, out, err, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phases", ",".join(map(str, group))],
+                stdout=out, stderr=err, env=env, text=True, start_new_session=True)))
+        while any(child.poll() is None for *_, child in children):
+            if any(child.returncode for *_, child in children):
+                break
+            if time.perf_counter() - T0 > FANOUT_DEADLINE:
+                break
+            time.sleep(1)
+    finally:
+        for *_, child in children:
+            # each child leads a process group of its own, with the processes it started
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(child.pid, signal.SIGKILL)
+            child.wait()
+        signal.signal(signal.SIGTERM, old_handler)
+    launches, failed = {}, []
+    for group, out, err, child in children:
+        out.seek(0)
+        err.seek(0)
+        lines = out.read().splitlines()
+        sys.stderr.write(err.read())
+        sys.stderr.flush()
+        result = lines.pop() if child.returncode == 0 and lines else None
+        print("\n".join(lines), flush=True)
+        if result is None:
+            failed.append(f"phases {group} (exit {child.returncode})")
+        else:
+            launches.update({int(k): v for k, v in json.loads(result)["launches"].items()})
+    if failed:
+        raise RuntimeError(f"the fan-out's groups failed or were stopped: {', '.join(failed)}")
+    return launches
+
+
+def child_main(numbers):
+    """A group of the fan-out: its phases' lines, then ``{"launches": {...}}`` as the last line."""
+    # end with the process that started this one
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr, flush=True)
+        return 2
+    try:
+        launches = run_phases(numbers)
+    except Exception:
+        traceback.print_exc()
+        log(f"FAILED in phases {numbers}")
+        return 1
+    print(json.dumps({"launches": launches}), flush=True)
+    return 0
 
 
 def main():
@@ -4566,76 +4952,23 @@ def main():
         log("phase 7: the 3-D recipe through default_segmentation_loader")
         recipe_fwd, recipe_bwd = phase_factory_3d(port, inorm, device_ops)
 
-        log("phase 8: AugmentationPipeline.apply_batched on the card against the CPU")
-        phase_apply_batched(port)
+        # phase 22 runs here, alone on the card: its loader rates stand beside phase 7's
+        log("phase 22: HDF5 with no h5py: bench.py's loader volume written and read by the port, the tracked model "
+            "trained from its h5 SegmentationDataset, the 12 tracked parity h5 files, LZF through the native build")
+        h5_fwd, h5_bwd = phase_hdf5(port, inorm)
 
-        log("phase 9: the DSB recipe, UNet2d at DSB width, and the CLI")
-        dsb_fwd, dsb_bwd = phase_dsb(port, inorm)
-
-        log("phase 10: the SNEMI recipe, affinities and the mutex watershed")
-        snemi_fwd, snemi_bwd = phase_snemi(port, inorm, device_ops)
-
-        log("phase 11: the SPOCO recipe, embeddings, the EMA network and the grid search; the other norms")
-        spoco_fwd, spoco_bwd = phase_spoco(port, inorm)
-        phase_norm_variants(port)
-
-        log("phase 12: the ViM-UNet / UNETR recipe, UNETR vit_b and ViM-UNet vim_t at 512x512; UNETR3D")
-        # phases 12 and 14 train on the same LIVECell-sized images
-        livecell_dir = tempfile.TemporaryDirectory()
-        livecell = livecell_images(livecell_dir.name)
-        log(f"LIVECell-sized data: {len(livecell[0])} images {np.load(livecell[0][0]).shape}")
-        vit_fwd, vit_bwd = phase_vit_recipes(port, inorm, *livecell)
-
-        log("phase 13: self-training at DSB width: MeanTeacher, FixMatch, UniMatch v2, the Probabilistic U-Net, "
-            "FlashOptim")
-        st_fwd, st_bwd = phase_self_training(port, inorm)
-
-        log("phase 14: the other encoder families in UNETR (SAM2, DINOv2, DINOv3, MAE, ScaleMAE, SAM3) and the 3-D "
-            "ResNet classification")
-        fam_fwd, fam_bwd = phase_encoder_families(port, inorm, *livecell)
-        livecell_dir.cleanup()
-
-        log("phase 15: the multi-device paths: train_multi_gpu over NCCL, two processes on the card over gloo "
-            "(data-parallel step, halo-sharded serving, the spatially sharded step), two replicas in predict_with_halo")
-        md_fwd, md_bwd = phase_multi_device(port, inorm, device_ops)
-
-        log("phase 16: Shallow2Deep: the enhancer on the committed forests' predictions, the bioimage.io export, "
-            "validation, import and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage")
-        s2d_fwd, s2d_bwd = phase_shallow2deep(port, inorm)
-
-        log("phase 17: the dataset zoo's EM readers: get_benchmark_loader over TIFF volumes at MitoLab benchmark 5's "
-            "published shape into the tracked model, get_mitolab_loader into UNet2d")
-        em_fwd, em_bwd = phase_em_zoo(port, inorm)
-
-        log("phase 18: the dataset zoo's light-microscopy readers: get_dsb_loader on dsb2018's layout into the DSB "
-            "recipe's UNet2d (and the SPOCO recipe's loader), get_livecell_loader on LIVECell's COCO layout into UNETR")
-        lm_fwd, lm_bwd = phase_lm_zoo(port, inorm)
-
-        log("phase 19: the dataset zoo's histopathology and medical readers: get_monuseg_loader on MoNuSeg's XML "
-            "layout into UNet2d at DSB width, get_amos_loader on AMOS' CT NIfTI volumes into UNet3d")
-        zoo_fwd, zoo_bwd = phase_hp_med_zoo(port, inorm)
-
-        log("phase 20: the quality probes' paths: the DSB probe (UNet2d f=16, 128x128), the tracked DSB (f=64, "
-            "256x256) and the tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the "
-            "SPOCO and SNEMI probes through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic")
-        qp_fwd, qp_bwd = phase_quality_probes(port, inorm)
-
-        log("phase 21: ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; "
-            "ops.native.is_available()")
-        phase_public_names(unet_module, inorm)
-        forward["launches"] = (serving_launches + train_fwd + recipe_fwd + dsb_fwd + snemi_fwd + spoco_fwd + vit_fwd
-                               + st_fwd + fam_fwd + md_fwd + s2d_fwd + em_fwd + lm_fwd + zoo_fwd + qp_fwd)
-        backward["launches"] = (train_bwd + recipe_bwd + dsb_bwd + snemi_bwd + spoco_bwd + vit_bwd + st_bwd + fam_bwd
-                                + md_bwd + s2d_bwd + em_bwd + lm_bwd + zoo_bwd + qp_bwd)
-        log(f"forward kernel launches: {serving_launches} serving + {train_fwd} training + {recipe_fwd} "
-            f"3-D recipe + {dsb_fwd} DSB + {snemi_fwd} SNEMI + {spoco_fwd} SPOCO + {vit_fwd} UNETR and ViM-UNet + "
-            f"{st_fwd} self-training + {fam_fwd} encoder families + {md_fwd} multi-device + {s2d_fwd} Shallow2Deep + "
-            f"{em_fwd} EM zoo + {lm_fwd} LM zoo + {zoo_fwd} histopathology and medical zoo + {qp_fwd} quality "
-            f"probes; backward kernel launches: "
-            f"{train_bwd} training + {recipe_bwd} 3-D recipe + {dsb_bwd} DSB + {snemi_bwd} SNEMI + {spoco_bwd} SPOCO + "
-            f"{vit_bwd} UNETR and ViM-UNet + {st_bwd} self-training + {fam_bwd} encoder families + {md_bwd} "
-            f"multi-device + {s2d_bwd} Shallow2Deep + {em_bwd} EM zoo + {lm_bwd} LM zoo + {zoo_bwd} histopathology and "
-            f"medical zoo + {qp_bwd} quality probes")
+        fanout = run_phases([15])
+        log(f"phases 8 to 21 but 15 in {len(FANOUT)} child processes at once: "
+            + ", ".join("+".join(map(str, group)) for group in FANOUT))
+        fanout.update(run_fanout(FANOUT))
+        parts = [("serving", serving_launches, 0), ("training", train_fwd, train_bwd),
+                 ("3-D recipe", recipe_fwd, recipe_bwd),
+                 *((FANOUT_NAMES[n], *fanout[n]) for n in sorted(fanout) if n in FANOUT_NAMES),
+                 ("HDF5", h5_fwd, h5_bwd)]
+        forward["launches"] = sum(f for _, f, _ in parts)
+        backward["launches"] = sum(b for _, _, b in parts)
+        log("forward kernel launches: " + " + ".join(f"{f} {path}" for path, f, _ in parts)
+            + "; backward kernel launches: " + " + ".join(f"{b} {path}" for path, _, b in parts if path != "serving"))
     except Exception:
         traceback.print_exc()
         log("FAILED")
@@ -4649,4 +4982,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phases"]:
+        sys.exit(child_main([int(n) for n in sys.argv[2].split(",")]))
     sys.exit(main())

@@ -12,11 +12,12 @@ before it imports every module of the port, ``chip_smoke`` and the probe
 scripts ``scripts/torch_parity3d.py``, ``scripts/torch_parity2d.py`` and
 ``scripts/torch_spoco2d.py`` (none of the port's files, ``chip_smoke`` or ``scripts/torch_*.py``
 imports ``scripts/jax_quality_seeds.py`` or ``jax_quality_pairs.py``, which import the JAX package), and
-reads an HDF5, a zarr and an N5 path and a PNG file, writes HDF5 test data, clusters with
+writes HDF5 test data and reads it back and writes into it again (HDF5 needs no h5py: the port's own
+``utils/hdf5.py`` reads and writes it), reads a zarr and an N5 path and a PNG file, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
 trainer's, self-training's and classification's) and wandb loggers and a
 classification metric from sklearn, which must raise an ImportError that
-names h5py, tensorstore, PIL, sklearn, napari, tensorboardX and wandb; the classification
+names tensorstore, PIL, sklearn, napari, tensorboardX and wandb; the classification
 package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
@@ -94,9 +95,17 @@ from torch_em_tpu_torch.utils import io, test, validation
 from torch_em_tpu_torch.classification import ClassificationLogger, ClassificationMetric
 assert ClassificationMetric()(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2])) == 0.25
 trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
-for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "raw", "labels", (4, 4), (2, 2)),
-                       "h5py"),
-                      (lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
+# HDF5 needs no h5py: the port's own module writes the test data and reads it back
+import os, tempfile
+h5_path = os.path.join(tempfile.mkdtemp(), "data.h5")
+test.create_segmentation_test_data(h5_path, "raw", "labels", (4, 4), (2, 2))
+written = io.load_data(h5_path, "raw")
+assert written.shape == (4, 4) and written.dtype == np.float64 and written[:].min() >= 0 and written[:].max() < 1
+assert io.load_data(h5_path, "labels")[:].max() < 4
+del written  # a reading handle holds HDF5's shared lock, which refuses a writer
+io.write_data(h5_path, "raw", np.arange(16, dtype="float32").reshape(4, 4), chunks=(2, 2))
+assert (io.load_data(h5_path, "raw")[1:3, ::2] == np.array([[4, 6], [8, 10]], dtype="float32")).all()
+for call, package in ((lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
                       (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
                       (lambda: TensorboardLogger(trainer, None), "tensorboardX"),
                       (lambda: SelfTrainingTensorboardLogger(trainer, None), "tensorboardX"),
@@ -109,7 +118,7 @@ for call, package in ((lambda: test.create_segmentation_test_data("data.h5", "ra
         assert package in str(e), e
     else:
         raise AssertionError(package + " was not needed")
-for path, package in (("data.h5", "h5py"), ("data.zarr", "tensorstore"), ("data.n5", "tensorstore")):
+for path, package in (("data.zarr", "tensorstore"), ("data.n5", "tensorstore")):
     try:
         io.load_data(path, "raw")
     except ImportError as e:
@@ -181,7 +190,9 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py, PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
+    # h5py nowhere: the port reads and writes HDF5 with its own utils/hdf5.py
+    assert not re.search(r"^\s*(from|import)\s+h5py\b|import_module\(.h5py.\)", text, flags=re.MULTILINE)
+    # PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
     # the zoo's download and conversion packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
                          r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3|nd2"
@@ -232,3 +243,18 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fanout_fails_without_card():
+    """Without a CUDA device each child process of the smoke run's fan-out exits nonzero at
+    once: the fan-out raises naming every group instead of returning launches."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the fan-out's groups run in full here")
+    code = ("import chip_smoke\n"
+            "try:\n"
+            "    print(chip_smoke.run_fanout(((8,), (21,))))\n"
+            "except RuntimeError as e:\n"
+            "    print(e)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "phases (8,) (exit 2), phases (21,) (exit 2)" in proc.stdout, proc.stdout

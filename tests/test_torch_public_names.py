@@ -1,5 +1,6 @@
 """The last public names of the JAX package in the port: ``ConvBlock2d``, ``ConvBlock3d``,
-``Upsampler2d``, ``Upsampler3d`` (with the ``Upsampler``'s ``mode``) and
+``Upsampler2d``, ``Upsampler3d`` (with the ``Upsampler``'s ``mode``: linear, nearest, cubic and
+Lanczos, the last two with their gradients) and
 ``ops.native.is_available``; and an ``ast`` comparison of every module pair's ``__all__``.
 
 The blocks and upsamplers run in float32 on the same seeded numpy input in both packages, with
@@ -130,10 +131,57 @@ def test_partials_are_the_dim_forms():
             assert torch.equal(module(x), reference(x))
 
 
+RESIZE_METHODS = {  # name: (dim, scale factor, mode, input shape)
+    "2d_cubic_x2": (2, 2, "cubic", (2, 5, 6, 7)),
+    "2d_bicubic_x3": (2, 3, "bicubic", (1, 5, 6, 7)),
+    "2d_lanczos3_x3": (2, 3, "lanczos3", (1, 5, 6, 7)),
+    "2d_lanczos5_x2": (2, 2, "lanczos5", (2, 5, 6, 7)),
+    "3d_tricubic_133": (3, (1, 3, 3), "tricubic", (1, 4, 3, 5, 6)),
+    "3d_cubic_x2": (3, 2, "cubic", (1, 4, 3, 5, 6)),
+    "3d_lanczos3_133": (3, (1, 3, 3), "lanczos3", (1, 4, 3, 5, 6)),
+    "3d_lanczos5_122": (3, (1, 2, 2), "lanczos5", (1, 4, 3, 5, 6)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESIZE_METHODS))
+def test_upsampler_resize_methods_match_jax(name):
+    """The cubic and Lanczos modes against the JAX ``Upsampler`` (``jax.image.resize``): the
+    output to 1e-5 in float32, and the gradients of a seeded cotangent's inner product with
+    respect to the input and the conv's weight and bias to 1e-4."""
+    dim, factor, mode, shape = RESIZE_METHODS[name]
+    jax_up = {2: jax_unet.Upsampler2d, 3: jax_unet.Upsampler3d}[dim](out_channels=3, scale_factor=factor, mode=mode)
+    port_up = {2: unet.Upsampler2d, 3: unet.Upsampler3d}[dim](shape[1], 3, factor, mode=mode)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=shape).astype(np.float32)
+    x_last = jnp.asarray(np.moveaxis(x, 1, -1))
+    variables = jax.jit(jax_up.init)(jax.random.PRNGKey(3), x_last)
+    port_up.load_state_dict(_carry(variables, dim), strict=True)
+    out_shape = shape[:2] + tuple(s * f for s, f in zip(shape[2:], unet._to_tuple(factor, dim)))
+    cot = rng.normal(size=(shape[0], 3) + out_shape[2:]).astype(np.float32)
+
+    def loss(params, x_last):
+        out = jax_up.apply({"params": params}, x_last)
+        return jnp.sum(out * jnp.asarray(np.moveaxis(cot, 1, -1)))
+
+    expected = np.moveaxis(np.asarray(jax.jit(jax_up.apply)(variables, x_last)), -1, 1)
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables["params"], x_last)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = port_up(xt)
+    assert tuple(got.shape) == expected.shape
+    np.testing.assert_allclose(got.detach().numpy(), expected, rtol=0, atol=1e-5)
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.moveaxis(np.asarray(grads[1]), -1, 1), rtol=0, atol=1e-4)
+    weight = _conv_weight(np.asarray(grads[0]["conv"]["kernel"]), dim)
+    np.testing.assert_allclose(port_up.conv.weight.grad.numpy(), weight, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port_up.conv.bias.grad.numpy(), np.asarray(grads[0]["conv"]["bias"]), rtol=0,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("mode", ["cubic", "lanczos3", "lanczos5", "bicubic"])
 def test_unported_resize_methods_raise(mode):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        unet.Upsampler2d(2, 2, 2, mode=mode)
+    """Once unported, the resize methods now build (their values are held against the JAX
+    package above); a name that is no ``jax.image.resize`` method still raises."""
+    assert unet.Upsampler2d(2, 2, 2, mode=mode).mode == mode
     with pytest.raises(ValueError, match="Invalid upsampling mode"):
         unet.Upsampler3d(2, 2, 2, mode=mode + "x")
 

@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.instance_norm import instance_norm
+from ..ops.resize import resize
 from .base import get_activation, resolve_device
 
 __all__ = [
@@ -278,9 +279,9 @@ class ConvBlock(nn.Module):
 ConvBlock2d = partial(ConvBlock, dim=2)
 ConvBlock3d = partial(ConvBlock, dim=3)
 
-# jax.image.resize's method names: linear and its aliases, nearest, and the methods not ported
+# jax.image.resize's method names: linear and its aliases, nearest, cubic and its aliases, Lanczos
 _LINEAR, _NEAREST = ("linear", "bilinear", "trilinear", "triangle"), ("nearest",)
-_NOT_PORTED = ("cubic", "bicubic", "tricubic", "lanczos3", "lanczos5")
+_CUBIC, _LANCZOS = ("cubic", "bicubic", "tricubic"), ("lanczos3", "lanczos5")
 
 
 class Upsampler(nn.Module):
@@ -289,18 +290,21 @@ class Upsampler(nn.Module):
     ``mode`` is the JAX package's (a ``jax.image.resize`` method): ``"linear"``
     (the default) interpolates linearly, ``"nearest"`` takes the nearest input
     pixel; both with half-pixel centres (``align_corners=False``,
-    ``"nearest-exact"``). The conv runs before the interpolation, as in the JAX
-    package: the two commute, and the conv then touches fewer voxels."""
+    ``"nearest-exact"``). ``"cubic"`` (Keys, a = -0.5; also ``"bicubic"`` and
+    ``"tricubic"``), ``"lanczos3"`` and ``"lanczos5"`` multiply each resized axis
+    with ``jax.image.resize``'s weight matrix (``ops/resize.py``), so autograd gives
+    the backward. The conv runs before the interpolation, as in the JAX package:
+    the two commute (every method's weights sum to one), and the conv then touches
+    fewer voxels."""
 
     def __init__(self, in_channels, out_channels, scale_factor, dim, mode: str = "linear"):
         super().__init__()
-        if mode in _NOT_PORTED:
-            raise NotImplementedError(f"Upsampler mode {mode!r} is not ported; 'linear' and 'nearest' are")
-        if mode not in _LINEAR + _NEAREST:
+        if mode not in _LINEAR + _NEAREST + _CUBIC + _LANCZOS:
             raise ValueError(f"Invalid upsampling mode: {mode!r}")
         self.scale_factor = _to_tuple(scale_factor, dim)
         self.mode = mode
         linear = mode in _LINEAR
+        self._method = "cubic" if mode in _CUBIC else mode if mode in _LANCZOS else None
         self._interpolation = ("trilinear" if dim == 3 else "bilinear") if linear else "nearest-exact"
         self._align_corners = False if linear else None
         self.conv = _Conv(dim, in_channels, out_channels, 1, 0)
@@ -308,6 +312,8 @@ class Upsampler(nn.Module):
     def forward(self, x):
         x = self.conv(x)
         size = [s * f for s, f in zip(x.shape[2:], self.scale_factor)]
+        if self._method is not None:
+            return resize(x, list(x.shape[:2]) + size, self._method)
         return F.interpolate(x, size=size, mode=self._interpolation, align_corners=self._align_corners)
 
 

@@ -46,6 +46,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..ops.resize import along_axis, on_device, resize
+
 __all__ = [
     "RandomHorizontalFlip", "RandomVerticalFlip", "RandomDepthicalFlip3D",
     "RandomHorizontalFlip3D", "RandomVerticalFlip3D", "RandomRotation",
@@ -120,58 +122,20 @@ def _blur_matrix(length: int, sigma: float, truncate: float) -> np.ndarray:
     return matrix.astype("float32")
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out).astype("float32")
-
-
-@functools.lru_cache(maxsize=64)
-def _cubic_weights(input_size: int, output_size: int) -> np.ndarray:
-    """(input_size, output_size) float32 weights of jax.image.resize(method="cubic") along
-    one axis (``jax/_src/image/scale.py:compute_weight_mat``, antialiased, no translation)."""
-    inv_scale = 1.0 / (output_size / input_size)
-    kernel_scale = np.float32(max(inv_scale, 1.0))
-    sample_f = (np.arange(output_size, dtype="float32") + 0.5) * inv_scale - 0.0 * inv_scale - 0.5
-    x = np.abs(sample_f[None, :] - np.arange(input_size, dtype="float32")[:, None]) / kernel_scale
-    weights = _keys_cubic(x)
-    total = weights.sum(axis=0, keepdims=True)
-    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                       weights / np.where(total != 0, total, 1), 0)
-    inside = (sample_f >= -0.5) & (sample_f <= input_size - 0.5)
-    return np.where(inside[None, :], weights, 0).astype("float32")
-
-
-@functools.lru_cache(maxsize=64)
-def _on_device(make, device: torch.device, *args) -> torch.Tensor:
-    return torch.from_numpy(make(*args)).to(device)
-
-
-def _along_axis(x: torch.Tensor, axis: int, matrix: torch.Tensor) -> torch.Tensor:
-    """Contract axis ``axis`` of ``x`` with the first axis of ``matrix`` (in, out)."""
-    return torch.movedim(torch.movedim(x, axis, -1) @ matrix, -1, axis)
-
-
 def gaussian_blur(field: torch.Tensor, sigma: float, truncate: float = 3.0) -> torch.Tensor:
     """Separable Gaussian blur over the spatial axes of (C, *spatial), radius
     ``ceil(truncate * sigma)``, reflecting (numpy "reflect") at any pad width."""
     out = field.float()
     for axis in range(1, field.ndim):
-        matrix = _on_device(_blur_matrix, field.device, field.shape[axis], float(sigma), float(truncate))
-        out = _along_axis(out, axis, matrix.T)
+        matrix = on_device(_blur_matrix, field.device, field.shape[axis], float(sigma), float(truncate))
+        out = along_axis(out, axis, matrix.T)
     return out
 
 
 def cubic_resize(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.image.resize(x, shape, method="cubic")``: axes whose size does not change are
-    left alone, every other one is a product with its weight matrix."""
-    if len(shape) != x.ndim:
-        raise ValueError(f"shape {tuple(shape)} does not match an array of {x.ndim} dimensions")
-    out = x.float()
-    for axis, (m, n) in enumerate(zip(x.shape, shape)):
-        if m != n:
-            out = _along_axis(out, axis, _on_device(_cubic_weights, x.device, m, n))
-    return out
+    """``jax.image.resize(x, shape, method="cubic")`` in float32 (``ops/resize.py``): axes whose
+    size does not change are left alone, every other one is a product with its weight matrix."""
+    return resize(x.float(), shape, "cubic")
 
 
 def _centered_grid(spatial_shape, device):

@@ -3,8 +3,8 @@ ROI views.
 
 The port's own copy of ``torch_em_tpu/utils/io.py``: ``load_data`` passes a
 numpy array through, opens a ``.npy`` file as a read-only memory map, an
-HDF5 dataset as a lazy h5py handle (several keys of one container stack as
-channels), a zarr or N5 dataset as a lazy ``LazyTensorStore`` and an image
+HDF5 dataset as a lazy ``utils/hdf5.py`` handle (several keys of one container
+stack as channels), a zarr or N5 dataset as a lazy ``LazyTensorStore`` and an image
 file (``IMAGE_EXTENSIONS``) as a reader that probes the shape without
 decoding, so a dataset reads only the windows it samples; ``load_image``
 decodes an image (a multi-page TIFF as a stack) or memory-maps a ``.npy``
@@ -12,9 +12,10 @@ file; ``open_container`` opens an HDF5 file; ``get_dataset_shape`` and
 ``write_data`` serve every container format, ``.npy`` and images;
 ``RoiWrapper`` is a lazy region-of-interest view. N5 keeps its
 ``dimensions`` and ``blockSize`` column-major on disk, and the store is read
-and written through its transpose, in C order. h5py, tensorstore, PIL and
-imageio are imported only inside the functions that need them, which raise
-an ``ImportError`` naming the package where it is missing. ``write_data``
+and written through its transpose, in C order. HDF5 goes through the port's own
+reader and writer (``utils/hdf5.py``, numpy and zlib), never h5py; tensorstore,
+PIL and imageio are imported only inside the functions that need them, which
+raise an ``ImportError`` naming the package where it is missing. ``write_data``
 writes no medical format (``medical_io``'s writers do), as in the JAX
 package.
 """
@@ -37,11 +38,11 @@ MEDICAL_EXTENSIONS = (".nii", ".nii.gz", ".mha", ".mhd", ".mrc", ".rec", ".nrrd"
 
 
 def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("reading or writing HDF5 needs h5py, which is not installed") from e
-    return h5py
+    """The port's HDF5 module (``utils/hdf5.py``): the subset of h5py's API that the port uses
+    (``File``, ``create_dataset``, ``attrs``, ...), so a reader's ``h5py = _h5py()`` reads as before."""
+    from . import hdf5
+
+    return hdf5
 
 
 def _tensorstore():
@@ -211,7 +212,7 @@ def _lazy_image(image_path):
 
 
 def open_container(path: Union[str, os.PathLike], mode: str = "r"):
-    """Open an HDF5 file, returning its h5py group-like handle."""
+    """Open an HDF5 file, returning its root group (``utils/hdf5.File``)."""
     ext = _extension(path)
     if ext in HDF5_EXTENSIONS:
         return _h5py().File(path, mode)

@@ -1,6 +1,7 @@
 """Synthetic test-data fixtures (reference torch_em/util/test.py); the port's
-copy of the JAX package's ``utils/test.py``. h5py and PIL are imported inside
-the functions that write HDF5 and image files (``utils/io.py``)."""
+copy of the JAX package's ``utils/test.py``. HDF5 files are written by the port's own
+module (``utils/hdf5.py``); PIL is imported inside the function that writes image files
+(``utils/io.py``)."""
 
 import os
 from typing import Optional, Sequence, Tuple
