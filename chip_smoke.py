@@ -230,10 +230,29 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    and ``default_segmentation_loader`` over ``parity_data3d/train/vol*.h5`` into the 3-D probe
    model for a few steps; (d) an LZF-filtered dataset grown tile by tile, as
    ``orion_crc.py`` writes it, read back through the native LZF build.
+23. zarr v2 and N5 with no tensorstore, zarr-python or h5py (``utils/zarr_n5.py`` and the native
+   blosc build of ``ops/native/blosc.cpp``, whose build time it prints; the three packages are
+   blocked for the phase): (a) phase 22's loader volume written by ``write_data`` once as zarr
+   and once as N5 (blosc lz4), write seconds and sizes, and one thread's MB/s over random
+   32x256x256 windows, the chunks of a window decoded one after another and on the module's
+   thread pool, each window equal to the arrays in memory; (b) the tracked AnisotropicUNet
+   (bf16, ``DiceLoss``, AdamW at lr 1e-4) trained 8 steps and resumed for 2 from
+   ``SegmentationDataset`` over the zarr volume with ``AffinityTransform`` on the host and 4
+   thread workers, the loader's patches/s from zarr and from N5 beside the bare step's and phase
+   7's, and a few batches of the N5 volume through ``worker_mode="process"`` (the lazy arrays
+   pickled into spawned workers) into the steps; (c) every fixture of
+   ``scripts/make_zarr_n5_fixtures.py`` (tensorstore's c-blosc and other codecs, written on a
+   CPU) read equal to its array regenerated from its seed; (d) the CLI's ``predict`` from a
+   32x256x256 crop of the zarr raw with (b)'s checkpoint to ``-o pred.n5 --output_key pred
+   --chunks 16 128 128``, read back bitwise equal to ``predict_with_padding`` of the same model
+   on the same input in this process under deterministic algorithms; (e)
+   ``get_platynereis_cell_loader`` over nine N5 volumes in its layout into the tracked model and
+   ``get_tissuenet_loader`` over TissueNet's npz splits, which it converts to zarr, into
+   ``UNet2d`` at DSB width, each 4 steps and 2 more after ``from_checkpoint``.
 
-Phases 1 to 7, 22 and 15 run one after another in this process, alone on the card: the
-kernels' times of the last lines come from phases 3 and 5, phase 22's loader rates are
-compared with phase 7's, and phase 15's two ranks need 50 GiB of the card. The other phases
+Phases 1 to 7, 22, 23 and 15 run one after another in this process, alone on the card: the
+kernels' times of the last lines come from phases 3 and 5, phases 22's and 23's loader rates
+are compared with phase 7's, and phase 15's two ranks need 50 GiB of the card. The other phases
 of 8 to 21 then run at the same time in ``FANOUT`` groups, each
 group one child process (``chip_smoke.py --phases 12,14``) that runs its phases in order on the
 same card, with a share of the host's cores; the child's lines, on a clock that starts with this
@@ -567,6 +586,17 @@ H5_FIT, H5_RESUME, H5_WINDOWS = 8, 2, 6
 H5_PROBE_FIT, H5_PROBE_RESUME = 4, 2
 H5_LZF_TILES, H5_LZF_TILE = 12, (256, 256)
 H5_PARITY_FILES = 12
+# zarr and N5 on the card (phase 23): phase 22's volume, chunks, windows and step counts; ZN_PROCESS_BATCHES batches of
+# the N5 volume through ZN_PROCESS_WORKERS process workers; the CLI's prediction of a TRAIN_PATCH crop written to N5 in
+# ZN_PRED_CHUNKS; the zoo's platynereis cells (ZN_PLATY_FILES N5 volumes of ZN_PLATY_VOLUME) and TissueNet
+# (ZN_TISSUENET train and val images of ZN_TISSUENET_SIDE², through its own zarr conversion), each ZN_ZOO_FIT steps
+# and ZN_ZOO_RESUME more after from_checkpoint
+ZN_PROCESS_BATCHES, ZN_PROCESS_WORKERS = 3, 2
+ZN_PRED_CHUNKS, ZN_MIN_DIVISIBLE = (16, 128, 128), (4, 16, 16)
+ZN_PLATY_FILES, ZN_PLATY_VOLUME = 9, (40, 320, 320)
+ZN_TISSUENET, ZN_TISSUENET_SIDE = (8, 2), 512
+ZN_ZOO_FIT, ZN_ZOO_RESUME = 4, 2
+ZN_BLOCKED = ("tensorstore", "zarr", "h5py")
 # the loader rates of one run, for phase 22's comparison with phase 7's .npy loader
 LOADER_RATES = {}
 # phases 8 to 21 but 15 run at the same time in these groups of one child process each, about equal in length
@@ -4680,6 +4710,255 @@ def phase_hdf5(port, inorm):
     return launches
 
 
+def folder_mib(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files) / 2 ** 20
+
+
+def block_labels(shape, block, offset=0):
+    """Instance labels of ``shape``: boxes of ``block``, numbered in C order from ``offset`` + 1."""
+    grid = np.indices(shape, sparse=True)
+    ids = np.zeros(shape, dtype=np.int64)
+    stride = 1
+    for axis in reversed(range(len(shape))):
+        ids = ids + (grid[axis] // block[axis]) * stride
+        stride *= -(-shape[axis] // block[axis])
+    return ids + offset + 1
+
+
+def phase_zarr_n5(port, inorm):
+    """zarr and N5 on the card with the port's own module (23a-e in the module docstring), with tensorstore, zarr and
+    h5py blocked; returns the kernels' launches of its training runs and predictions."""
+    import glob
+    import importlib.util
+
+    from torch_em_tpu_torch import cli
+    from torch_em_tpu_torch.data.datasets import get_platynereis_cell_loader, get_tissuenet_loader
+    from torch_em_tpu_torch.ops.native import blosc
+    from torch_em_tpu_torch.transforms.label import AffinityTransform, BoundaryTransform
+    from torch_em_tpu_torch.transforms.raw import standardize
+    from torch_em_tpu_torch.utils import io, zarr_n5
+    from torch_em_tpu_torch.utils.prediction import predict_with_padding
+    from torch_em_tpu_torch.utils.util import get_trainer
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import make_zarr_n5_fixtures as fixtures
+    import torch_parity3d
+
+    installed = [name for name in ZN_BLOCKED if importlib.util.find_spec(name) is not None]
+    blocked = [name for name in ZN_BLOCKED if name not in sys.modules]
+    for name in blocked:
+        sys.modules[name] = None  # an import of it raises
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    try:
+        t = time.perf_counter()
+        library = blosc.load_library()._name
+        stats["blosc_build_s"] = time.perf_counter() - t
+        log(f"23 blosc: {library} built and loaded in {stats['blosc_build_s']:.2f} s; installed here of "
+            f"{', '.join(ZN_BLOCKED)}: {installed or 'none'}; blocked for the phase: {blocked}")
+        with tempfile.TemporaryDirectory() as tmp:
+            # 23a: phase 22's volume written as zarr and as N5 (blosc lz4) and read back in random windows
+            rng = np.random.default_rng(0)
+            raw = rng.random(H5_VOLUME, dtype=np.float32)
+            labels = rng.integers(1, 500, H5_VOLUME).astype("uint32")
+            stores = {"zarr": os.path.join(tmp, "vol.zarr"), "n5": os.path.join(tmp, "vol.n5")}
+            windows = h5_windows(H5_WINDOWS, 1)
+            window_bytes = 2 * int(np.prod(TRAIN_PATCH)) * 4
+            for fmt, path in stores.items():
+                t = time.perf_counter()
+                io.write_data(path, "raw", raw, chunks=H5_CHUNKS)
+                io.write_data(path, "labels", labels, chunks=H5_CHUNKS)
+                stats[f"write_{fmt}_s"] = time.perf_counter() - t
+                stats[f"size_{fmt}_mib"] = folder_mib(path)
+                ds_raw, ds_labels = io.load_data(path, "raw"), io.load_data(path, "labels")
+                with open(os.path.join(path, "raw", ".zarray" if fmt == "zarr" else "attributes.json")) as f:
+                    codec = json.load(f)["compressor" if fmt == "zarr" else "compression"]
+                if (ds_raw.chunks, ds_labels.chunks, ds_labels.dtype, codec["cname"]) != (
+                        H5_CHUNKS, H5_CHUNKS, np.dtype("uint32"), "lz4"):
+                    raise AssertionError(f"23a {fmt}: {ds_raw.chunks} {ds_labels.dtype} {codec}")
+                for threads in (1, zarr_n5.THREADS):
+                    with unittest.mock.patch.object(zarr_n5, "THREADS", threads):
+                        t = time.perf_counter()
+                        read = [(ds_raw[w], ds_labels[w]) for w in windows]
+                        seconds = time.perf_counter() - t
+                    stats[f"read_{fmt}_{threads}_mb_per_s"] = window_bytes * len(windows) / seconds / 1e6
+                    for w, (r, lab) in zip(windows, read):
+                        if not (np.array_equal(r, raw[w]) and np.array_equal(lab, labels[w])):
+                            raise AssertionError(f"23a {fmt}: the window {w} reads back otherwise than written")
+                log(f"23a {fmt}: wrote raw and labels {H5_VOLUME} in {H5_CHUNKS} chunks (blosc lz4, shuffle "
+                    f"{codec['shuffle']}) in {stats[f'write_{fmt}_s']:.2f} s, {stats[f'size_{fmt}_mib']:.1f} MiB; read "
+                    f"{len(windows)} random {TRAIN_PATCH} windows of both from one thread: "
+                    f"{stats[f'read_{fmt}_1_mb_per_s']:.0f} MB/s decoding each window's chunks one after another, "
+                    f"{stats[f'read_{fmt}_{zarr_n5.THREADS}_mb_per_s']:.0f} MB/s on {zarr_n5.THREADS} threads; each "
+                    "equal to what was written")
+            del read
+
+            # 23b: the tracked model from SegmentationDataset over the zarr volume, AffinityTransform on the host
+            def zn_loader(path, n_samples, shuffle=True, mode="thread", workers=LOADER_THREADS):
+                dataset = port.SegmentationDataset(
+                    path, "raw", path, "labels", patch_shape=TRAIN_PATCH, n_samples=n_samples,
+                    label_transform=AffinityTransform(offsets=OFFSETS, add_mask=False))
+                return port.DataLoader(dataset, batch_size=1, shuffle=shuffle, num_workers=workers, worker_mode=mode)
+
+            np.random.seed(6)
+            model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+            trainer = port.default_segmentation_trainer(
+                "zarr-tracked", model, zn_loader(stores["zarr"], H5_FIT), zn_loader(stores["zarr"], 1, shuffle=False),
+                learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+            resumed, fit_launches = fit_and_resume(port, inorm, trainer, H5_FIT, H5_RESUME, 1,
+                                                   "23b tracked model from zarr", falling=False)
+            launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+            if resumed.train_loader.dataset.raw_path != stores["zarr"]:
+                raise AssertionError("23b from_checkpoint did not rebuild the zarr dataset")
+            for fmt, path in stores.items():
+                stats[f"loader_{fmt}_patches_per_s"] = loader_rate(resumed, zn_loader(path, 2 + LOADER_STEPS))
+            x, y = (v.cuda() for v in next(iter(zn_loader(stores["zarr"], 1, shuffle=False))))
+            stats["step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+            npy = LOADER_RATES.get("7 no transform")
+            log(f"23b loader, {LOADER_THREADS} thread workers, AffinityTransform on the host: "
+                f"{stats['loader_zarr_patches_per_s']:.2f} patches/s from zarr, {stats['loader_n5_patches_per_s']:.2f} "
+                f"from N5; bare step {stats['step_ms']:.2f} ms device (CUDA events), {1e3 / stats['step_ms']:.2f} "
+                f"patches/s; phase 7's .npy loader (no transform, affinities on the card) "
+                f"{'not run' if npy is None else f'{npy:.2f}'} patches/s; {nvidia_smi()}")
+            # the N5 volume's lazy arrays pickled into spawned worker processes, and their batches into the steps
+            feed = zn_loader(stores["n5"], ZN_PROCESS_BATCHES, shuffle=False, mode="process", workers=ZN_PROCESS_WORKERS)
+            try:
+                t = time.perf_counter()
+                batches = 0
+                for xb, yb in feed:
+                    resumed._train_step(xb.cuda(), yb.cuda())
+                    batches += 1
+                torch.cuda.synchronize()
+                stats["process_s"] = time.perf_counter() - t
+            finally:
+                feed.shutdown()
+            if batches != ZN_PROCESS_BATCHES:
+                raise AssertionError(f"23b the process workers gave {batches} batches")
+            log(f"23b {batches} batches of the N5 volume through {ZN_PROCESS_WORKERS} spawned worker processes (the "
+                f"lazy arrays pickled as path, key and mode) into the steps in {stats['process_s']:.2f} s, the "
+                "workers' start included")
+            checkpoint = resumed.checkpoint_folder
+            del trainer, resumed, model, x, y
+            torch.cuda.empty_cache()
+
+            # 23c: the committed tensorstore fixtures, decoded by the card's native build
+            t = time.perf_counter()
+            for case in fixtures.CASES:
+                got = io.load_data(fixtures.container(case["fmt"]), case["name"])
+                expected = fixtures.fixture_array(case)
+                if got.dtype != expected.dtype or not np.array_equal(got[...], expected):
+                    raise AssertionError(f"23c the fixture {case['fmt']}/{case['name']} reads otherwise than its array")
+            stats["fixtures_s"] = time.perf_counter() - t
+            codecs = sorted({case["name"].split("_shuffle")[0] for case in fixtures.CASES})
+            log(f"23c read all {len(fixtures.CASES)} fixtures that tensorstore (c-blosc) wrote, each equal to its "
+                f"seeded array, in {stats['fixtures_s']:.2f} s: {', '.join(codecs)}")
+
+            # 23d: the CLI's predict from the zarr raw to N5, against predict_with_padding in this process
+            crop = tuple(slice(0, p) for p in TRAIN_PATCH)
+            io.write_data(stores["zarr"], "raw_patch", raw[crop], chunks=H5_CHUNKS)
+            out = os.path.join(tmp, "pred.n5")
+            argv = ["predict", "-c", checkpoint, "-i", stores["zarr"], "-k", "raw_patch", "-o", out,
+                    "--output_key", "pred", "--chunks", *map(str, ZN_PRED_CHUNKS), "--min_divisible",
+                    *map(str, ZN_MIN_DIVISIBLE), "-d", "cuda"]
+            inorm.instance_norm.launches = 0
+            with torch_parity3d.deterministic():
+                t = time.perf_counter()
+                with unittest.mock.patch.object(sys, "argv", argv):
+                    cli.predict()
+                stats["cli_s"] = time.perf_counter() - t
+                model = get_trainer(checkpoint, device="cuda").model
+                expected = predict_with_padding(model, standardize(raw[crop]), ZN_MIN_DIVISIBLE, "cuda").squeeze()
+            launches[0] += inorm.instance_norm.launches
+            pred = io.load_data(out, "pred")
+            with open(os.path.join(out, "pred", "attributes.json")) as f:
+                meta = json.load(f)
+            got = pred[...]
+            err = float(np.abs(got - expected).max())
+            log(f"23d CLI predict ({stats['cli_s']:.2f} s): {TRAIN_PATCH} of the zarr raw to {meta['dataType']} "
+                f"N5 {pred.shape} in blockSize {meta['blockSize']} (x first); against predict_with_padding in this "
+                f"process, deterministic algorithms: bitwise equal {np.array_equal(got, expected)}, max abs diff {err:.3g}; "
+                f"{inorm.instance_norm.launches} forward norm launches")
+            if (pred.shape != TRAIN_PATCH or pred.chunks != ZN_PRED_CHUNKS or not np.array_equal(got, expected)
+                    or not np.isfinite(got).all()):
+                raise AssertionError("23d the CLI's N5 prediction differs from predict_with_padding's")
+            del model, raw, labels
+            torch.cuda.empty_cache()
+
+            # 23e: the zoo's platynereis cells (N5) and TissueNet (zarr, through its own conversion) into their models
+            platy = os.path.join(tmp, "platynereis")
+            t = time.perf_counter()
+            for i in range(1, ZN_PLATY_FILES + 1):
+                path = os.path.join(platy, "membrane", f"train_data_membrane_{i:02d}.n5")
+                io.write_data(path, "volumes/raw/s1", rng.integers(0, 256, ZN_PLATY_VOLUME, dtype=np.uint8))
+                io.write_data(path, "volumes/labels/segmentation/s1",
+                              block_labels(ZN_PLATY_VOLUME, (8, 40, 40), offset=1000 * i).astype("uint64"),
+                              chunks=(8, 64, 64))
+            stats["platy_write_s"] = time.perf_counter() - t
+
+            def platy_loader(sample_ids, n_samples, shuffle=True):
+                return get_platynereis_cell_loader(platy, TRAIN_PATCH, 1, sample_ids=sample_ids, boundaries=True,
+                                                   n_samples=n_samples, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+            np.random.seed(7)
+            model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+            trainer = port.default_segmentation_trainer(
+                "platynereis-n5", model, platy_loader(list(range(1, ZN_PLATY_FILES)), ZN_ZOO_FIT),
+                platy_loader([ZN_PLATY_FILES], 1, shuffle=False), learning_rate=LEARNING_RATE, device="cuda",
+                mixed_precision=True, logger=LossLog, save_root=tmp)
+            resumed, fit_launches = fit_and_resume(port, inorm, trainer, ZN_ZOO_FIT, ZN_ZOO_RESUME, 1,
+                                                   "23e platynereis cells (N5)", falling=False)
+            launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+            log(f"23e platynereis: {ZN_PLATY_FILES} N5 volumes {ZN_PLATY_VOLUME} (uint8 raw, uint64 labels) written in "
+                f"{stats['platy_write_s']:.2f} s, {folder_mib(platy):.1f} MiB; get_platynereis_cell_loader "
+                f"(boundaries) into the tracked model")
+            del trainer, resumed, model
+
+            tissue = os.path.join(tmp, "tissuenet")
+            os.makedirs(tissue)
+            side = ZN_TISSUENET_SIDE
+            images = {}
+            for split, n in zip(("train", "val"), ZN_TISSUENET):
+                x = rng.random((n, side, side, 2), dtype=np.float32)
+                y = np.stack([block_labels((n, side, side), (1, 32, 32)), block_labels((n, side, side), (1, 16, 16))],
+                             axis=-1).astype("int32")
+                np.savez(os.path.join(tissue, f"tissuenet_v1.1_{split}.npz"), X=x, y=y)
+                images[split] = x
+
+            def tissue_loader(split, n_samples, shuffle=True):
+                return get_tissuenet_loader(tissue, split, patch_shape=DSB_PATCH[1:], batch_size=DSB_BATCH,
+                                            label_transform=BoundaryTransform(add_binary_target=True, ndim=2),
+                                            n_samples=n_samples, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+            t = time.perf_counter()
+            train = tissue_loader("train", DSB_BATCH * ZN_ZOO_FIT)
+            stats["tissuenet_convert_s"] = time.perf_counter() - t
+            converted = sorted(glob.glob(os.path.join(tissue, "train", "*.zarr")))
+            if len(converted) != ZN_TISSUENET[0] or not np.array_equal(io.load_data(converted[-1], "raw/cell")[...],
+                                                                       images["train"][-1, ..., 1]):
+                raise AssertionError(f"23e TissueNet converted {len(converted)} train images, or not as given")
+            np.random.seed(8)
+            model = port.UNet2d(**DSB_MODEL, device="cuda", seed=0)
+            trainer = port.default_segmentation_trainer(
+                "tissuenet-zarr", model, train, tissue_loader("val", DSB_BATCH, shuffle=False),
+                learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True, logger=LossLog, save_root=tmp)
+            resumed, fit_launches = fit_and_resume(port, inorm, trainer, ZN_ZOO_FIT, ZN_ZOO_RESUME, 1,
+                                                   "23e TissueNet (zarr)", falling=False)
+            launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+            log(f"23e TissueNet: {sum(ZN_TISSUENET)} images {side}x{side}x2 converted from npz to zarr by the reader "
+                f"in {stats['tissuenet_convert_s']:.2f} s ({len(converted)} train containers, each read back as "
+                f"given); get_tissuenet_loader (boundaries, batch {DSB_BATCH} of {DSB_PATCH[1:]}) into UNet2d f="
+                f"{DSB_MODEL['initial_features']}")
+            del trainer, resumed, model, train
+            torch.cuda.empty_cache()
+    finally:
+        for name in blocked:
+            del sys.modules[name]
+    log(f"23: {launches[0]} forward and {launches[1]} backward norm launches; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"numbers {json.dumps({k: round(v, 3) for k, v in stats.items()})}")
+    return launches
+
+
 def time_host_ms(fn, *args, repeats=5):
     """Median host time of ``fn(*args)`` in ms."""
     times = []
@@ -4957,6 +5236,12 @@ def main():
             "trained from its h5 SegmentationDataset, the 12 tracked parity h5 files, LZF through the native build")
         h5_fwd, h5_bwd = phase_hdf5(port, inorm)
 
+        # phase 23 runs here too, alone on the card: its loader rates stand beside phases 7 and 22
+        log("phase 23: zarr and N5 with no tensorstore: the loader volume written and read by the port, the tracked "
+            "model trained from zarr and fed from N5 by process workers, the tensorstore fixtures, the CLI's "
+            "prediction to N5, the platynereis (N5) and TissueNet (zarr) readers")
+        zn_fwd, zn_bwd = phase_zarr_n5(port, inorm)
+
         fanout = run_phases([15])
         log(f"phases 8 to 21 but 15 in {len(FANOUT)} child processes at once: "
             + ", ".join("+".join(map(str, group)) for group in FANOUT))
@@ -4964,7 +5249,7 @@ def main():
         parts = [("serving", serving_launches, 0), ("training", train_fwd, train_bwd),
                  ("3-D recipe", recipe_fwd, recipe_bwd),
                  *((FANOUT_NAMES[n], *fanout[n]) for n in sorted(fanout) if n in FANOUT_NAMES),
-                 ("HDF5", h5_fwd, h5_bwd)]
+                 ("HDF5", h5_fwd, h5_bwd), ("zarr and N5", zn_fwd, zn_bwd)]
         forward["launches"] = sum(f for _, f, _ in parts)
         backward["launches"] = sum(b for _, _, b in parts)
         log("forward kernel launches: " + " + ".join(f"{f} {path}" for path, f, _ in parts)

@@ -13,11 +13,12 @@ scripts ``scripts/torch_parity3d.py``, ``scripts/torch_parity2d.py`` and
 ``scripts/torch_spoco2d.py`` (none of the port's files, ``chip_smoke`` or ``scripts/torch_*.py``
 imports ``scripts/jax_quality_seeds.py`` or ``jax_quality_pairs.py``, which import the JAX package), and
 writes HDF5 test data and reads it back and writes into it again (HDF5 needs no h5py: the port's own
-``utils/hdf5.py`` reads and writes it), reads a zarr and an N5 path and a PNG file, clusters with
+``utils/hdf5.py`` reads and writes it), writes a zarr and an N5 volume and reads them back (they need no
+tensorstore: the port's own ``utils/zarr_n5.py`` reads and writes them), reads a PNG file, clusters with
 ``HDBScan``, shows a validation sample and builds the tensorboard (the
 trainer's, self-training's and classification's) and wandb loggers and a
 classification metric from sklearn, which must raise an ImportError that
-names tensorstore, PIL, sklearn, napari, tensorboardX and wandb; the classification
+names PIL, sklearn, napari, tensorboardX and wandb; the classification
 package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
@@ -118,13 +119,16 @@ for call, package in ((lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype=
         assert package in str(e), e
     else:
         raise AssertionError(package + " was not needed")
-for path, package in (("data.zarr", "tensorstore"), ("data.n5", "tensorstore")):
-    try:
-        io.load_data(path, "raw")
-    except ImportError as e:
-        assert package in str(e), e
-    else:
-        raise AssertionError("reading " + path + " without " + package + " did not raise")
+# zarr and N5 need no tensorstore: the port's own module (utils/zarr_n5.py and its native blosc build) writes
+# them and reads them back
+for name in ("data.zarr", "data.n5"):
+    store = os.path.join(tempfile.mkdtemp(), name)
+    volume = np.arange(2 * 5 * 7, dtype="uint16").reshape(2, 5, 7)
+    io.write_data(store, "volumes/raw", volume, chunks=(1, 4, 4))
+    assert io.get_dataset_shape(store, "volumes/raw") == (2, 5, 7)
+    stored = io.load_data(store, "volumes/raw")
+    assert isinstance(stored, io.LazyTensorStore) and (stored[1, 2:5] == volume[1, 2:5]).all()
+    assert (stored[...] == volume).all()
 for read in (io.load_data, io.load_image):
     try:
         read("image.png")
@@ -190,8 +194,10 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py nowhere: the port reads and writes HDF5 with its own utils/hdf5.py
-    assert not re.search(r"^\s*(from|import)\s+h5py\b|import_module\(.h5py.\)", text, flags=re.MULTILINE)
+    # h5py and tensorstore nowhere: the port reads and writes HDF5 with its own utils/hdf5.py, zarr and N5 with
+    # its own utils/zarr_n5.py
+    assert not re.search(r"^\s*(from|import)\s+(h5py|tensorstore)\b|import_module\(.(h5py|tensorstore).\)", text,
+                         flags=re.MULTILINE)
     # PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
     # the zoo's download and conversion packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"

@@ -1,7 +1,8 @@
 """The port's zarr and N5 I/O, ``squeeze_singleton_dims`` and the numpy MitoLab split against the
 JAX package and sklearn.
 
-Both packages read and write zarr and N5 through tensorstore. N5 keeps ``dimensions`` and
+The JAX package reads and writes zarr and N5 through tensorstore, the port through its own
+``utils/zarr_n5.py`` (with the blosc codec of ``ops/native/blosc.cpp``). N5 keeps ``dimensions`` and
 ``blockSize`` column-major on disk, and both read and write it through the transposed, C-order
 view. Volumes are seeded numpy arrays; every comparison is exact.
 """

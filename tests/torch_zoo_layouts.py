@@ -15,9 +15,12 @@ use and cache the result beside them. The check then calls both packages' getter
 - a batch of each loader, with the default augmentations, has the shapes of the JAX loader's;
 - the files a reader converts from its sources (``converted``) exist and are equal, container
   for container, and so is every file under both folders afterwards: HDF5 by datasets and
-  attributes, a gzip file (a ``.nii.gz`` volume) by its decompressed bytes, since its header holds
-  the time it was written, another archive by name, any other file byte for byte (the builders
-  write ``.mat`` files with ``save_mat``, which blanks the time in their header).
+  attributes, a zarr or N5 folder by its file set, its metadata's content and every dataset as
+  the JAX package reads it (``same_store``: the chunks' compressed bytes are c-blosc's on one side
+  and the port's blosc build's on the other), a gzip file (a ``.nii.gz`` volume) by its
+  decompressed bytes, since its header holds the time it was written, another archive by name,
+  any other file byte for byte (the builders write ``.mat`` files with ``save_mat``, which blanks
+  the time in their header).
 
 The ``no_network`` fixture refuses every connection to another host while a test runs: a reader
 that would download something fails instead.
@@ -204,15 +207,48 @@ def _h5_items(path):
     return out
 
 
+STORE_SUFFIXES = (".zarr", ".zr", ".n5")
+STORE_METADATA = (".zarray", ".zattrs", ".zgroup", "attributes.json")
+
+
+def _store_root(rel):
+    """The zarr or N5 folder that holds the relative path ``rel``, or None."""
+    for i, part in enumerate(rel.parts[:-1]):
+        if Path(part).suffix in STORE_SUFFIXES:
+            return Path(*rel.parts[:i + 1])
+    return None
+
+
+def same_store(a, b):
+    """Two zarr or N5 folders equal as a user sees them: the same relative files; ``.zarray``,
+    ``.zattrs``, ``.zgroup`` and ``attributes.json`` equal by content; every dataset, read through
+    the JAX package's tensorstore ``load_data``, equal in shape, dtype and values. The chunks'
+    compressed bytes, which the blosc implementation chooses, are not compared."""
+    from torch_em_tpu.utils.io import load_data as jax_load_data
+
+    a, b = Path(a), Path(b)
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    datasets = []
+    for rel in files_a:
+        if rel.name in STORE_METADATA:
+            meta_a, meta_b = json.loads((a / rel).read_text()), json.loads((b / rel).read_text())
+            assert meta_a == meta_b, rel
+            if rel.name == ".zarray" or (rel.name == "attributes.json" and "dimensions" in meta_a):
+                datasets.append(rel.parent.as_posix())
+    for key in datasets:
+        key = None if key == "." else key
+        da, db = jax_load_data(str(a), key), jax_load_data(str(b), key)
+        assert da.shape == db.shape and da.dtype == db.dtype, key
+        np.testing.assert_array_equal(da[...], db[...])
+
+
 def same_container(a, b):
     """Two converted files or folders equal: HDF5 by datasets and attributes, JSON by content,
-    a zarr or N5 folder file for file, byte for byte."""
+    a zarr or N5 folder by ``same_store``."""
     a, b = Path(a), Path(b)
     if a.is_dir():
-        files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
-        assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
-        for rel in files_a:
-            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
+        same_store(a, b)
     elif a.suffix == ".json":
         assert json.loads(a.read_text()) == json.loads(b.read_text())
     else:
@@ -231,13 +267,19 @@ ARCHIVES = (".zip", ".gz", ".tgz", ".tar", ".rar", ".pt")  # torch.save writes a
 
 
 def same_tree(a, b):
-    """Every file under ``a`` and ``b`` equal: the same relative paths; HDF5 files by datasets and
-    attributes; a gzip file that is not a tar archive by its decompressed bytes; other archives (the
-    builders' sources, whose headers hold write times) by name; any other file byte for byte."""
+    """Every file under ``a`` and ``b`` equal: the same relative paths; the files of a zarr or N5
+    folder by ``same_store``; HDF5 files by datasets and attributes; a gzip file that is not a tar
+    archive by its decompressed bytes; other archives (the builders' sources, whose headers hold
+    write times) by name; any other file byte for byte."""
     a, b = Path(a), Path(b)
     files_a = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
     assert files_a == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    stores = sorted({root for root in map(_store_root, files_a) if root is not None})
+    for root in stores:
+        same_store(a / root, b / root)
     for rel in files_a:
+        if _store_root(rel) is not None:
+            continue
         if rel.suffix in (".h5", ".hdf5", ".hdf"):
             same_container(a / rel, b / rel)
         elif rel.suffix == ".gz" and not rel.name.endswith(".tar.gz"):

@@ -81,8 +81,8 @@ def _make_volumes_consistent(volume_path, organelle):
     """Crop raw to the label bounding box for volumes whose label shape differs;
     stores the crop as ``volumes/raw_<organelle>`` inside the zarr group.
 
-    Uses this stack's tensorstore-backed I/O plus the zarr-v2 on-disk ``.zattrs``
-    JSON for the offset/resolution metadata, so no zarr-python is required."""
+    Uses the port's own zarr reader and writer (``utils/zarr_n5.py``) plus the zarr-v2
+    on-disk ``.zattrs`` JSON for the offset/resolution metadata, so no zarr-python is required."""
     import json
 
     from ....utils.io import load_data, write_data

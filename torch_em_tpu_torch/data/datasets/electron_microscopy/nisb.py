@@ -20,7 +20,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
-from ....utils.io import _tensorstore
+from ....utils import zarr_n5
 from .. import util
 
 NISB_S3_ENDPOINT = "https://s3.nexus.mpcdf.mpg.de:443"
@@ -59,11 +59,9 @@ def _nisb_open_remote(setting: str, split: str, seed_idx: int):
 def _nisb_write_cube(src, zarr_path: str) -> None:
     """Stream a NISB cube from the zarr v2 source to a local zarr store,
     transposing (x, y, z) -> (z, y, x) and squeezing the trailing singleton
-    channel dim on the image. The local store is written through tensorstore
-    (this stack's zarr backend), so zarr-python is only needed for the remote
-    side."""
-    ts = _tensorstore()
-
+    channel dim on the image. The local store is written by the port's own
+    zarr writer (``utils/zarr_n5.py``), so zarr-python is only needed for the
+    remote side."""
     img_v2, seg_v2 = src["img"], src["seg"]
     squeeze_img = img_v2.ndim == 4 and img_v2.shape[-1] == 1
     if squeeze_img:
@@ -77,12 +75,7 @@ def _nisb_write_cube(src, zarr_path: str) -> None:
         shutil.rmtree(tmp_path)
 
     def _create(key, shape, dtype, chunks):
-        return ts.open({
-            "driver": "zarr",
-            "kvstore": {"driver": "file", "path": tmp_path},
-            "path": key,
-            "metadata": {"shape": list(shape), "chunks": list(chunks)},
-        }, create=True, dtype=ts.dtype(np.dtype(dtype))).result()
+        return zarr_n5.create_array(tmp_path, key, shape, dtype, chunks, "zarr")
 
     img_out = _create("img", img_shape, "uint8", NISB_CHUNK_SHAPE + tuple(img_shape[3:]))
     seg_out = _create("seg", seg_shape, "uint16", NISB_CHUNK_SHAPE)

@@ -3,7 +3,7 @@
 
 Hosted at https://www.ebi.ac.uk/biostudies/BioImages/studies/S-BIAD843.
 OME-Zarr volumes are converted to h5 with 'raw' and 'labels' (zarr access
-via tensorstore instead of the zarr-python package).
+through the port's own reader, ``utils/zarr_n5.py``, instead of the zarr-python package).
 """
 
 import os

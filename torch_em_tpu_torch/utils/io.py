@@ -13,11 +13,12 @@ file; ``open_container`` opens an HDF5 file; ``get_dataset_shape`` and
 ``RoiWrapper`` is a lazy region-of-interest view. N5 keeps its
 ``dimensions`` and ``blockSize`` column-major on disk, and the store is read
 and written through its transpose, in C order. HDF5 goes through the port's own
-reader and writer (``utils/hdf5.py``, numpy and zlib), never h5py; tensorstore,
-PIL and imageio are imported only inside the functions that need them, which
-raise an ``ImportError`` naming the package where it is missing. ``write_data``
-writes no medical format (``medical_io``'s writers do), as in the JAX
-package.
+reader and writer (``utils/hdf5.py``, numpy and zlib), never h5py; zarr and N5 through
+``utils/zarr_n5.py`` (numpy, the standard library's codecs and the native blosc build),
+never tensorstore, whose name ``LazyTensorStore`` keeps as the JAX package's does; PIL and
+imageio are imported only inside the functions that need them, which raise an
+``ImportError`` naming the package where it is missing. ``write_data`` writes no medical
+format (``medical_io``'s writers do), as in the JAX package.
 """
 
 import os
@@ -25,6 +26,8 @@ import threading
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from . import zarr_n5
 
 __all__ = ["load_data", "load_image", "supports_memmap", "open_container", "get_dataset_shape",
            "write_data", "LazyTensorStore", "RoiWrapper", "IMAGE_EXTENSIONS"]
@@ -43,14 +46,6 @@ def _h5py():
     from . import hdf5
 
     return hdf5
-
-
-def _tensorstore():
-    try:
-        import tensorstore
-    except ImportError as e:
-        raise ImportError("reading or writing zarr or N5 needs tensorstore, which is not installed") from e
-    return tensorstore
 
 
 def _pil_image():
@@ -81,42 +76,8 @@ def _extension(path) -> str:
     return os.path.splitext(str(path))[1].lower()
 
 
-class LazyTensorStore:
-    """Lazy array over a tensorstore dataset (zarr or N5): ``shape``, ``dtype``, ``ndim`` and
-    ``__getitem__`` read only the selected window."""
-
-    def __init__(self, store):
-        self._store = store
-        self.shape = tuple(store.shape)
-        self.dtype = np.dtype(store.dtype.numpy_dtype)
-
-    @property
-    def ndim(self):
-        return len(self.shape)
-
-    def __len__(self):
-        return self.shape[0]
-
-    def __getitem__(self, index) -> np.ndarray:
-        return np.asarray(self._store[index].read().result())
-
-
-def _tensorstore_spec(path, key: Optional[str], fmt: str) -> dict:
-    spec = {"driver": fmt, "kvstore": {"driver": "file", "path": str(path)}}
-    if key:
-        spec["path"] = key.strip("/")
-    return spec
-
-
-def _open_tensorstore(path, key: Optional[str], fmt: str, mode: str = "r") -> LazyTensorStore:
-    """Open a zarr or N5 dataset (``mode`` "w" or "a" creates it if missing); an N5 store is
-    transposed from its column-major ``dimensions`` to C order."""
-    ts = _tensorstore()
-    open_kwargs = {"open": True}
-    if "w" in mode or "a" in mode:
-        open_kwargs["create"] = True
-    store = ts.open(_tensorstore_spec(path, key, fmt), **open_kwargs).result()
-    return LazyTensorStore(store.T if fmt == "n5" else store)
+# the lazy zarr or N5 array (``mode`` "r" reads; "a" or "w" also writes windows into the existing array)
+LazyTensorStore = zarr_n5.ChunkedArray
 
 
 def _medical_reader(path, extensions):
@@ -252,10 +213,8 @@ def load_data(
         if key is None:
             raise ValueError(f"A key is required to load data from the container file {path}.")
         return open_container(path, mode)[key]
-    if ext in ZARR_EXTENSIONS:
-        return _open_tensorstore(path, key, "zarr", mode)
-    if ext in N5_EXTENSIONS:
-        return _open_tensorstore(path, key, "n5", mode)
+    if ext in ZARR_EXTENSIONS or ext in N5_EXTENSIONS:
+        return LazyTensorStore(path, key, mode)
     if ext in IMAGE_EXTENSIONS:
         if key is not None:
             raise ValueError(f"Expected key=None for image file {path}, got {key}.")
@@ -306,19 +265,9 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
             f.create_dataset(key, data=data, chunks=chunks, compression="gzip")
         return
     if ext in ZARR_EXTENSIONS or ext in N5_EXTENSIONS:
-        ts = _tensorstore()
+        data = np.asarray(data)
         fmt = "zarr" if ext in ZARR_EXTENSIONS else "n5"
-        spec = _tensorstore_spec(path, key, fmt)
-        if fmt == "zarr":
-            spec["metadata"] = {"shape": list(data.shape)}
-            if chunks is not None:
-                spec["metadata"]["chunks"] = list(chunks)
-        else:
-            spec["metadata"] = {"dimensions": list(data.shape)[::-1]}
-            if chunks is not None:
-                spec["metadata"]["blockSize"] = list(chunks)[::-1]
-        store = ts.open(spec, create=True, delete_existing=True, dtype=ts.dtype(data.dtype)).result()
-        (store.T if fmt == "n5" else store)[...] = data
+        zarr_n5.create_array(path, key, data.shape, data.dtype, chunks, fmt)[...] = data
         return
     if ext in NUMPY_EXTENSIONS:
         np.save(path, data)
