@@ -249,11 +249,28 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    ``get_platynereis_cell_loader`` over nine N5 volumes in its layout into the tracked model and
    ``get_tissuenet_loader`` over TissueNet's npz splits, which it converts to zarr, into
    ``UNet2d`` at DSB width, each 4 steps and 2 more after ``from_checkpoint``.
+24. training logs and HDBSCAN with no tensorboardX, tensorboard, sklearn or matplotlib (blocked
+   for the phase): (a) the tracked AnisotropicUNet through ``default_segmentation_trainer`` with
+   no ``logger`` argument, 8 steps and 2 more after ``from_checkpoint`` at
+   ``log_image_interval=4``; its TensorBoard events, read back with the port's ``read_events``
+   (both CRCs of every record checked), hold one ``train/loss`` per step equal to the trainer's
+   loss in float32, the learning rate, ``validation/loss`` and ``/metric`` at each validation,
+   and images at steps 0, 4 and 8 whose PNGs decode to the grids' shapes; the training epochs'
+   ms per iteration against the same fits with ``logger=None``, in turns; (b) ``SPOCOTrainer``
+   (the SPOCO recipe), ``MeanTeacherTrainer`` (unsupervised, DSB width) and
+   ``default_classification_trainer`` (``resnet3d_50``) with their default loggers, 2 steps and
+   1 more after ``from_checkpoint``, writing the JAX loggers' tags (``validation/confusion_matrix``
+   among them); (c) every fixture of ``scripts/make_hdbscan_fixtures.py`` (sklearn's labels and
+   tree, written on a CPU): the native tree bitwise, the labels from sklearn's edge order equal,
+   and the labels of ``ops.native.hdbscan`` equal where this numpy's ``argsort`` orders the
+   edges as the recorded one or the case is free of the order of equal weights; then
+   ``HDBScanRandMetric`` on (b)'s SPOCO embeddings of two DSB crops of 128x128 (16384 points of 8
+   dimensions each), its seconds, and the labels on one thread equal to those on torch's.
 
 Phases 1 to 7, 22, 23 and 15 run one after another in this process, alone on the card: the
 kernels' times of the last lines come from phases 3 and 5, phases 22's and 23's loader rates
 are compared with phase 7's, and phase 15's two ranks need 50 GiB of the card. The other phases
-of 8 to 21 then run at the same time in ``FANOUT`` groups, each
+of 8 to 21, and phase 24, then run at the same time in ``FANOUT`` groups, each
 group one child process (``chip_smoke.py --phases 12,14``) that runs its phases in order on the
 same card, with a share of the host's cores; the child's lines, on a clock that starts with this
 process, are printed when all groups have ended, and a failed group stops the others. Times
@@ -597,13 +614,26 @@ ZN_PLATY_FILES, ZN_PLATY_VOLUME = 9, (40, 320, 320)
 ZN_TISSUENET, ZN_TISSUENET_SIDE = (8, 2), 512
 ZN_ZOO_FIT, ZN_ZOO_RESUME = 4, 2
 ZN_BLOCKED = ("tensorstore", "zarr", "h5py")
+# training logs and HDBSCAN on the card (phase 24), with tensorboardX, tensorboard, sklearn and matplotlib blocked:
+# 24a the tracked model through default_segmentation_trainer with its default logger (no logger argument), LOG_FIT
+# steps and LOG_RESUME more after from_checkpoint at log_image_interval LOG_IMAGES, beside the same fits with
+# logger=None in turns (LOG_PAIRS of each), then fits as long as the default log_image_interval, at it, in turns
+# against logger=None (LOG_PAIRS of each); 24b SPOCOTrainer (the SPOCO recipe), MeanTeacherTrainer (unsupervised, DSB
+# width) and default_classification_trainer (resnet3d_50) with their default loggers, LOG_ST_FIT + LOG_ST_RESUME
+# steps each; 24c the committed sklearn fixtures of scripts/make_hdbscan_fixtures.py, then HDBScanRandMetric on
+# 24b's SPOCO embeddings of HDBSCAN_CROPS DSB crops of HDBSCAN_CROP (16384 points of 8 dimensions each; min_size
+# below the smallest nucleus of the DSB images, 113 pixels, eps as the metric tests take it)
+LOG_FIT, LOG_RESUME, LOG_IMAGES, LOG_PAIRS = 8, 2, 4, 2
+LOG_ST_FIT, LOG_ST_RESUME = 2, 1
+LOG_BLOCKED = ("tensorboardX", "tensorboard", "sklearn", "matplotlib")
+HDBSCAN_CROP, HDBSCAN_CROPS, HDBSCAN_METRIC = (128, 128), 2, dict(min_size=50, eps=0.2)
 # the loader rates of one run, for phase 22's comparison with phase 7's .npy loader
 LOADER_RATES = {}
-# phases 8 to 21 but 15 run at the same time in these groups of one child process each, about equal in length
-# (phase 12 with 14: they train on the same images, and their card memory peaks near 32 and 28 GiB; phase 15,
+# phases 8 to 21 but 15, and 24, run at the same time in these groups of one child process each, about equal in
+# length (phase 12 with 14: they train on the same images, and their card memory peaks near 32 and 28 GiB; phase 15,
 # whose two ranks hold 25 GiB each, runs alone before them); a group ends within FANOUT_DEADLINE s of the start of
 # the run or is stopped
-FANOUT = ((12, 14), (8, 16, 19, 21), (9, 10, 11, 13), (17, 18, 20))
+FANOUT = ((12, 14), (8, 16, 19, 21), (9, 10, 11, 13), (17, 18, 20, 24))
 FANOUT_DEADLINE = 1100
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
@@ -4959,6 +4989,325 @@ def phase_zarr_n5(port, inorm):
     return launches
 
 
+def read_log(folder):
+    """{tag: [(step, value), ...]} of every event file of a log folder, read by the port's own reader (both CRCs of
+    every record checked)."""
+    from torch_em_tpu_torch.utils.tensorboard import read_events
+
+    events = {}
+    for _, step, tag, value in read_events(folder):
+        events.setdefault(tag, []).append((step, value))
+    return events
+
+
+def decoded_shape(image):
+    """The (H, W, C) shape of a logged image's PNG, decoded by PIL; its stored height and width must agree."""
+    import io
+
+    from PIL import Image as PILImage
+
+    shape = np.asarray(PILImage.open(io.BytesIO(image.encoded_image_string))).shape
+    if (image.height, image.width, image.colorspace) != shape:
+        raise AssertionError(f"an image stored as {image.height}x{image.width}x{image.colorspace} decodes to {shape}")
+    return shape
+
+
+def keep_losses(trainer, losses):
+    """Append each step's loss, the value the trainer hands to its logger, to ``losses``."""
+    step = trainer._train_step
+
+    def kept(*batch):
+        out = step(*batch)
+        if out is not None:
+            losses.append(float(out[0]))
+        return out
+
+    trainer._train_step = kept
+
+
+def timed_epochs(trainer, times):
+    """Append the seconds per iteration of each of the trainer's training epochs to ``times``."""
+    epoch = trainer._train_epoch
+
+    def timed(*args, **kwargs):
+        times.append(epoch(*args, **kwargs))
+        return times[-1]
+
+    trainer._train_epoch = timed
+
+
+# the tags that each trainer's default logger writes, as the JAX package's loggers name them
+LOG_SEGMENTATION_TAGS = {"train/loss", "train/learning_rate", "validation/loss", "validation/metric", "train/input",
+                         "train/target", "train/prediction", "validation/input", "validation/target",
+                         "validation/prediction"}
+LOG_SELF_TRAINING_TAGS = {"train/unsupervised/loss", "train/learning_rate", "train/confidence_threshold",
+                          "train/unsupervised/overview", "validation/unsupervised/loss",
+                          "validation/unsupervised/metric", "validation/unsupervised/overview"}
+LOG_CLASSIFICATION_TAGS = {"train/loss", "train/learning_rate", "train/input", "validation/loss", "validation/metric",
+                           "validation/input", "validation/confusion_matrix"}
+
+
+def phase_logs_hdbscan(port, inorm, device_ops):
+    """Training logs with the trainers' default loggers and HDBSCAN on the card, with tensorboardX, tensorboard,
+    sklearn and matplotlib blocked (24a-c in the module docstring); returns the kernels' launches of its fits."""
+    import glob
+    import importlib.util
+    import inspect
+
+    from torch_em_tpu_torch import self_training as st
+    from torch_em_tpu_torch.data import RawImageCollectionDataset
+    from torch_em_tpu_torch.loss import ContrastiveLoss, SPOCOLoss
+    from torch_em_tpu_torch.metric import HDBScanRandMetric
+    from torch_em_tpu_torch.ops import native
+    from torch_em_tpu_torch.ops.native import crc32c
+    from torch_em_tpu_torch.trainer import SPOCOTrainer
+    from torch_em_tpu_torch.transforms import connected_components, get_default_mean_teacher_augmentations
+
+    installed = [name for name in LOG_BLOCKED if importlib.util.find_spec(name) is not None]
+    blocked = [name for name in LOG_BLOCKED if name not in sys.modules]
+    for name in blocked:
+        sys.modules[name] = None  # an import of it raises
+    t_phase = time.perf_counter()
+    stats = {}
+    torch.cuda.synchronize()
+    inorm.instance_norm.launches = inorm.instance_norm_backward.launches = 0
+    try:
+        log(f"24: installed here of {', '.join(LOG_BLOCKED)}: {installed or 'none'}; blocked for the phase: "
+            f"{blocked}; CRC-32C {crc32c.load_library()._name}, HDBSCAN {native.load_hdbscan_library()._name}")
+        with tempfile.TemporaryDirectory() as tmp:
+            # 24a: the tracked model with the default logger, against logger=None in turns
+            raw, labels = training_volume(port)
+            np.save(os.path.join(tmp, "raw.npy"), raw)
+            np.save(os.path.join(tmp, "labels.npy"), labels)
+            del raw, labels
+
+            def volume_loader(n_samples, shuffle):
+                ds = port.SegmentationDataset(
+                    os.path.join(tmp, "raw.npy"), None, os.path.join(tmp, "labels.npy"), None, patch_shape=TRAIN_PATCH,
+                    n_samples=n_samples, raw_transform=port.standardize)
+                return port.DataLoader(ds, batch_size=1, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+            def tracked(name, iterations=LOG_FIT, log_image_interval=LOG_IMAGES, **logger):
+                np.random.seed(0)
+                model = port.AnisotropicUNet(**TRACKED, device="cuda", seed=0)
+                return port.default_segmentation_trainer(
+                    name, model, volume_loader(iterations, True), volume_loader(VAL_SAMPLES, False),
+                    learning_rate=LEARNING_RATE, log_image_interval=log_image_interval, save_root=tmp,
+                    device_label_transform=device_ops.DeviceAffinityTransform(offsets=OFFSETS), **logger)
+
+            def in_turns(label, iterations, losses=None, **kwargs):
+                """{kind: [s per iteration of each training epoch]} of LOG_PAIRS fits with the default logger and
+                as many with logger=None, in turns, each a fresh trainer, and the first default trainer (whose losses
+                go to ``losses``)."""
+                times, first = {"default logger": [], "logger=None": []}, None
+                for pair in range(LOG_PAIRS):
+                    for kind in (("default logger", "logger=None") if pair % 2 == 0 else
+                                 ("logger=None", "default logger")):
+                        logger = {} if kind == "default logger" else {"logger": None}
+                        trainer = tracked(f"{label}_{kind.split()[0].replace('=', '_')}_{pair}", iterations,
+                                          **kwargs, **logger)
+                        timed_epochs(trainer, times[kind])
+                        if first is None and kind == "default logger":
+                            first = trainer
+                            if losses is not None:
+                                keep_losses(trainer, losses)
+                        trainer.fit(iterations=iterations)
+                        torch.cuda.synchronize()
+                return times, first
+
+            warm = tracked("logs_warm_up", logger=None)
+            warm.fit(iterations=2)
+            del warm
+            losses = []
+            times, checked = in_turns("logs", LOG_FIT, losses)
+            if not isinstance(checked.logger, port.trainer.TensorboardLogger):
+                raise AssertionError(f"24a: the default logger is {type(checked.logger)}")
+            resumed = port.DefaultTrainer.from_checkpoint(checked.checkpoint_folder, "latest")
+            keep_losses(resumed, losses)
+            resumed.fit(iterations=LOG_RESUME)
+            torch.cuda.synchronize()
+            steps = LOG_FIT + LOG_RESUME
+            events = read_log(checked.logger.log_dir)
+            scalar_steps = {tag: [step for step, _ in events.get(tag, [])] for tag in
+                            ("train/loss", "train/learning_rate", "validation/loss", "validation/metric")}
+            expected_steps = {"train/loss": list(range(steps)), "train/learning_rate": list(range(steps)),
+                              "validation/loss": [LOG_FIT, steps], "validation/metric": [LOG_FIT, steps]}
+            if set(events) != LOG_SEGMENTATION_TAGS or scalar_steps != expected_steps:
+                raise AssertionError(f"24a: tags {sorted(events)}, scalar steps {scalar_steps}")
+            logged = [value for _, value in events["train/loss"]]
+            if logged != [float(np.float32(v)) for v in losses]:
+                raise AssertionError(f"24a: logged losses {logged}, the trainer's {losses}")
+            image_steps = {tag: [step for step, _ in events[tag]] for tag in ("train/input", "train/target",
+                                                                                 "train/prediction")}
+            if any(v != list(range(0, steps, LOG_IMAGES)) for v in image_steps.values()):
+                raise AssertionError(f"24a: train images at {image_steps}")
+            panel = (TRAIN_PATCH[1] + 4, TRAIN_PATCH[2] + 4)
+            shapes = {tag: decoded_shape(value) for tag, series in events.items() for _, value in series
+                      if not isinstance(value, float)}
+            if shapes["train/input"] != panel + (3,) or any(h != panel[0] or w % panel[1] or c != 3
+                                                            for h, w, c in shapes.values()):
+                raise AssertionError(f"24a: image shapes {shapes}")
+            ms = {kind: float(np.mean(v)) * 1e3 for kind, v in times.items()}
+            stats["24a"] = {"ms_per_iteration": ms, "runs_ms": {k: [t * 1e3 for t in v] for k, v in times.items()},
+                            "ratio": ms["default logger"] / ms["logger=None"],
+                            "files": sorted(os.listdir(checked.logger.log_dir))}
+            log(f"24a tracked model, default logger: {steps} train/loss equal to the trainer's losses in float32, "
+                f"learning rates, validations at {expected_steps['validation/loss']}, images at "
+                f"{image_steps['train/input']} decoding to {shapes['train/input']} (PNG in the event file); training "
+                f"epochs {ms['default logger']:.2f} ms per iteration with the default logger against "
+                f"{ms['logger=None']:.2f} with logger=None ({stats['24a']['ratio']:.3f}x; {LOG_PAIRS} fits of "
+                f"{LOG_FIT} each, in turns; runs {stats['24a']['runs_ms']}); {nvidia_smi()}")
+            del checked, resumed
+            # the same at the default cadence: a fit as long as the default log_image_interval, images at its start
+            cadence = inspect.signature(port.default_segmentation_trainer).parameters["log_image_interval"].default
+            times, _ = in_turns("cadence", cadence, log_image_interval=cadence)
+            ms = {kind: float(np.mean(v)) * 1e3 for kind, v in times.items()}
+            stats["24a default cadence"] = {
+                "iterations": cadence, "ms_per_iteration": ms, "ratio": ms["default logger"] / ms["logger=None"],
+                "runs_ms": {k: [t * 1e3 for t in v] for k, v in times.items()}}
+            log(f"24a at the default log_image_interval ({cadence}, fits of {cadence} iterations): training epochs "
+                f"{ms['default logger']:.2f} ms per iteration with the default logger against {ms['logger=None']:.2f} "
+                f"with logger=None ({stats['24a default cadence']['ratio']:.3f}x; runs "
+                f"{stats['24a default cadence']['runs_ms']}); {nvidia_smi()}")
+
+            # 24b: SPOCO, MeanTeacher and classification with their default loggers
+            raw_files, label_files = dsb_images(os.path.join(tmp, "dsb"))
+            adamw = port.OptimizerSpec("adamw", lr=LEARNING_RATE)
+
+            def dsb_loader(n_samples, shuffle=True):
+                return port.default_segmentation_loader(
+                    raw_files, None, label_files, None, batch_size=DSB_BATCH, patch_shape=DSB_PATCH, ndim=2,
+                    is_seg_dataset=False, label_transform=connected_components, label_dtype="int32",
+                    num_workers=LOADER_THREADS, shuffle=shuffle, n_samples=n_samples)
+
+            views = get_default_mean_teacher_augmentations()
+
+            def unlabelled(n_samples, shuffle=True):
+                dataset = RawImageCollectionDataset(raw_files, DSB_PATCH[1:], augmentations=(views, views),
+                                                    n_samples=n_samples)
+                return port.DataLoader(dataset, batch_size=DSB_BATCH, shuffle=shuffle, num_workers=LOADER_THREADS)
+
+            cls = port.classification
+            train_volumes = classification_volumes(CLS_BATCH * LOG_ST_FIT, 19)
+            val_volumes = classification_volumes(CLS_BATCH, 20)
+            builds = (
+                ("SPOCOTrainer", LOG_SEGMENTATION_TAGS, "train/loss", lambda: SPOCOTrainer(
+                    name="spoco_logs", model=port.UNet2d(**SPOCO_MODEL, depth=SPOCO_DEPTH, device="cuda", seed=0),
+                    train_loader=dsb_loader(DSB_BATCH * LOG_ST_FIT), val_loader=dsb_loader(DSB_BATCH, False),
+                    loss=SPOCOLoss(**SPOCO_LOSS), metric=ContrastiveLoss(**SPOCO_LOSS), optimizer=adamw,
+                    momentum=SPOCO_MOMENTUM, mixed_precision=True, device="cuda", save_root=tmp)),
+                ("MeanTeacherTrainer", LOG_SELF_TRAINING_TAGS, "train/unsupervised/loss", lambda: st.MeanTeacherTrainer(
+                    name="mean_teacher_logs", model=port.UNet2d(**DSB_MODEL, depth=DSB_DEPTH, device="cuda", seed=0),
+                    unsupervised_train_loader=unlabelled(DSB_BATCH * LOG_ST_FIT),
+                    unsupervised_val_loader=unlabelled(DSB_BATCH, False),
+                    unsupervised_loss=st.DefaultSelfTrainingLoss(),
+                    unsupervised_loss_and_metric=st.DefaultSelfTrainingLossAndMetric(),
+                    pseudo_labeler=st.DefaultPseudoLabeler(confidence_threshold=ST_CT), optimizer=adamw,
+                    mixed_precision=True, device="cuda", save_root=tmp)),
+                ("default_classification_trainer", LOG_CLASSIFICATION_TAGS, "train/loss",
+                 lambda: cls.default_classification_trainer(
+                     "resnet3d_logs", port.resnet3d_50(1, CLS_CLASSES),
+                     cls.default_classification_loader(*train_volumes, batch_size=CLS_BATCH, shuffle=True,
+                                                       num_workers=LOADER_THREADS),
+                     cls.default_classification_loader(*val_volumes, batch_size=CLS_BATCH,
+                                                       num_workers=LOADER_THREADS),
+                     learning_rate=1e-3, save_root=tmp)),
+            )
+            spoco = None
+            for label, tags, loss_tag, build in builds:
+                trainer = build()
+                t = time.perf_counter()
+                trainer.fit(iterations=LOG_ST_FIT)
+                resumed = port.DefaultTrainer.from_checkpoint(trainer.checkpoint_folder, "latest")
+                resumed.fit(iterations=LOG_ST_RESUME)
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t
+                events = read_log(trainer.logger.log_dir)
+                loss_steps = [step for step, _ in events.get(loss_tag, [])]
+                values = [v for _, v in events.get(loss_tag, [])]
+                if set(events) != tags or loss_steps != list(range(LOG_ST_FIT + LOG_ST_RESUME)) \
+                        or not np.all(np.isfinite(values)):
+                    raise AssertionError(f"24b {label}: tags {sorted(events)}, {loss_tag} {events.get(loss_tag)}")
+                shapes = {tag: decoded_shape(series[-1][1]) for tag, series in events.items()
+                          if not isinstance(series[-1][1], float)}
+                stats[f"24b {label}"] = {"logger": type(trainer.logger).__name__, "fit_s": fit_s,
+                                         "images": {k: list(v) for k, v in shapes.items()}}
+                log(f"24b {label}: default logger {type(trainer.logger).__name__}, fit {LOG_ST_FIT} + "
+                    f"{LOG_ST_RESUME} in {fit_s:.2f} s; {len(events)} tags as the JAX logger's, {loss_tag} "
+                    f"{[round(v, 4) for v in values]}, images {shapes}")
+                if label == "SPOCOTrainer":
+                    spoco = resumed.model.eval()
+                del trainer, resumed
+
+            # 24c: the committed sklearn fixtures, then HDBScanRandMetric on the SPOCO recipe's embeddings
+            fixtures = sorted(glob.glob(os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "records",
+                                                     "hdbscan", "*.npz")))
+            if not fixtures:
+                raise AssertionError("24c: no HDBSCAN fixtures under scripts/records/hdbscan")
+            results = {}
+            for path in fixtures:
+                case = np.load(path)
+                m, eps = int(case["min_cluster_size"]), float(case["cluster_selection_epsilon"])
+                src, dst, weight = native.hdbscan_mst(case["points"], m)
+                tree = (np.array_equal(src, case["mst_src"]) and np.array_equal(dst, case["mst_dst"])
+                        and np.array_equal(weight, case["mst_weight"]))
+                order = case["order"]
+                from_order = native.hdbscan_labels(src[order], dst[order], weight[order], m, eps)
+                same_order = np.array_equal(np.argsort(weight), order)
+                got = native.hdbscan(case["points"], m, eps)
+                equal = np.array_equal(got, case["labels"])
+                name = os.path.basename(path)[:-4]
+                results[name] = {"tree_bitwise": tree, "labels_from_sklearn_order": np.array_equal(
+                    from_order, case["labels"]), "argsort_order_as_recorded": same_order, "labels": equal,
+                    "tie_order_free": bool(case["tie_order_free"])}
+                if not (tree and results[name]["labels_from_sklearn_order"]) or \
+                        (not equal and (same_order or bool(case["tie_order_free"]))):
+                    raise AssertionError(f"24c {name}: {results[name]}")
+            stats["24c fixtures"] = results
+            log(f"24c: {len(fixtures)} sklearn {str(np.load(fixtures[0])['sklearn_version'])} fixtures (numpy "
+                f"{str(np.load(fixtures[0])['numpy_version'])} there, {np.__version__} here): {json.dumps(results)}")
+            images = np.stack([port.standardize(np.load(f)[:HDBSCAN_CROP[0], :HDBSCAN_CROP[1]])
+                               for f in raw_files[:HDBSCAN_CROPS]])[:, None].astype(np.float32)
+            target = np.stack([np.load(f)[:HDBSCAN_CROP[0], :HDBSCAN_CROP[1]] for f in label_files[:HDBSCAN_CROPS]])
+            with torch.no_grad():
+                embeddings = spoco(torch.from_numpy(images).cuda()).float().cpu().numpy()
+            torch.cuda.synchronize()
+            metric = HDBScanRandMetric(**HDBSCAN_METRIC)
+            t = time.perf_counter()
+            score = metric(embeddings, target[:, None].astype(np.float32))
+            seconds = time.perf_counter() - t
+            points = embeddings[0].reshape(embeddings.shape[1], -1).T
+            t = time.perf_counter()
+            one_thread = native.hdbscan(points, HDBSCAN_METRIC["min_size"], HDBSCAN_METRIC["eps"], threads=1)
+            one_thread_s = time.perf_counter() - t
+            threads = torch.get_num_threads()
+            if not 0.0 <= score <= 1.0 or not np.array_equal(
+                    one_thread, native.hdbscan(points, HDBSCAN_METRIC["min_size"], HDBSCAN_METRIC["eps"])):
+                raise AssertionError(f"24c: Rand error {score}, or labels that change with the thread count")
+            stats["24c metric"] = {"points": int(points.shape[0]), "dims": int(points.shape[1]), "crops": HDBSCAN_CROPS,
+                                   "adapted_rand_error": float(score), "s_per_crop": seconds / HDBSCAN_CROPS,
+                                   "threads": threads, "one_thread_s": one_thread_s,
+                                   "clusters": int(one_thread.max() + 1), "noise": int((one_thread < 0).sum())}
+            log(f"24c HDBScanRandMetric({HDBSCAN_METRIC}) on the SPOCO recipe's embeddings of {HDBSCAN_CROPS} DSB "
+                f"crops {HDBSCAN_CROP} ({points.shape[0]} points of {points.shape[1]} dimensions each): adapted Rand "
+                f"error {score:.4f}, {seconds / HDBSCAN_CROPS:.2f} s per crop on {threads} threads, "
+                f"{one_thread_s:.2f} s on one (labels equal); {stats['24c metric']['clusters']} clusters, "
+                f"{stats['24c metric']['noise']} noise points")
+            del spoco
+    finally:
+        for name in blocked:
+            del sys.modules[name]
+    torch.cuda.synchronize()
+    launches = (inorm.instance_norm.launches, inorm.instance_norm_backward.launches)
+    if not (launches[0] > 0 and launches[1] > 0):
+        raise AssertionError(f"24: norm kernel launches {launches}")
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 24: {stats['seconds']:.1f} s; norm launches forward {launches[0]}, backward {launches[1]}; "
+        f"{json.dumps(stats)}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_host_ms(fn, *args, repeats=5):
     """Median host time of ``fn(*args)`` in ms."""
     times = []
@@ -4998,15 +5347,18 @@ PHASE_TITLES = {
         "tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the SPOCO and SNEMI probes "
         "through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic",
     21: "ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; ops.native.is_available()",
+    24: "training logs with the default loggers and HDBSCAN, with no tensorboardX, tensorboard, sklearn or "
+        "matplotlib: the tracked model's TensorBoard events read back, SPOCO, MeanTeacher and classification with "
+        "their loggers, the sklearn fixtures, HDBScanRandMetric on SPOCO embeddings",
 }
 # the phases of the fan-out that launch the norm kernels, by the name of their path in the launches line
 FANOUT_NAMES = {9: "DSB", 10: "SNEMI", 11: "SPOCO", 12: "UNETR and ViM-UNet", 13: "self-training",
                 14: "encoder families", 15: "multi-device", 16: "Shallow2Deep", 17: "EM zoo", 18: "LM zoo",
-                19: "histopathology and medical zoo", 20: "quality probes"}
+                19: "histopathology and medical zoo", 20: "quality probes", 24: "training logs"}
 
 
 def run_phases(numbers):
-    """Run phases ``numbers`` (of 8 to 21) in order in this process; returns {phase: [forward, backward]}, the
+    """Run phases ``numbers`` (of 8 to 21 and 24) in order in this process; returns {phase: [forward, backward]}, the
     norm kernels' launches of each."""
     import torch_em_tpu_torch as port
     import torch_em_tpu_torch.models.unet as unet_module
@@ -5051,8 +5403,10 @@ def run_phases(numbers):
                 got = phase_quality_probes(port, inorm)
             elif number == 21:
                 phase_public_names(unet_module, inorm)
+            elif number == 24:
+                got = phase_logs_hdbscan(port, inorm, device_ops)
             else:
-                raise ValueError(f"no phase {number} among 8 to 21")
+                raise ValueError(f"no phase {number} among 8 to 21 and 24")
             launches[number] = [int(got[0]), int(got[1])]
             # the next phase, and the other groups, get the card memory this one held
             torch.cuda.empty_cache()
@@ -5243,7 +5597,7 @@ def main():
         zn_fwd, zn_bwd = phase_zarr_n5(port, inorm)
 
         fanout = run_phases([15])
-        log(f"phases 8 to 21 but 15 in {len(FANOUT)} child processes at once: "
+        log(f"phases 8 to 21 but 15, and 24, in {len(FANOUT)} child processes at once: "
             + ", ".join("+".join(map(str, group)) for group in FANOUT))
         fanout.update(run_fanout(FANOUT))
         parts = [("serving", serving_launches, 0), ("training", train_fwd, train_bwd),

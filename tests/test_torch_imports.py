@@ -14,12 +14,12 @@ scripts ``scripts/torch_parity3d.py``, ``scripts/torch_parity2d.py`` and
 imports ``scripts/jax_quality_seeds.py`` or ``jax_quality_pairs.py``, which import the JAX package), and
 writes HDF5 test data and reads it back and writes into it again (HDF5 needs no h5py: the port's own
 ``utils/hdf5.py`` reads and writes it), writes a zarr and an N5 volume and reads them back (they need no
-tensorstore: the port's own ``utils/zarr_n5.py`` reads and writes them), reads a PNG file, clusters with
-``HDBScan``, shows a validation sample and builds the tensorboard (the
-trainer's, self-training's and classification's) and wandb loggers and a
-classification metric from sklearn, which must raise an ImportError that
-names PIL, sklearn, napari, tensorboardX and wandb; the classification
-package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
+tensorstore: the port's own ``utils/zarr_n5.py`` reads and writes them), clusters with ``HDBScan`` (native, no
+sklearn), builds the tensorboard loggers (the trainer's, self-training's and classification's) and writes
+scalars through them and draws a confusion matrix (no tensorboardX, tensorboard, sklearn or matplotlib),
+reads a PNG file, writes a logger's image, shows a validation sample and builds the wandb logger and a
+classification metric from sklearn, which must raise an ImportError that names PIL, PIL, napari, sklearn
+and wandb; the classification package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
 text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
@@ -96,8 +96,8 @@ from torch_em_tpu_torch.utils import io, test, validation
 from torch_em_tpu_torch.classification import ClassificationLogger, ClassificationMetric
 assert ClassificationMetric()(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2])) == 0.25
 trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
-# HDF5 needs no h5py: the port's own module writes the test data and reads it back
 import os, tempfile
+# HDF5 needs no h5py: the port's own module writes the test data and reads it back
 h5_path = os.path.join(tempfile.mkdtemp(), "data.h5")
 test.create_segmentation_test_data(h5_path, "raw", "labels", (4, 4), (2, 2))
 written = io.load_data(h5_path, "raw")
@@ -106,11 +106,25 @@ assert io.load_data(h5_path, "labels")[:].max() < 4
 del written  # a reading handle holds HDF5's shared lock, which refuses a writer
 io.write_data(h5_path, "raw", np.arange(16, dtype="float32").reshape(4, 4), chunks=(2, 2))
 assert (io.load_data(h5_path, "raw")[1:3, ::2] == np.array([[4, 6], [8, 10]], dtype="float32")).all()
-for call, package in ((lambda: HDBScan(5, 0.1, False)(np.zeros((2, 4, 4), dtype="float32")), "sklearn"),
-                      (lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
-                      (lambda: TensorboardLogger(trainer, None), "tensorboardX"),
-                      (lambda: SelfTrainingTensorboardLogger(trainer, None), "tensorboardX"),
-                      (lambda: ClassificationLogger(trainer, None), "tensorboardX"),
+# HDBSCAN needs no sklearn (the native ops.native.hdbscan), the tensorboard loggers no tensorboardX, tensorboard,
+# sklearn or matplotlib (the port's own utils/tensorboard.py; the confusion matrix in numpy); an image needs PIL
+log_root = tempfile.mkdtemp()
+assert (HDBScan(5, 0.1, False)(np.repeat(np.eye(2, dtype="float32")[:, :, None], 8, axis=2)) > 0).all()
+for logger_class in (TensorboardLogger, SelfTrainingTensorboardLogger, ClassificationLogger):
+    logger = logger_class(trainer, log_root)
+    logger.tb.add_scalar("train/loss", 0.5, 0)
+    logger.tb.close()
+classification = ClassificationLogger(trainer, log_root)
+classification.log_validation(1, 0.5, 0.25, None, None, None)
+classification.tb.close()
+from torch_em_tpu_torch.classification.classification_logger import make_confusion_matrix
+matrix = make_confusion_matrix(np.array([0, 1, 2]), np.array([0, 2, 2]))
+assert matrix.dtype == np.uint8 and matrix.shape[0] == 3
+from torch_em_tpu_torch.utils.tensorboard import read_events
+assert [(step, tag) for _, step, tag, _ in read_events(os.path.join(log_root, "logs", "run"))] == \
+    [(0, "train/loss")] * 3 + [(1, "validation/loss"), (1, "validation/metric")]
+for call, package in ((lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
+                      (lambda: TensorboardLogger(trainer, log_root).tb.add_image("x", np.zeros((3, 2, 2))), "PIL"),
                       (lambda: ClassificationMetric("f1_score"), "sklearn"),
                       (lambda: WandbLogger(trainer, None), "wandb")):
     try:
@@ -150,8 +164,9 @@ x, y = ds[0]
 assert x.shape == (1, 32, 32) and 0 <= x.min() and x.max() <= 1
 with tempfile.TemporaryDirectory() as tmp:
     loader = DataLoader(ds, batch_size=1)
+    # logger=None: the default logger's images need PIL, blocked here
     trainer = default_segmentation_trainer("s2d", UNet2d(1, 1, depth=2, initial_features=4, device="cpu"), loader,
-                                           loader, device="cpu", mixed_precision=False, save_root=tmp)
+                                           loader, device="cpu", mixed_precision=False, save_root=tmp, logger=None)
     trainer.fit(iterations=1)
     assert modelzoo.export_bioimageio_model(trainer.checkpoint_folder, tmp + "/pkg", input_data=x, device="cpu",
                                             config=modelzoo.get_shallow2deep_config("scripts/s2d_forests"))
@@ -194,10 +209,11 @@ def test_source_names_no_jax(path):
     assert "import jax" not in text
     pattern = r"^\s*(from|import)\s+(jax|flax|optax|torch_em_tpu)\b(?!_torch)"
     assert not re.search(pattern, text, flags=re.MULTILINE)
-    # h5py and tensorstore nowhere: the port reads and writes HDF5 with its own utils/hdf5.py, zarr and N5 with
-    # its own utils/zarr_n5.py
-    assert not re.search(r"^\s*(from|import)\s+(h5py|tensorstore)\b|import_module\(.(h5py|tensorstore).\)", text,
-                         flags=re.MULTILINE)
+    # h5py, tensorstore, tensorboardX and tensorboard nowhere: the port reads and writes HDF5 with its own
+    # utils/hdf5.py, zarr and N5 with its own utils/zarr_n5.py, TensorBoard event files with its own
+    # utils/tensorboard.py
+    assert not re.search(r"^\s*(from|import)\s+(h5py|tensorstore|tensorboardX|tensorboard)\b"
+                         r"|import_module\(.(h5py|tensorstore|tensorboardX|tensorboard).\)", text, flags=re.MULTILINE)
     # PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
     # the zoo's download and conversion packages only inside the functions that need them
     assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"

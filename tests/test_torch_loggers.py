@@ -1,7 +1,7 @@
 """The port's trainer loggers against the JAX package's.
 
-``TensorboardLogger`` writes with tensorboardX on both sides: the same
-numpy inputs (a batch of raw images, labels and an 8-channel embedding
+``TensorboardLogger`` writes with the port's own ``utils/tensorboard.py``, the
+JAX package's with tensorboardX: the same numpy inputs (a batch of raw images, labels and an 8-channel embedding
 prediction of an embedding loss) must give the same scalars and the same
 encoded images in the event files, read back with tensorboard's
 ``EventAccumulator``; the PCA view and the grids are also compared as
@@ -76,9 +76,18 @@ def test_tensorboard_logger_writes_what_jax_writes(tmp_path, embedding):
 
 
 def test_tensorboard_logger_needs_tensorboardx(tmp_path, monkeypatch):
+    """The logger needs no tensorboardX: with it blocked, the port's own writer writes what
+    tensorboard's reader reads back."""
     monkeypatch.setitem(sys.modules, "tensorboardX", None)
-    with pytest.raises(ImportError, match="tensorboardX"):
-        TensorboardLogger(types.SimpleNamespace(name="run", log_image_interval=1, loss=None), str(tmp_path))
+    x, y, pred = _batch()
+    logger = TensorboardLogger(types.SimpleNamespace(name="run", log_image_interval=1, loss=None), str(tmp_path))
+    logger.log_train(0, torch.tensor(0.5), 1e-4, torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(pred))
+    logger.log_validation(1, 0.25, 0.75, x, y, pred)
+    logger.tb.close()
+    scalars, images = _events(tmp_path / "logs" / "run")
+    assert scalars["train/loss"] == [(0, 0.5)] and scalars["validation/loss"] == [(1, 0.75)]
+    assert set(images) == {"train/input", "train/target", "train/prediction", "validation/input",
+                           "validation/target", "validation/prediction"}
 
 
 def test_trainer_logs_to_tensorboard(tmp_path):

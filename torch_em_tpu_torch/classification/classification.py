@@ -84,8 +84,8 @@ def default_classification_loader(data: Sequence, target: Sequence, batch_size: 
 def default_classification_trainer(name: str, model, train_loader, val_loader, loss=None, metric=None,
                                    logger=ClassificationLogger, trainer_class=ClassificationTrainer, **kwargs):
     """A ``default_segmentation_trainer`` for classification: cross entropy, the accuracy
-    error as the metric (lower is better), the ``ClassificationLogger`` (pass ``logger=None``
-    where tensorboardX is missing) and the ``ClassificationTrainer``."""
+    error as the metric (lower is better), the ``ClassificationLogger`` and the
+    ``ClassificationTrainer``."""
     return default_segmentation_trainer(
         name, model, train_loader, val_loader, loss=CrossEntropyLoss() if loss is None else loss,
         metric=ClassificationMetric() if metric is None else metric, logger=logger, trainer_class=trainer_class,

@@ -12,7 +12,8 @@ The port's copy of the JAX package's module. These run on the host during
 validation (mutex watershed and multicut are sequential graph algorithms,
 SURVEY.md §7 hard part #3); the trainer sees ``host_metric = True`` and hands
 them the prediction and target as float32 numpy arrays after the validation
-step. ``HDBScan`` imports sklearn when it is called.
+step. ``HDBScan`` clusters with the native ``ops.native.hdbscan``, which gives
+scikit-learn's ``HDBSCAN`` labels id for id (sklearn is needed nowhere).
 """
 
 from typing import List, Optional
@@ -209,7 +210,8 @@ class Multicut:
 
 
 class HDBScan:
-    """HDBSCAN clustering of embedding predictions (reference :157)."""
+    """HDBSCAN clustering of embedding predictions (reference :157): sklearn's
+    ``HDBSCAN(min_cluster_size=min_size, cluster_selection_epsilon=eps)``, in native code."""
 
     def __init__(self, min_size, eps, remove_largest):
         self.min_size = min_size
@@ -217,16 +219,10 @@ class HDBScan:
         self.remove_largest = remove_largest
 
     def __call__(self, embeddings):
-        try:
-            from sklearn.cluster import HDBSCAN
-        except ImportError as e:
-            raise ImportError("HDBScan needs scikit-learn (sklearn), which is not installed") from e
-
         emb_dim = embeddings.shape[0]
         spatial = embeddings.shape[1:]
         points = embeddings.reshape(emb_dim, -1).T
-        clusterer = HDBSCAN(min_cluster_size=self.min_size, cluster_selection_epsilon=self.eps)
-        labels = clusterer.fit_predict(points) + 1  # -1 noise -> 0
+        labels = native.hdbscan(points, self.min_size, self.eps) + 1  # -1 noise -> 0
         seg = labels.reshape(spatial).astype("uint32")
         if self.remove_largest and seg.max() > 0:
             ids, counts = np.unique(seg[seg != 0], return_counts=True)

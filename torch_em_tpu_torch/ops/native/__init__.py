@@ -1,5 +1,5 @@
 """ctypes bindings for the native (C++) host ops: watershed, mutex watershed,
-connected components.
+connected components, and HDBSCAN.
 
 The port's own copy of the JAX package's ``ops/native``. ``tem_native.cpp``
 beside this file is built with ``g++ -O3 -std=c++17 -fPIC -shared`` at first
@@ -7,7 +7,9 @@ use into ``torch_em_tpu_torch/_build/tem_native-<hash>/``, keyed by a hash of
 the source and the flags (``ops/_build.py:compile_library``). A failed build
 raises; nothing falls back to another implementation. ``is_available()``
 answers whether the library builds and loads here; no path of the port asks it
-to choose another implementation.
+to choose another implementation. ``hdbscan.cpp`` is a library of its own,
+``_build/tem_hdbscan-<hash>/``, built the same way with ``-pthread`` and
+``-ffp-contract=off`` (no fused multiply-add may change a distance's rounding).
 """
 
 import ctypes
@@ -20,10 +22,13 @@ import numpy as np
 
 from .._build import compile_library
 
-__all__ = ["watershed", "mutex_watershed", "connected_components_labels", "load_library", "is_available"]
+__all__ = ["watershed", "mutex_watershed", "connected_components_labels", "hdbscan", "hdbscan_mst",
+           "hdbscan_labels", "load_library", "load_hdbscan_library", "is_available"]
 
 SOURCE = Path(__file__).resolve().parent / "tem_native.cpp"
+HDBSCAN_SOURCE = Path(__file__).resolve().parent / "hdbscan.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+HDBSCAN_FLAGS = GXX_FLAGS + ("-pthread", "-ffp-contract=off")
 MAX_NDIM = 8  # the C++ side keeps per-axis strides in arrays of 8
 
 
@@ -45,6 +50,18 @@ def load_library() -> ctypes.CDLL:
     lib.connected_components_labels.argtypes = [u32, i64, ctypes.c_int, u32]
     for fn in (lib.watershed, lib.mutex_watershed, lib.connected_components_labels):
         fn.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_hdbscan_library() -> ctypes.CDLL:
+    """Build ``hdbscan.cpp`` (once per content hash) and load it with its signatures."""
+    lib = ctypes.CDLL(str(compile_library("tem_hdbscan", _find_gxx, HDBSCAN_FLAGS, [HDBSCAN_SOURCE])))
+    f64, i64 = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int64)
+    lib.tem_hdbscan_mst.argtypes = [f64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, i64, i64, f64]
+    lib.tem_hdbscan_labels.argtypes = [i64, i64, f64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, i64]
+    for fn in (lib.tem_hdbscan_mst, lib.tem_hdbscan_labels):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -151,3 +168,70 @@ def connected_components_labels(seg: np.ndarray) -> np.ndarray:
     lib.connected_components_labels(_ptr(seg, ctypes.c_uint32), _ptr(shape, ctypes.c_int64), seg.ndim,
                                     _ptr(out, ctypes.c_uint32))
     return out
+
+
+def _check_clustering(min_cluster_size, cluster_selection_epsilon):
+    if not isinstance(min_cluster_size, (int, np.integer)) or min_cluster_size < 2:
+        raise ValueError(f"min_cluster_size must be an integer of at least 2, got {min_cluster_size!r}")
+    if not cluster_selection_epsilon >= 0:
+        raise ValueError(f"cluster_selection_epsilon must be at least 0, got {cluster_selection_epsilon!r}")
+
+
+def hdbscan_mst(points: np.ndarray, min_samples: int, threads: Optional[int] = None):
+    """The minimum spanning tree of the mutual reachability of ``points`` (n, d), as
+    ``(src, dst, weight)`` of its n - 1 edges in the order Prim's algorithm adds them from point
+    0, as sklearn's ``mst_from_data_matrix`` (the lowest index among equal distances joins).
+    The O(n^2 d) core distances and tree run on ``threads`` threads (torch's intra-op count by
+    default)."""
+    points = np.ascontiguousarray(points, dtype="float64")
+    if points.ndim != 2:
+        raise ValueError(f"HDBSCAN takes points of shape (n, d), got {points.shape}")
+    n, d = points.shape
+    if n < 2 or not 1 <= min_samples <= n:
+        raise ValueError(f"HDBSCAN needs at least 2 points and no fewer than min_samples ({min_samples}); got {n}")
+    if not np.isfinite(points).all():
+        raise ValueError("HDBSCAN takes finite points")
+    if threads is None:
+        import torch
+
+        threads = torch.get_num_threads()
+    src, dst = np.empty(n - 1, dtype="int64"), np.empty(n - 1, dtype="int64")
+    weight = np.empty(n - 1, dtype="float64")
+    load_hdbscan_library().tem_hdbscan_mst(
+        _ptr(points, ctypes.c_double), n, d, int(min_samples), max(1, int(threads)), _ptr(src, ctypes.c_int64),
+        _ptr(dst, ctypes.c_int64), _ptr(weight, ctypes.c_double))
+    return src, dst, weight
+
+
+def hdbscan_labels(src, dst, weight, min_cluster_size: int, cluster_selection_epsilon: float = 0.0) -> np.ndarray:
+    """HDBSCAN labels (-1 for noise) from the edges of the minimum spanning tree, ordered by
+    weight: sklearn's single-linkage tree, condensed tree, excess-of-mass selection and
+    labelling (``_tree.pyx:tree_to_labels``)."""
+    src, dst = (np.ascontiguousarray(a, dtype="int64") for a in (src, dst))
+    weight = np.ascontiguousarray(weight, dtype="float64")
+    n = len(weight) + 1
+    if src.shape != (n - 1,) or dst.shape != (n - 1,) or n < 2:
+        raise ValueError(f"a tree's edges: {src.shape} sources, {dst.shape} destinations, {weight.shape} weights")
+    if not 0 <= min(src.min(), dst.min()) <= max(src.max(), dst.max()) < n:
+        raise ValueError(f"edges of a tree of {n} points end outside [0, {n})")
+    _check_clustering(min_cluster_size, cluster_selection_epsilon)
+    labels = np.empty(n, dtype="int64")
+    load_hdbscan_library().tem_hdbscan_labels(
+        _ptr(src, ctypes.c_int64), _ptr(dst, ctypes.c_int64), _ptr(weight, ctypes.c_double), n,
+        int(min_cluster_size), float(cluster_selection_epsilon), _ptr(labels, ctypes.c_int64))
+    return labels
+
+
+def hdbscan(points: np.ndarray, min_cluster_size: int, cluster_selection_epsilon: float = 0.0,
+            threads: Optional[int] = None) -> np.ndarray:
+    """HDBSCAN labels (-1 for noise) of ``points`` (n, d), equal to
+    ``sklearn.cluster.HDBSCAN(min_cluster_size=..., cluster_selection_epsilon=...).fit_predict(points)``
+    with sklearn's other defaults (euclidean, ``min_samples = min_cluster_size``, ``alpha`` 1,
+    excess of mass, no single cluster), id for id: ``hdbscan_mst``, the edges ordered by
+    ``np.argsort``'s default as sklearn orders them (its order of equal weights decides ties,
+    so both make the same numpy call), then ``hdbscan_labels``. The points are taken as float64.
+    """
+    _check_clustering(min_cluster_size, cluster_selection_epsilon)
+    src, dst, weight = hdbscan_mst(points, min_cluster_size, threads)
+    order = np.argsort(weight)
+    return hdbscan_labels(src[order], dst[order], weight[order], min_cluster_size, cluster_selection_epsilon)

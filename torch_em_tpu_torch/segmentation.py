@@ -9,7 +9,8 @@ builds the dataset with the default raw transform and augmentations, and
 ``OptimizerSpec`` at ``learning_rate``, a ``ReduceLROnPlateau`` with
 ``scheduler_kwargs``, and ``DiceLoss`` as loss and metric unless given; it
 runs on ``device="cuda"`` unless asked otherwise, and its ``logger``
-defaults to None (no tensorboard on the machine with the card).
+defaults to ``TensorboardLogger``, as in the JAX package (event files under
+``<save_root>/logs/<name>``, written by the port itself).
 """
 
 import os
@@ -20,7 +21,7 @@ import numpy as np
 
 from .data import ConcatDataset, DataLoader, ImageCollectionDataset, SegmentationDataset, TensorDataset
 from .loss import DiceLoss
-from .trainer import DefaultTrainer, OptimizerSpec, ReduceLROnPlateau
+from .trainer import DefaultTrainer, OptimizerSpec, ReduceLROnPlateau, TensorboardLogger
 from .transforms import get_augmentations, get_raw_transform
 from .utils.io import load_data
 
@@ -311,7 +312,7 @@ def default_segmentation_trainer(
     log_image_interval: int = 100,
     mixed_precision: bool = True,
     early_stopping: Optional[int] = None,
-    logger=None,
+    logger=TensorboardLogger,
     logger_kwargs: Optional[Dict[str, Any]] = None,
     scheduler_kwargs: Optional[Dict[str, Any]] = None,
     optimizer_kwargs: Optional[Dict[str, Any]] = None,

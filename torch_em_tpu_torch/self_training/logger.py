@@ -3,16 +3,15 @@
 Counterpart of ``torch_em_tpu/self_training/logger.py`` (torch-em's
 ``self_training/logger.py``): the supervised, unsupervised and combined
 losses, the learning rate, the confidence threshold, and image panels with
-the pseudo-labels and their filter. It writes with tensorboardX, imported
-when the logger is built (the machine with the card has none; without it
-the constructor raises an ``ImportError`` that names the package).
+the pseudo-labels and their filter. It writes TensorBoard event files
+through the port's own ``utils/tensorboard.py``, as ``TensorboardLogger``
+does (no tensorboardX).
 """
 
-import os
 from typing import Optional
 
 from ..trainer.logger_base import TorchEmLogger
-from ..trainer.tensorboard_logger import _select_2d, make_grid
+from ..trainer.tensorboard_logger import _select_2d, make_grid, tensorboard_writer
 
 __all__ = ["SelfTrainingTensorboardLogger"]
 
@@ -22,16 +21,11 @@ class SelfTrainingTensorboardLogger(TorchEmLogger):
 
     def __init__(self, trainer, save_root: Optional[str], **kwargs):
         super().__init__(trainer, save_root)
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError as e:
-            raise ImportError("The SelfTrainingTensorboardLogger needs the tensorboardX package, which is not "
-                              "installed; pass logger=None or another logger.") from e
-        self.log_dir = f"./logs/{trainer.name}" if save_root is None else \
-            os.path.join(save_root, "logs", trainer.name)
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.tb = SummaryWriter(self.log_dir)
+        self.log_dir, self.tb = tensorboard_writer(trainer, save_root)
         self.log_image_interval = trainer.log_image_interval
+
+    def flush(self):
+        self.tb.flush()
 
     def _log_images(self, step, name, x, y, prediction, pseudo_labels=None, label_filter=None):
         images = [_select_2d(x)] + [_select_2d(im)[:1] for im in (y, prediction, pseudo_labels, label_filter)

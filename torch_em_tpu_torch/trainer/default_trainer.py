@@ -32,8 +32,9 @@ tqdm bar takes it) handed to ``fit``. ``fit(profile_dir=...)`` traces steps
 3 to 7 of each epoch with ``torch.profiler``; ``fit(log_mfu=True)`` counts
 the FLOPs of the first step (``utils.profiling.estimate_step_flops``) and
 prints the model FLOPs utilisation at the end of each epoch on a card whose
-peak ``utils.profiling.peak_flops`` knows. The logger defaults to ``None``
-(see ``logger_base``).
+peak ``utils.profiling.peak_flops`` knows. The logger defaults to
+``TensorboardLogger``, as in the JAX package: TensorBoard event files under
+``<save_root>/logs/<name>``, written by the port itself (``utils/tensorboard.py``).
 """
 
 import contextlib
@@ -51,6 +52,7 @@ from ..models.base import resolve_device
 from ..utils import profiling
 from .optimizers import OptimizerSpec, ReduceLROnPlateau, get_learning_rate
 from .serialization import deserialize_value, resolve_path, serialize_value, serialize_value_or_pickle
+from .tensorboard_logger import TensorboardLogger
 
 __all__ = ["DefaultTrainer"]
 
@@ -72,7 +74,7 @@ class DefaultTrainer:
         log_image_interval: Iterations between image logs.
         mixed_precision: Whether to compute in bfloat16 (parameters stay f32).
         early_stopping: Epochs without improvement before stopping.
-        logger: The logger class (a ``TorchEmLogger``) or None.
+        logger: The logger class (a ``TorchEmLogger``), ``TensorboardLogger`` by default, or None.
         logger_kwargs: Keyword arguments for the logger class.
         id_: Unique identifier for the trainer; the checkpoint folder's name.
         save_root: Root folder for checkpoints; ``./checkpoints`` when None.
@@ -99,7 +101,7 @@ class DefaultTrainer:
         log_image_interval: int = 100,
         mixed_precision: bool = True,
         early_stopping: Optional[int] = None,
-        logger=None,
+        logger=TensorboardLogger,
         logger_kwargs: Optional[Dict[str, Any]] = None,
         id_: Optional[str] = None,
         save_root: Optional[str] = None,
@@ -365,10 +367,16 @@ class DefaultTrainer:
             torch.cuda.synchronize(self.device)
 
     def _flush(self, buffer):
-        """Make the buffered calls to the logger; reading their losses waits for the device."""
+        """Make the buffered calls to the logger, then flush it; reading their losses waits for the device."""
         for write in buffer:
             write()
         buffer.clear()
+        self._flush_logger()
+
+    def _flush_logger(self):
+        flush = getattr(self.logger, "flush", None)  # loggers that keep nothing need not have one
+        if flush is not None:
+            flush()
 
     def _buffer_log(self, buffer, write, images: bool):
         """Keep ``write``, a call to the logger, until 50 are kept or a step logs images."""
@@ -496,6 +504,7 @@ class DefaultTrainer:
             self.train_loader.set_epoch(self._epoch)
             t_per_iter = self._train_epoch(progress, profile_dir=profile_dir, log_mfu=log_mfu)
             current_metric = self._validate()
+            self._flush_logger()
             self.current_metric = current_metric
 
             if self.lr_scheduler is not None:
@@ -523,5 +532,6 @@ class DefaultTrainer:
             self._epoch += 1
             print(msg % (self._epoch, t_per_iter, current_metric, best_metric), flush=True)
 
+        self._flush_logger()
         print(f"Finished training after {self._epoch} epochs / {self._iteration} iterations.")
         print(f"The best epoch is number {self._best_epoch}.")

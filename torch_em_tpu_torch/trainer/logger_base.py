@@ -1,10 +1,11 @@
 """Logger plugin interface, counterpart of ``torch_em_tpu/trainer/logger_base.py``.
 
 The trainer calls ``log_train`` for training steps and ``log_validation``
-after each validation. The port's loggers are ``TensorboardLogger``
-(tensorboardX) and ``WandbLogger`` (wandb); each imports its package when it
-is constructed, since the machine with the card has neither, so
-``DefaultTrainer``'s ``logger`` defaults to ``None``.
+after each validation, and ``flush`` after each batch of buffered calls,
+each validation and the end of ``fit``. The port's loggers are
+``TensorboardLogger`` (event files written by the port itself, the trainers'
+default as in the JAX package) and ``WandbLogger`` (wandb, imported when it is
+constructed).
 """
 
 
@@ -20,3 +21,6 @@ class TorchEmLogger:
 
     def log_validation(self, step, metric, loss, x, y, prediction):
         raise NotImplementedError
+
+    def flush(self):
+        """Write out what the logger holds; a logger that keeps nothing need not override it."""

@@ -1,10 +1,11 @@
 """Tensorboard logging, counterpart of ``torch_em_tpu/trainer/tensorboard_logger.py``.
 
-Writes with tensorboardX, as the JAX package does, imported when the logger
-is constructed (the machine with the card has no tensorboardX; without it
-the constructor raises an ``ImportError`` that names the package). Scalars
-are logged every iteration and image grids every ``log_image_interval``
-iterations; the trainer hands over device tensors, which are read here.
+Writes TensorBoard event files, as the JAX package does with tensorboardX, through the port's
+own ``utils/tensorboard.py`` (neither tensorboardX nor tensorboard is needed; images need PIL),
+into ``<save_root>/logs/<name>`` (``./logs/<name>`` without a ``save_root``). Scalars are logged
+every iteration and image grids every ``log_image_interval`` iterations; the trainer hands over
+device tensors, which are read here, and calls ``flush`` after each batch of logger calls, each
+validation and the end of ``fit``.
 The predictions of an embedding loss (``loss.EMBEDDING_LOSSES``) with more
 than three channels are shown as their first three principal components.
 """
@@ -15,9 +16,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.tensorboard import SummaryWriter
 from .logger_base import TorchEmLogger
 
 __all__ = ["TensorboardLogger", "make_grid", "embedding_pca"]
+
+
+def tensorboard_writer(trainer, save_root: Optional[str]):
+    """The log folder of ``trainer`` and a ``SummaryWriter`` into it."""
+    log_dir = f"./logs/{trainer.name}" if save_root is None else os.path.join(save_root, "logs", trainer.name)
+    return log_dir, SummaryWriter(log_dir)
 
 
 def _to_numpy(x):
@@ -72,19 +80,14 @@ class TensorboardLogger(TorchEmLogger):
 
     def __init__(self, trainer, save_root: Optional[str], **kwargs):
         super().__init__(trainer, save_root)
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError as e:
-            raise ImportError("The TensorboardLogger needs the tensorboardX package, which is not "
-                              "installed; pass logger=None or another logger.") from e
-        self.log_dir = f"./logs/{trainer.name}" if save_root is None else \
-            os.path.join(save_root, "logs", trainer.name)
-        os.makedirs(self.log_dir, exist_ok=True)
-        self.tb = SummaryWriter(self.log_dir)
+        self.log_dir, self.tb = tensorboard_writer(trainer, save_root)
         self.log_image_interval = trainer.log_image_interval
         from ..loss import EMBEDDING_LOSSES
 
         self.have_embedding_loss = type(getattr(trainer, "loss", None)) in EMBEDDING_LOSSES
+
+    def flush(self):
+        self.tb.flush()
 
     def log_images(self, step, x, y, prediction, name, gradients=None):
         self.tb.add_image(tag=f"{name}/input", img_tensor=make_grid([_select_2d(x)]), global_step=step)
