@@ -154,10 +154,22 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    and the halo exchange's ms and its peak memory; (c) ``predict_with_halo``
    with two replicas on the card against one, and ``validate_checkpoint``
    with two ids;
-16. the Shallow2Deep recipe: the four forests of ``scripts/s2d_forests/``
-   (fitted by ``scripts/torch_s2d_forests.py``, read from ``.npz`` without
-   sklearn; per 256x256 patch the host's ms in the filter bank and in
-   ``predict_proba``), the enhancer ``UNet2d(1, 1, depth 4, f=64, Sigmoid)``
+16. the Shallow2Deep recipe with no sklearn (the phase fails where it was
+   imported): (a) ``fit_forest`` refits every forest fixture of
+   ``scripts/make_forest_fixtures.py`` (data made anew from their seeds) and
+   holds each against sklearn's recorded trees node for node, with each
+   fit's seconds; (b) ``prepare_shallow2deep`` refits the committed forests
+   of ``scripts/s2d_forests/`` by their recipe (``scripts/torch_s2d_forests.py``:
+   seed 0, one thread, 4 forests of 10 trees, 128-192 pixel patches), with
+   its seconds, whether its features' sha256 equals the one recorded on the
+   CPU, and whether the forests equal the committed ones node for node
+   (unequal trees fail where the features are equal); (c)
+   ``prepare_shallow2deep_advanced`` with ``worst_tiles``, 2 stages of 2
+   forests of 10 trees, its stage-2 sample counts checked and every forest's
+   probabilities in [0, 1], with its seconds; per 256x256 patch the host's
+   ms in the filter bank and in ``predict_proba`` of (b)'s forests; the
+   enhancer ``UNet2d(1, 1, depth 4, f=64, Sigmoid)`` on (b)'s forests'
+   predictions
    through ``get_shallow2deep_loader`` over the script's eight 512x512
    images (forest probabilities in, foreground out), bf16, batch 8 of
    256x256, DiceLoss, AdamW 1e-4, 8 iterations and 2 more after
@@ -217,7 +229,10 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
 21. the public names ``ConvBlock2d``, ``ConvBlock3d``, ``Upsampler2d`` and ``Upsampler3d``
    (both upsampling modes) built on the card at the tracked widths, each held bitwise against
    its ``ConvBlock(..., dim)`` or ``Upsampler(..., dim)`` form on the same weights and bf16
-   input, deterministic cuDNN; and ``ops.native.is_available()``.
+   input, deterministic cuDNN; and ``ops.native.is_available()``; every
+   ``sklearn.metrics`` score that ``ClassificationMetric`` computes in numpy,
+   on the recorded label vectors of ``scripts/records/forest/``, against
+   sklearn's recorded values (abs 1e-12).
 22. HDF5 with no h5py (``utils/hdf5.py``): (a) ``bench.py``'s loader volume (64x512x512 float32
    raw, uint32 labels, (32, 128, 128) chunks) written by the port, once with no filter and once
    with gzip (``write_data``), write seconds and sizes; the reader's MB/s over random 32x256x256
@@ -315,6 +330,7 @@ device, or when any phase fails, it exits nonzero and prints no result line.
 
 import contextlib
 import ctypes
+import glob
 import json
 import os
 import re
@@ -518,14 +534,17 @@ MD_ONE_PROCESS_BACKEND = "nccl"  # 15a: the default backend of one process per c
 MD_GRAD_REL, MD_GRAD_REL_ALL = 5e-2, 1e-2
 
 # the Shallow2Deep recipe (phase 16; torch-em's 2-D Shallow2Deep enhancers, BASELINE.md:10): 4 forests of 10 trees on
-# the default filter bank, fitted by scripts/torch_s2d_forests.py on its seed-0 images and committed as .npz; the
+# the default filter bank, fitted on the card's host by scripts/torch_s2d_forests.py's recipe from its seed-0 images
+# (sklearn fitted the committed .npz by the same recipe); the
 # enhancer UNet2d(1 -> 1, depth 4, f=64, Sigmoid) on their foreground probabilities, 256x256 patches, batch 8, bf16,
 # DiceLoss, AdamW 1e-4, 8 iterations and 2 more after from_checkpoint; the enhancer's float32 forward on the card
 # against the CPU (TF32 off) and the torchscript weights against the state-dict model within 1e-4
-S2D_FOREST_DIR, S2D_SEED = os.path.join("scripts", "s2d_forests"), 0
+S2D_SEED = 0
 S2D_MODEL = dict(in_channels=1, out_channels=1, initial_features=64, final_activation="Sigmoid")
 S2D_DEPTH, S2D_BATCH, S2D_PATCH, S2D_FIT, S2D_RESUME = 4, 8, (1, 256, 256), 8, 2
 S2D_CPU_ATOL, S2D_HOST_PATCHES, S2D_MEDICAL, S2D_LOADER_STEPS = 1e-4, 8, (24, 64, 64), 4
+# 16c: the advanced path's stages, forests per stage and the share of a patch's pixels a later stage samples
+S2D_STAGES, S2D_PER_STAGE, S2D_FRACTION = 2, 2, 0.5
 # Shallow2DeepModel's enhancer on the two 512x512 test images at once, in float32
 S2D_PREDICT = (2, (512, 512))
 
@@ -3501,11 +3520,101 @@ def s2d_host_costs(prepare, forests, raw):
     return {"filter_bank_ms": float(np.median(bank_ms)), "predict_proba_ms": float(np.median(forest_ms))}
 
 
+def s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp):
+    """Phase 16's forest fits with no sklearn: (a) the fixtures of scripts/make_forest_fixtures.py node for node,
+    (b) the committed forests' recipe, (c) the advanced path with worst_tiles. Returns (b)'s paths and the stats."""
+    from torch_em_tpu_torch.ops.native import load_forest_library
+    from torch_em_tpu_torch.shallow2deep import ForegroundTransform, load_forest
+
+    if sys.modules.get("sklearn") is not None:
+        raise AssertionError("sklearn was imported before the forests were fitted")
+
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    sys.path.insert(0, scripts)
+    import make_forest_fixtures
+    import torch_s2d_forests
+
+    stats = {}
+    # 16a: every fixture refitted, its data made anew from its seed, after the native build
+    t = time.perf_counter()
+    load_forest_library()
+    stats["forest_build_s"] = time.perf_counter() - t
+    fits = {}
+    for path in sorted(glob.glob(os.path.join(scripts, "records", "forest", "*.npz"))):
+        differences, same_draw, seconds = make_forest_fixtures.refit_fixture(path, n_jobs=1)
+        name = os.path.basename(path)[:-len(".npz")]
+        fits[name] = seconds
+        if differences or same_draw is False:
+            raise AssertionError(f"16a fixture {name}: the port's forest differs from sklearn's in {differences}, "
+                                 f"the global draw after the fit {'differs' if same_draw is False else 'agrees'}")
+    if len(fits) != len(make_forest_fixtures.FOREST_CASES):
+        raise AssertionError(f"16a found {len(fits)} forest fixtures")
+    stats["fixture_fit_s"] = fits
+    log(f"16a fit_forest on the {len(fits)} forest fixtures: every forest equal to sklearn 1.9's node for node "
+        f"(thresholds bitwise); fit seconds " + ", ".join(f"{k} {v:.4f}" for k, v in fits.items())
+        + f"; forest.cpp built and loaded in {stats['forest_build_s']:.2f} s")
+
+    # 16b: the committed forests' recipe, refitted here
+    paths, digest, seconds = torch_s2d_forests.fit_forests(os.path.join(tmp, "rfs"), S2D_SEED)
+    with open(torch_s2d_forests.RECIPE_RECORD) as f:
+        same_features = digest == json.load(f)["features_sha256"]
+    differences = torch_s2d_forests.check_against_committed(paths)
+    equal = not any(differences.values())
+    stats.update(recipe_fit_s=seconds, recipe_features_equal=same_features, recipe_forests_equal=equal)
+    log(f"16b prepare_shallow2deep, the committed forests' recipe ({torch_s2d_forests.N_FORESTS} forests of "
+        f"{torch_s2d_forests.N_ESTIMATORS} trees, one thread): {seconds:.3f} s; features sha256 "
+        f"{'equal to' if same_features else 'unlike'} the one recorded on the CPU; forests equal to the committed "
+        f"ones node for node: {equal} {json.dumps(differences)}")
+    if same_features and not equal:
+        raise AssertionError("16b the same features gave other trees than sklearn's")
+    if not same_features:
+        log("16b this machine's filter bank differs from the CPU's in some bit, so its forests may too; 16a's "
+            "fixtures are the gate of the fit")
+
+    # 16c: the advanced path, worst_tiles, the stage-2 sample counts checked
+    strategy_inputs = {}
+
+    def worst_tiles(features, labels, rf_id, forests, forests_per_stage, fraction, **kwargs):
+        strategy_inputs[rf_id] = (len(features), len(forests[rf_id - forests_per_stage].train_labels))
+        return prepare.worst_tiles(features, labels, rf_id, forests, forests_per_stage, fraction, **kwargs)
+
+    np.random.seed(S2D_SEED)
+    advanced = os.path.join(tmp, "advanced")
+    t = time.perf_counter()
+    prepare.prepare_shallow2deep_advanced(
+        raw_path, None, label_path, None, patch_shape_min=torch_s2d_forests.PATCH_MIN,
+        patch_shape_max=torch_s2d_forests.PATCH_MAX, n_forests=S2D_STAGES * S2D_PER_STAGE, n_threads=1,
+        output_folder=advanced, ndim=2, forests_per_stage=S2D_PER_STAGE, sample_fraction_per_stage=S2D_FRACTION,
+        sampling_strategy=worst_tiles, label_transform=ForegroundTransform(ndim=2),
+        n_estimators=torch_s2d_forests.N_ESTIMATORS, random_state=S2D_SEED)
+    stats["advanced_fit_s"] = time.perf_counter() - t
+    forests = [load_forest(os.path.join(advanced, f"rf_{i:04d}.npz")) for i in range(S2D_STAGES * S2D_PER_STAGE)]
+    # each tree's root weighs its bootstrap, as many draws as the forest's training samples
+    counts = [f.weighted_n_node_samples[f.node_offsets[:-1]] for f in forests]
+    for rf_id, (n_new, n_before) in strategy_inputs.items():
+        expected = n_before + int(S2D_FRACTION * n_new)
+        if not (counts[rf_id] == expected).all() or \
+                not (counts[rf_id - S2D_PER_STAGE] == n_before).all():
+            raise AssertionError(f"16c forest {rf_id} trained on {counts[rf_id]} samples, not {expected}")
+    features = prepare._apply_filters(test_raw[0, :256, :256].astype(np.float32), prepare._get_filters(2, None))
+    for i, forest in enumerate(forests):
+        proba = forest.predict_proba(features)
+        if not (0 <= proba.min() and proba.max() <= 1) or not np.allclose(proba.sum(axis=1), 1, rtol=0, atol=1e-12):
+            raise AssertionError(f"16c forest {i} predicts outside [0, 1]")
+    stats["advanced_samples"] = [int(c[0]) for c in counts]
+    log(f"16c prepare_shallow2deep_advanced, worst_tiles, {S2D_STAGES} stages of {S2D_PER_STAGE} forests of "
+        f"{torch_s2d_forests.N_ESTIMATORS} trees: {stats['advanced_fit_s']:.3f} s; training samples per forest "
+        f"{stats['advanced_samples']} (stage 2: stage 1's plus {S2D_FRACTION} of a new patch's, as expected); every "
+        f"forest's probabilities in [0, 1] on a 256x256 test patch")
+    return paths, stats
+
+
 def phase_shallow2deep(port, inorm):
-    """The Shallow2Deep recipe on the card: the enhancer trained on the committed forests' predictions
-    (no sklearn), exported as a bioimage.io package, validated, imported back, traced to torchscript, and
-    ``Shallow2DeepModel`` on the test images; the medical formats' round trip. Returns the kernels'
-    launches of its training run and of the model's predictions."""
+    """The Shallow2Deep recipe on the card, with no sklearn: the forests fitted on the host (the fixtures, the
+    committed forests' recipe and the advanced path), the enhancer trained on the recipe's forests' predictions,
+    exported as a bioimage.io package, validated, imported back, traced to torchscript, and ``Shallow2DeepModel``
+    on the test images; the medical formats' round trip. Returns the kernels' launches of its training run and of
+    the model's predictions."""
     import importlib
 
     from torch_em_tpu_torch.shallow2deep import Shallow2DeepModel, get_shallow2deep_loader, load_forest
@@ -3517,16 +3626,16 @@ def phase_shallow2deep(port, inorm):
     stats = {}
     with tempfile.TemporaryDirectory() as tmp:
         (raw_path, label_path), test_raw, test_labels = s2d_data(tmp)
-        forest_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), S2D_FOREST_DIR)
-        rf_paths = sorted(os.path.join(forest_dir, n) for n in os.listdir(forest_dir) if n.endswith(".npz"))
+        rf_paths, fit_stats = s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp)
+        stats.update(fit_stats)
         forests = [load_forest(p) for p in rf_paths]
         default_config = prepare._serialize_feature_config(prepare._get_filters(2, None))
         if len(forests) != 4 or any(f.feature_config != default_config or f.n_features_in_ != 28 for f in forests):
             raise AssertionError(f"forests {rf_paths} do not carry the default filter bank")
-        if "sklearn" in sys.modules:
-            raise AssertionError("the forests were read through sklearn")
+        if sys.modules.get("sklearn") is not None:
+            raise AssertionError("the forests were fitted or read through sklearn")
         log(f"Shallow2Deep data: {np.load(raw_path, mmap_mode='r').shape} training images, {test_raw.shape} test "
-            f"images, foreground {float((test_labels > 0).mean()):.3f}; {len(forests)} forests from .npz")
+            f"images, foreground {float((test_labels > 0).mean()):.3f}; {len(forests)} forests fitted here")
         stats.update(s2d_host_costs(prepare, forests, np.load(raw_path, mmap_mode="r")))
 
         def loader(n_samples, shuffle, workers=LOADER_THREADS, mode="thread"):
@@ -4547,6 +4656,19 @@ def phase_public_names(unet_module, inorm):
             raise AssertionError("21 the native library is not available or the blocks' norms did not launch")
     finally:
         restore(old)
+    # the classification scores in numpy against sklearn's recorded values
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import make_forest_fixtures
+
+    t = time.perf_counter()
+    errors = make_forest_fixtures.score_errors()
+    worst = max(errors, key=lambda e: e[-1])
+    names = sorted({name for name, *_ in errors})
+    log(f"21 ClassificationMetric's numpy scores on the recorded label vectors: {len(errors)} cases of {len(names)} "
+        f"scores ({', '.join(names)}) against sklearn's recorded values: max abs err {worst[-1]:.3g} ({worst[0]} "
+        f"{worst[1]} on {worst[2]}); {time.perf_counter() - t:.3f} s")
+    if worst[-1] > 1e-12 or len(names) != len(make_forest_fixtures.SCORE_NAMES):
+        raise AssertionError(f"21 the score {worst[0]} {worst[1]} is {worst[-1]} from sklearn's")
 
 
 def h5_windows(n, seed):
@@ -5335,8 +5457,9 @@ PHASE_TITLES = {
         "classification",
     15: "the multi-device paths: train_multi_gpu over NCCL, two processes on the card over gloo (data-parallel step, "
         "halo-sharded serving, the spatially sharded step), two replicas in predict_with_halo",
-    16: "Shallow2Deep: the enhancer on the committed forests' predictions, the bioimage.io export, validation, import "
-        "and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage",
+    16: "Shallow2Deep with no sklearn: the forest fixtures, the committed forests' recipe and the advanced path "
+        "fitted natively, the enhancer on the recipe's forests' predictions, the bioimage.io export, validation, "
+        "import and torchscript, Shallow2DeepModel on the test images; NIfTI and MetaImage",
     17: "the dataset zoo's EM readers: get_benchmark_loader over TIFF volumes at MitoLab benchmark 5's published shape "
         "into the tracked model, get_mitolab_loader into UNet2d",
     18: "the dataset zoo's light-microscopy readers: get_dsb_loader on dsb2018's layout into the DSB recipe's UNet2d "
@@ -5346,7 +5469,8 @@ PHASE_TITLES = {
     20: "the quality probes' paths: the DSB probe (UNet2d f=16, 128x128), the tracked DSB (f=64, 256x256) and the "
         "tracked CREMI model through scripts/torch_parity2d.py and torch_parity3d.py; the SPOCO and SNEMI probes "
         "through scripts/torch_spoco2d.py and torch_parity3d.py, deterministic",
-    21: "ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; ops.native.is_available()",
+    21: "ConvBlock2d, ConvBlock3d, Upsampler2d and Upsampler3d against their dim forms; ops.native.is_available(); "
+        "the classification scores in numpy against sklearn's recorded values",
     24: "training logs with the default loggers and HDBSCAN, with no tensorboardX, tensorboard, sklearn or "
         "matplotlib: the tracked model's TensorBoard events read back, SPOCO, MeanTeacher and classification with "
         "their loggers, the sklearn fixtures, HDBScanRandMetric on SPOCO embeddings",
@@ -5417,7 +5541,8 @@ def run_fanout(groups):
     """Run each group of phases in a child process of its own, all groups at once on the card, each with
     ``OMP_NUM_THREADS`` set to its share of the host's cores; print the children's lines, group by group, when all
     have ended. A group that fails, or that has not ended ``FANOUT_DEADLINE`` s after the run's start, stops the
-    others (with every process they started) and raises. Returns {phase: [forward, backward]} launches."""
+    others (with every process they started) and raises, naming each group that did not end well by its exit
+    code, or as "(stopped)" where this process stopped it. Returns {phase: [forward, backward]} launches."""
     threads = max(1, (os.cpu_count() or len(groups)) // len(groups))
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                CHIP_SMOKE_T0=repr(time.time() - (time.perf_counter() - T0)))
@@ -5437,6 +5562,8 @@ def run_fanout(groups):
                 break
             time.sleep(1)
     finally:
+        # the children still running when the first failed or the deadline passed are stopped here
+        stopped = {child.pid for *_, child in children if child.poll() is None}
         for *_, child in children:
             # each child leads a process group of its own, with the processes it started
             with contextlib.suppress(ProcessLookupError):
@@ -5453,7 +5580,9 @@ def run_fanout(groups):
         result = lines.pop() if child.returncode == 0 and lines else None
         print("\n".join(lines), flush=True)
         if result is None:
-            failed.append(f"phases {group} (exit {child.returncode})")
+            ended = "stopped" if child.pid in stopped and child.returncode == -signal.SIGKILL else \
+                f"exit {child.returncode}"
+            failed.append(f"phases {group} ({ended})")
         else:
             launches.update({int(k): v for k, v in json.loads(result)["launches"].items()})
     if failed:

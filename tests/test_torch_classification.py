@@ -3,8 +3,14 @@
 - ``CrossEntropyLoss`` against the JAX loss on the same logits and targets
   (float32, within 1e-6);
 - ``ClassificationMetric``: its numpy accuracy equals sklearn's
-  ``accuracy_score`` (also unnormalised and weighted), another metric name
-  takes sklearn's function, an unknown one raises;
+  ``accuracy_score`` (also unnormalised and weighted); every other score of
+  two label vectors (``classification/scores.py``) equals sklearn's with its
+  arguments (``average``, ``labels``, ``pos_label``, ``sample_weight``,
+  ``zero_division`` and the score's own) within 1e-12, on seeded binary,
+  multiclass and gapped label vectors, live and as recorded by
+  ``scripts/make_forest_fixtures.py`` (which ``chip_smoke.py`` phase 21
+  checks on the card); a score the port does not compute takes sklearn's
+  function, an unknown one raises;
 - ``ClassificationDataset`` and ``default_classification_loader`` give the
   JAX package's samples (standardized, resized, no augmentation) and
   batches of the right shapes;
@@ -25,7 +31,9 @@
 import copy
 import functools
 import os
+import sys
 import warnings
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -46,9 +54,13 @@ from torch_em_tpu_torch.classification import (
     ClassificationDataset, ClassificationLogger, ClassificationMetric, ClassificationTrainer, CrossEntropyLoss,
     default_classification_loader, default_classification_trainer,
 )
+from torch_em_tpu_torch.classification.scores import SCORES
 from torch_em_tpu_torch.models.resnet3d import ResNet3dModule
 from torch_em_tpu_torch.transforms.raw import standardize
 from torch_em_tpu_torch.utils.convert import resnet3d_state_dict_from_jax_params
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+import make_forest_fixtures as fixtures  # noqa: E402
 
 SMALL = dict(block="basic", layers=(1, 1, 1, 1), in_channels=1, out_channels=3)
 LR = 0.1
@@ -95,14 +107,56 @@ def test_numpy_accuracy_equals_sklearn(kwargs):
     assert metric.init_kwargs == {"metric_name": "accuracy_score", **kwargs}
 
 
-def test_other_metrics_come_from_sklearn():
-    from sklearn.metrics import f1_score
+@pytest.mark.parametrize("name, label_set, kwargs", [(n, s, k) for n, s, k in fixtures.SCORE_CASES]
+                         + [("roc_auc_score", "binary", {})],
+                         ids=lambda v: str(v))
+def test_other_metrics_come_from_sklearn(name, label_set, kwargs):
+    """Every score of two label vectors, computed in numpy, against sklearn's with the same arguments;
+    a score the port does not compute is sklearn's own function."""
+    import sklearn.metrics
 
-    y_true, y_pred = np.array([0, 1, 2, 2, 1]), np.array([0, 2, 2, 2, 1])
-    assert ClassificationMetric("f1_score", average="macro")(y_true, y_pred) == \
-        pytest.approx(1.0 - f1_score(y_true, y_pred, average="macro"))
+    labels = fixtures.score_labels()
+    y_true, y_pred = (np.asarray(v) for v in labels[label_set])
+    kwargs = fixtures.score_kwargs(kwargs, labels)
+    metric = ClassificationMetric(name, **kwargs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        expected = np.asarray(getattr(sklearn.metrics, name)(y_true, y_pred, **kwargs), dtype=np.float64)
+        got = np.asarray(metric(y_true, y_pred), dtype=np.float64)
+    assert got.shape == expected.shape
+    np.testing.assert_allclose(got, 1.0 - expected, rtol=0, atol=1e-12)
+    assert (metric.metric is getattr(sklearn.metrics, name)) == (name not in SCORES)
+    assert metric.init_kwargs == {"metric_name": name, **kwargs}
+
+
+def test_recorded_scores_match():
+    """The scores recorded by sklearn in scripts/records/forest/classification_scores.json."""
+    errors = fixtures.score_errors()
+    assert len(errors) == len(fixtures.SCORE_CASES)
+    assert max(err for *_, err in errors) <= 1e-12
+
+
+def test_unknown_metric_name_raises():
     with pytest.raises(ValueError, match="Invalid metric_name"):
         ClassificationMetric("no_such_score")
+
+
+@pytest.mark.parametrize("name, kwargs, match", [
+    ("f1_score", {"average": "binary"}, "multiclass but average='binary'"),
+    ("precision_score", {"pos_label": 7}, "pos_label=7 is not a valid label"),
+    ("jaccard_score", {"average": "samples"}, "Samplewise metrics"),
+    ("recall_score", {"average": "most"}, "average"),
+])
+def test_score_errors_match_sklearn(name, kwargs, match):
+    """Arguments that sklearn refuses are refused alike."""
+    import sklearn.metrics
+
+    y_true, y_pred = np.array([0, 1, 2, 1]), np.array([0, 2, 2, 1])
+    if name == "precision_score":
+        y_true, y_pred = y_true % 2, y_pred % 2
+    for fn in (SCORES[name], getattr(sklearn.metrics, name)):
+        with pytest.raises(ValueError, match=match):
+            fn(y_true, y_pred, **kwargs)
 
 
 @pytest.mark.parametrize("image_shape", [None, (1, 12, 20, 8)], ids=["as-is", "resized"])

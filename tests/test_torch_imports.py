@@ -18,11 +18,14 @@ tensorstore: the port's own ``utils/zarr_n5.py`` reads and writes them), cluster
 sklearn), builds the tensorboard loggers (the trainer's, self-training's and classification's) and writes
 scalars through them and draws a confusion matrix (no tensorboardX, tensorboard, sklearn or matplotlib),
 reads a PNG file, writes a logger's image, shows a validation sample and builds the wandb logger and a
-classification metric from sklearn, which must raise an ImportError that names PIL, PIL, napari, sklearn
-and wandb; the classification package's default metric, the accuracy in numpy, runs. With yaml, sklearn, pandas, tqdm,
+classification metric that only sklearn computes, which must raise an ImportError that names PIL, PIL,
+napari, sklearn and wandb; the classification package's metrics in numpy, the accuracy and the F1 score, run. With yaml, sklearn, pandas, tqdm,
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
-text) and imports back; fitting forests and reading a pickled one raise naming scikit-learn,
+text) and imports back; ``prepare_shallow2deep`` (with tqdm, which the card has) and
+``prepare_shallow2deep_advanced`` fit forests natively and write them as ``.npz``, a classification
+trainer validates with the macro F1 score in numpy; reading a pickled forest and a classification score
+the port does not compute raise naming scikit-learn, ``prepare_shallow2deep`` without tqdm tqdm,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
 packages, and the dataset zoo's download and conversion packages (requests, gdown, rarfile,
 kaggle, nd2, pycocotools, cloud-volume, s3fs and zarr, and the histopathology and medical readers'
@@ -95,6 +98,9 @@ from torch_em_tpu_torch.trainer import TensorboardLogger, WandbLogger
 from torch_em_tpu_torch.utils import io, test, validation
 from torch_em_tpu_torch.classification import ClassificationLogger, ClassificationMetric
 assert ClassificationMetric()(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2])) == 0.25
+# the sklearn.metrics scores of two label vectors are the port's own, in numpy
+assert abs(ClassificationMetric("f1_score", average="macro")(np.array([0, 1, 2, 2]), np.array([0, 1, 1, 2]))
+           - (1 - (1 + 2 / 3 + 2 / 3) / 3)) < 1e-12
 trainer = types.SimpleNamespace(name="run", log_image_interval=1, loss=None)
 import os, tempfile
 # HDF5 needs no h5py: the port's own module writes the test data and reads it back
@@ -125,7 +131,7 @@ assert [(step, tag) for _, step, tag, _ in read_events(os.path.join(log_root, "l
     [(0, "train/loss")] * 3 + [(1, "validation/loss"), (1, "validation/metric")]
 for call, package in ((lambda: validation._visualize(np.zeros((4, 4)), np.zeros((4, 4)), None), "napari"),
                       (lambda: TensorboardLogger(trainer, log_root).tb.add_image("x", np.zeros((3, 2, 2))), "PIL"),
-                      (lambda: ClassificationMetric("f1_score"), "sklearn"),
+                      (lambda: ClassificationMetric("roc_auc_score"), "sklearn"),
                       (lambda: WandbLogger(trainer, None), "wandb")):
     try:
         call()
@@ -154,7 +160,7 @@ for read in (io.load_data, io.load_image):
 import tempfile
 from torch_em_tpu_torch import DataLoader, UNet2d, default_segmentation_trainer
 from torch_em_tpu_torch.shallow2deep import (Shallow2DeepDataset, evaluate_enhancers, load_forest,
-                                             prepare_shallow2deep)
+                                             prepare_shallow2deep, prepare_shallow2deep_advanced)
 from torch_em_tpu_torch.utils import debug, modelzoo
 forest = load_forest("scripts/s2d_forests/rf_0000.npz")
 raw = np.random.default_rng(0).random((2, 48, 48)).astype("float32")
@@ -172,8 +178,32 @@ with tempfile.TemporaryDirectory() as tmp:
                                             config=modelzoo.get_shallow2deep_config("scripts/s2d_forests"))
     model, _ = modelzoo.import_bioimageio_model(tmp + "/pkg", device="cpu")
     assert open(tmp + "/pkg/rdf.yaml").read().startswith("{{")
+    # the forests are fitted natively and written as .npz alone; prepare_shallow2deep shows its progress with
+    # tqdm, which the card has
+    np.save(tmp + "/raw.npy", raw)
+    np.save(tmp + "/labels.npy", (raw > 0.5).astype("uint8"))
+    sys.modules.pop("tqdm")
+    prepare_shallow2deep(tmp + "/raw.npy", None, tmp + "/labels.npy", None, (1, 24, 24), (1, 32, 32), 2, 1,
+                         tmp + "/rfs", 2, n_estimators=3, random_state=0)
+    sys.modules["tqdm"] = None
+    prepare_shallow2deep_advanced(tmp + "/raw.npy", None, tmp + "/labels.npy", None, (1, 24, 24), (1, 32, 32), 4, 1,
+                                  tmp + "/advanced", 2, forests_per_stage=2, sample_fraction_per_stage=0.5,
+                                  sampling_strategy="worst_tiles", n_estimators=3, random_state=0)
+    for folder, n in (("rfs", 2), ("advanced", 4)):
+        assert sorted(os.listdir(tmp + "/" + folder)) == ["rf_%04d.npz" % i for i in range(n)]
+        assert load_forest(tmp + "/" + folder + "/rf_0000.npz").n_estimators == 3
+    # a classification trainer validated with the macro F1 score
+    from torch_em_tpu_torch import resnet3d_18
+    from torch_em_tpu_torch.classification import default_classification_loader, default_classification_trainer
+    volumes = [np.random.default_rng(i).normal(i % 2, size=(1, 16, 16, 16)).astype("float32") for i in range(4)]
+    cls = default_classification_trainer(
+        "cls", resnet3d_18(1, 2, device="cpu"), default_classification_loader(volumes, np.arange(4) % 2, 2),
+        default_classification_loader(volumes, np.arange(4) % 2, 2), metric=ClassificationMetric("f1_score",
+        average="macro"), logger=None, device="cpu", mixed_precision=False, save_root=tmp)
+    cls.fit(iterations=1)
+    assert 0.0 <= cls.current_metric <= 1.0
     for call, package in ((lambda: prepare_shallow2deep(None, None, None, None, (1, 8, 8), (1, 8, 8), 1, 1, tmp, 2),
-                           "scikit-learn"),
+                           "tqdm"),
                           (lambda: load_forest(tmp + "/rf.pkl"), "scikit-learn"),
                           (lambda: evaluate_enhancers(raw, raw, {{}}, tmp, None), "pandas"),
                           (lambda: debug.check_loader(loader, 1), "matplotlib"),
@@ -267,16 +297,41 @@ def test_chip_smoke_fails_without_card(where, tmp_path):
     assert '"ok"' not in proc.stdout
 
 
-def test_chip_smoke_fanout_fails_without_card():
-    """Without a CUDA device each child process of the smoke run's fan-out exits nonzero at
-    once: the fan-out raises naming every group instead of returning launches."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the fan-out's groups run in full here")
-    code = ("import chip_smoke\n"
+def _run_fanout(late_group=None):
+    """chip_smoke.run_fanout(((8,), (21,))) in a subprocess; the child of ``late_group`` starts 600 s late."""
+    code = ("import subprocess, chip_smoke\n"
+            "popen = subprocess.Popen\n"
+            "def late(args, **kwargs):\n"
+            f"    if args[-1] == {late_group!r}:\n"
+            "        args = ['sh', '-c', 'sleep 600; exec \"$0\" \"$@\"', *args]\n"
+            "    return popen(args, **kwargs)\n"
+            "subprocess.Popen = late\n"
             "try:\n"
-            "    print(chip_smoke.run_fanout(((8,), (21,))))\n"
+            "    print('launches', chip_smoke.run_fanout(((8,), (21,))))\n"
             "except RuntimeError as e:\n"
             "    print(e)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "phases (8,) (exit 2), phases (21,) (exit 2)" in proc.stdout, proc.stdout
+    return proc.stdout
+
+
+def test_chip_smoke_fanout_fails_without_card():
+    """Without a CUDA device each child process of the smoke run's fan-out exits nonzero at
+    once: the fan-out raises naming every group instead of returning launches. The first child
+    to exit stops the other, which may still be starting: each group shows its exit code 2 or
+    that it was stopped, and at least one its exit code."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the fan-out's groups run in full here")
+    out = _run_fanout()
+    groups = re.findall(r"phases \((8|21),\) \((exit 2|stopped)\)", out)
+    assert sorted(g for g, _ in groups) == ["21", "8"], out
+    assert "exit 2" in [e for _, e in groups] and "launches" not in out, out
+
+
+def test_chip_smoke_fanout_names_a_stopped_group():
+    """A group still running when another fails is stopped and named so; the one that failed
+    keeps its exit code."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the fan-out's groups run in full here")
+    out = _run_fanout(late_group="21")
+    assert "phases (8,) (exit 2), phases (21,) (stopped)" in out and "launches" not in out, out

@@ -6,7 +6,10 @@ forest of an item from it. Tolerances:
 
 - the filter bank: bitwise (the same scipy calls);
 - forests fitted by either package (one thread, a fixed ``random_state``):
-  their ``predict_proba`` equal, bitwise, on the same features;
+  the port's ``.npz`` (fitted by ``fit_forest``, no sklearn) equals
+  ``forest_from_sklearn`` of the JAX package's pickle node for node, the
+  thresholds bitwise; the port's pickle (``forest_to_sklearn`` of the same
+  trees) predicts as the JAX package's, bitwise, on the same features;
 - ``Forest.predict_proba`` against sklearn's: atol 1e-12 (float64);
 - dataset items and ``RFWithFilters``: atol 1e-6 (the port's numpy forest
   against sklearn's, float32 outputs).
@@ -17,6 +20,7 @@ Tiny forests (4 trees) on 32-48 pixel patches keep this under a few seconds.
 import importlib
 import os
 import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -31,8 +35,8 @@ from torch_em_tpu.shallow2deep import transform as jax_transform
 import torch_em_tpu_torch as port
 from torch_em_tpu_torch.utils.test import make_mito_image
 from torch_em_tpu_torch.shallow2deep import (
-    Forest, filters, forest_from_sklearn, load_forest, save_forest, shallow2deep_dataset, shallow2deep_eval,
-    shallow2deep_model, transform,
+    Forest, filters, forest_from_sklearn, load_forest, node_differences, save_forest, shallow2deep_dataset,
+    shallow2deep_eval, shallow2deep_model, transform,
 )
 
 # the packages export the function prepare_shallow2deep under the module's name
@@ -74,7 +78,7 @@ def forests(volume):
     folder, paths = volume
     jax_pkl = _prepare(jax_prepare, folder / "jax_rfs", paths)
     port_pkl = _prepare(port_prepare, folder / "port_rfs", paths)
-    npz = port_prepare.export_forests(str(folder / "port_rfs"))
+    npz = [p[:-len(".pkl")] + ".npz" for p in port_pkl]
     return jax_pkl, port_pkl, npz
 
 
@@ -135,18 +139,26 @@ def test_forest_npz_round_trip(tmp_path):
     assert np.array_equal(forest.predict_proba(x), rf.predict_proba(x))
 
 
-def test_prepare_shallow2deep_matches_jax(forests):
+def test_prepare_shallow2deep_matches_jax(forests, tmp_path):
     jax_pkl, port_pkl, npz = forests
     assert [os.path.basename(p) for p in port_pkl] == [os.path.basename(p) for p in jax_pkl] == \
         ["rf_0000.pkl", "rf_0001.pkl"]
+    assert all(os.path.isfile(p) for p in npz)
     x = np.random.default_rng(4).normal(0.5, 0.3, (1500, 4)).astype(np.float32)
     for jp, pp, zp in zip(jax_pkl, port_pkl, npz):
         jax_rf, port_rf = _sklearn(jp), _sklearn(pp)
+        assert node_differences(load_forest(zp), forest_from_sklearn(jax_rf)) == []
+        assert node_differences(forest_from_sklearn(port_rf), forest_from_sklearn(jax_rf)) == []
         assert type(port_rf) is type(jax_rf) and port_rf.feature_ndim == jax_rf.feature_ndim == 2
         assert port_rf.feature_config == jax_rf.feature_config
         assert np.array_equal(port_rf.predict_proba(x), jax_rf.predict_proba(x))
         np.testing.assert_allclose(load_forest(zp).predict_proba(x), jax_rf.predict_proba(x), rtol=0,
                                    atol=SKLEARN_ATOL)
+    # export_forests writes the .npz of a folder of pickles: the same arrays
+    for p in port_pkl:
+        shutil.copy(p, tmp_path)
+    for exported, zp in zip(port_prepare.export_forests(str(tmp_path)), npz):
+        assert node_differences(load_forest(exported), load_forest(zp)) == []
 
 
 @pytest.mark.parametrize("strategy", ["worst_points", "worst_tiles"])
@@ -162,11 +174,15 @@ def test_prepare_advanced_matches_jax(volume, strategy, tmp_path):
     port_prepare.prepare_shallow2deep_advanced(paths[0], None, paths[1], None, output_folder=str(tmp_path / "port"),
                                                label_transform=transform.ForegroundTransform(ndim=2), **kwargs)
     x = np.random.default_rng(6).normal(0.5, 0.3, (1000, 4)).astype(np.float32)
-    names = sorted(os.listdir(tmp_path / "port"))
-    assert names == sorted(os.listdir(tmp_path / "jax")) and len(names) == 4
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert len(names) == 4 and sorted(os.listdir(tmp_path / "port")) == sorted(
+        names + [n.replace(".pkl", ".npz") for n in names])
     for name in names:
         jax_rf, port_rf = _sklearn(tmp_path / "jax" / name), _sklearn(tmp_path / "port" / name)
+        forest = load_forest(str(tmp_path / "port" / name.replace(".pkl", ".npz")))
+        assert node_differences(forest, forest_from_sklearn(jax_rf)) == []
         assert np.array_equal(port_rf.train_labels, jax_rf.train_labels)
+        assert np.array_equal(port_rf.train_features, jax_rf.train_features)
         assert np.array_equal(port_rf.predict_proba(x), jax_rf.predict_proba(x))
 
 

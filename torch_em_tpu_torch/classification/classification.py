@@ -1,8 +1,8 @@
 """Classification factories, counterpart of ``torch_em_tpu/classification/classification.py``.
 
-The card's machine has no sklearn: the default metric, the accuracy, is
-computed in numpy; another metric name imports ``sklearn.metrics`` when the
-metric is built.
+The card's machine has no sklearn: ``ClassificationMetric`` computes the
+``sklearn.metrics`` scores of two label vectors in numpy (``scores.py``);
+another metric name imports ``sklearn.metrics`` when the metric is built.
 """
 
 from functools import partial
@@ -18,6 +18,7 @@ from ..transforms.raw import standardize
 from .classification_dataset import ClassificationDataset
 from .classification_logger import ClassificationLogger
 from .classification_trainer import ClassificationTrainer
+from .scores import SCORES, accuracy_score
 
 __all__ = ["ClassificationMetric", "CrossEntropyLoss", "accuracy_score", "default_classification_loader",
            "default_classification_trainer"]
@@ -34,26 +35,22 @@ class CrossEntropyLoss:
         return -log_probs.gather(-1, target.long()[:, None]).mean()
 
 
-def accuracy_score(y_true, y_pred, normalize: bool = True, sample_weight=None) -> float:
-    """``sklearn.metrics.accuracy_score`` of label vectors, in numpy: the (weighted) share of
-    equal labels, or with ``normalize=False`` their (weighted) count."""
-    correct = (np.asarray(y_true) == np.asarray(y_pred)).astype("float64")
-    weights = np.ones_like(correct) if sample_weight is None else np.asarray(sample_weight, dtype="float64")
-    total = float((correct * weights).sum())
-    return total / float(weights.sum()) if normalize else total
-
-
 class ClassificationMetric:
     """1 - ``metric_name`` (lower is better) of the argmax predictions against the labels, on
-    the host; ``"accuracy_score"`` in numpy, any other name from ``sklearn.metrics``."""
+    the host: the scores of ``scores.SCORES`` (sklearn's of two label vectors, with their keyword
+    arguments) in numpy, any other name from ``sklearn.metrics``."""
 
     host_metric = True
 
     def __init__(self, metric_name: str = "accuracy_score", **metric_kwargs):
-        if metric_name == "accuracy_score":
-            self.metric = accuracy_score
+        if metric_name in SCORES:
+            self.metric = SCORES[metric_name]
         else:
-            import sklearn.metrics as metrics
+            try:
+                import sklearn.metrics as metrics
+            except ImportError as e:
+                raise ImportError(f"the classification metric {metric_name} needs scikit-learn (sklearn), which is "
+                                  "not installed") from e
 
             if not hasattr(metrics, metric_name):
                 raise ValueError(f"Invalid metric_name {metric_name}.")

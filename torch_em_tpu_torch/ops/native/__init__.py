@@ -1,5 +1,5 @@
 """ctypes bindings for the native (C++) host ops: watershed, mutex watershed,
-connected components, and HDBSCAN.
+connected components, HDBSCAN and random forests.
 
 The port's own copy of the JAX package's ``ops/native``. ``tem_native.cpp``
 beside this file is built with ``g++ -O3 -std=c++17 -fPIC -shared`` at first
@@ -10,6 +10,8 @@ answers whether the library builds and loads here; no path of the port asks it
 to choose another implementation. ``hdbscan.cpp`` is a library of its own,
 ``_build/tem_hdbscan-<hash>/``, built the same way with ``-pthread`` and
 ``-ffp-contract=off`` (no fused multiply-add may change a distance's rounding).
+``forest.cpp`` (the trees of ``shallow2deep.forest.fit_forest``) is another,
+``_build/tem_forest-<hash>/``, built with the same flags.
 """
 
 import ctypes
@@ -23,10 +25,11 @@ import numpy as np
 from .._build import compile_library
 
 __all__ = ["watershed", "mutex_watershed", "connected_components_labels", "hdbscan", "hdbscan_mst",
-           "hdbscan_labels", "load_library", "load_hdbscan_library", "is_available"]
+           "hdbscan_labels", "load_library", "load_hdbscan_library", "load_forest_library", "is_available"]
 
 SOURCE = Path(__file__).resolve().parent / "tem_native.cpp"
 HDBSCAN_SOURCE = Path(__file__).resolve().parent / "hdbscan.cpp"
+FOREST_SOURCE = Path(__file__).resolve().parent / "forest.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 HDBSCAN_FLAGS = GXX_FLAGS + ("-pthread", "-ffp-contract=off")
 MAX_NDIM = 8  # the C++ side keeps per-axis strides in arrays of 8
@@ -62,6 +65,23 @@ def load_hdbscan_library() -> ctypes.CDLL:
     lib.tem_hdbscan_labels.argtypes = [i64, i64, f64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, i64]
     for fn in (lib.tem_hdbscan_mst, lib.tem_hdbscan_labels):
         fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_forest_library() -> ctypes.CDLL:
+    """Build ``forest.cpp`` (once per content hash) and load it with its signatures."""
+    lib = ctypes.CDLL(str(compile_library("tem_forest", _find_gxx, HDBSCAN_FLAGS, [FOREST_SOURCE])))
+    f32, f64, i32, i64 = (ctypes.POINTER(t) for t in (ctypes.c_float, ctypes.c_double, ctypes.c_int32, ctypes.c_int64))
+    lib.tem_forest_fit.argtypes = [f32, i32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i32,
+                                   ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_int]
+    lib.tem_forest_fit.restype = ctypes.c_void_p
+    lib.tem_forest_sizes.argtypes = [ctypes.c_void_p, i64]
+    lib.tem_forest_copy.argtypes = [ctypes.c_void_p, ctypes.c_int64, i64, f64, i64, i64, f64, f64, i64, f64]
+    lib.tem_forest_free.argtypes = [ctypes.c_void_p]
+    for fn in (lib.tem_forest_sizes, lib.tem_forest_copy, lib.tem_forest_free):
+        fn.restype = None
     return lib
 
 

@@ -9,13 +9,17 @@ of ``prepare_shallow2deep_advanced`` with the sampling strategies
 ``random_points``, ``worst_tiles`` and ``balanced_dense_accumulate``.
 
 Patches, label balancing and sampling draw from the global ``np.random`` as
-the JAX package does, and the forests are scikit-learn
-``RandomForestClassifier`` objects pickled as ``rf_XXXX.pkl`` with their
-``feature_ndim`` and ``feature_config``, so the files of the two packages and
-of torch-em are interchangeable. sklearn and tqdm are imported inside the
-functions that fit, which raise an ``ImportError`` naming the package where
-it is missing. ``export_forests`` writes an ``.npz`` file (``forest.py``)
-beside each pickle, which the port reads where sklearn is missing.
+the JAX package does, and the forests are fitted by ``forest.fit_forest``,
+which gives scikit-learn's ``RandomForestClassifier`` trees node for node
+without sklearn: with one thread and the same seed, the forests equal the JAX
+package's. Each forest is written as ``rf_XXXX.npz`` (``forest.save_forest``)
+and, where sklearn can be imported, also pickled as the ``RandomForestClassifier``
+of the same trees (``forest.forest_to_sklearn``) as ``rf_XXXX.pkl`` with its
+``feature_ndim`` and ``feature_config``, so the folders of the two packages and
+of torch-em are interchangeable. ``prepare_shallow2deep`` shows its progress
+with tqdm, imported when it is called (an ``ImportError`` names it where it is
+missing). ``export_forests`` writes an ``.npz`` file beside each pickle of a
+folder fitted elsewhere.
 """
 
 import os
@@ -29,21 +33,12 @@ import numpy as np
 from ..data import ConcatDataset, ImageCollectionDataset, SegmentationDataset
 from ..segmentation import check_paths, is_segmentation_dataset, samples_to_datasets
 from . import filters as filter_impl
-from .forest import forest_paths, load_forest, save_forest
+from .forest import fit_forest, forest_paths, forest_to_sklearn, load_forest, save_forest
 
 __all__ = [
     "prepare_shallow2deep", "prepare_shallow2deep_advanced", "worst_points", "uncertain_points",
     "uncertain_worst_points", "random_points", "worst_tiles", "balanced_dense_accumulate", "export_forests",
 ]
-
-
-def _random_forest_classifier():
-    try:
-        from sklearn.ensemble import RandomForestClassifier
-    except ImportError as e:
-        raise ImportError("fitting the Shallow2Deep forests needs scikit-learn (sklearn), which is not "
-                          "installed") from e
-    return RandomForestClassifier
 
 
 def _tqdm():
@@ -246,12 +241,23 @@ def _get_raw_and_labels(ds, index, ndim):
     return raw, labels
 
 
-def _fit_forest(random_forest, features, labels, ndim, feature_config, rf_kwargs):
-    rf = random_forest(**rf_kwargs)
-    rf.fit(features, labels)
-    rf.feature_ndim = ndim
-    rf.feature_config = feature_config
-    return rf
+def _fit_forest(features, labels, ndim, feature_config, rf_kwargs):
+    forest = fit_forest(features, labels, **rf_kwargs)
+    forest.feature_ndim = ndim
+    forest.feature_config = feature_config
+    return forest
+
+
+def _write_forest(forest, output_folder, rf_id):
+    """``rf_XXXX.npz``, and the sklearn pickle ``rf_XXXX.pkl`` of the same trees where sklearn is installed."""
+    path = os.path.join(output_folder, f"rf_{rf_id:04d}")
+    save_forest(forest, path + ".npz")
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        return
+    with open(path + ".pkl", "wb") as f:
+        pickle.dump(forest_to_sklearn(forest), f)
 
 
 def prepare_shallow2deep(
@@ -262,9 +268,10 @@ def prepare_shallow2deep(
     rois=None, is_seg_dataset: Optional[bool] = None, balance_labels: bool = True,
     filter_config: Optional[Dict] = None, sampler: Optional[Callable] = None, **rf_kwargs,
 ) -> None:
-    """Fit ``n_forests`` random forests, each on the filter-bank features of one random patch,
-    with ``n_threads`` threads, and pickle them as ``output_folder/rf_XXXX.pkl``."""
-    random_forest, tqdm = _random_forest_classifier(), _tqdm()
+    """Fit ``n_forests`` random forests (``fit_forest`` with ``rf_kwargs``), each on the filter-bank
+    features of one random patch, with ``n_threads`` threads, and write them as
+    ``output_folder/rf_XXXX.npz`` (and ``.pkl`` where sklearn is installed)."""
+    tqdm = _tqdm()
     os.makedirs(output_folder, exist_ok=True)
     ds, filters_and_sigmas = _prepare_shallow2deep(
         raw_paths, raw_key, label_paths, label_key, patch_shape_min, patch_shape_max,
@@ -275,9 +282,8 @@ def prepare_shallow2deep(
     def _train_rf(rf_id):
         raw, labels = _get_raw_and_labels(ds, rf_id, ndim)
         features, labels_flat = _get_features_and_labels(raw, labels, filters_and_sigmas, balance_labels)
-        rf = _fit_forest(random_forest, features, labels_flat, ndim, serialized_feature_config, rf_kwargs)
-        with open(os.path.join(output_folder, f"rf_{rf_id:04d}.pkl"), "wb") as f:
-            pickle.dump(rf, f)
+        _write_forest(_fit_forest(features, labels_flat, ndim, serialized_feature_config, rf_kwargs), output_folder,
+                      rf_id)
 
     with futures.ThreadPoolExecutor(n_threads) as tp:
         list(tqdm(tp.map(_train_rf, range(n_forests)), desc="Train RFs", total=n_forests))
@@ -405,8 +411,9 @@ def prepare_shallow2deep_advanced(
     filter_config: Optional[Dict] = None, sampler: Optional[Callable] = None, **rf_kwargs,
 ) -> None:
     """Fit the forests stage by stage: the first stage on balanced patches, each later one on the
-    samples that ``sampling_strategy`` picks by the previous stage's forests."""
-    random_forest = _random_forest_classifier()
+    samples that ``sampling_strategy`` picks by the previous stage's forests. Each forest keeps its
+    ``train_features`` and ``train_labels``, which the strategies read, and is written as
+    ``output_folder/rf_XXXX.npz`` (and ``.pkl`` with them where sklearn is installed)."""
     os.makedirs(output_folder, exist_ok=True)
     ds, filters_and_sigmas = _prepare_shallow2deep(
         raw_paths, raw_key, label_paths, label_key, patch_shape_min, patch_shape_max,
@@ -426,11 +433,10 @@ def prepare_shallow2deep_advanced(
             if stage > 0:
                 features, labels_flat = strategy(features, labels_flat, rf_id, forests, forests_per_stage,
                                                  sample_fraction_per_stage, **sampling_kwargs)
-            rf = _fit_forest(random_forest, features, labels_flat, ndim, serialized_feature_config, rf_kwargs)
+            rf = _fit_forest(features, labels_flat, ndim, serialized_feature_config, rf_kwargs)
             rf.train_features = features
             rf.train_labels = labels_flat
-            with open(os.path.join(output_folder, f"rf_{rf_id:04d}.pkl"), "wb") as f:
-                pickle.dump(rf, f)
+            _write_forest(rf, output_folder, rf_id)
             stage_forests.append(rf)
             rf_id += 1
         forests.extend(stage_forests)
