@@ -281,11 +281,26 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    edges as the recorded one or the case is free of the order of equal weights; then
    ``HDBScanRandMetric`` on (b)'s SPOCO embeddings of two DSB crops of 128x128 (16384 points of 8
    dimensions each), its seconds, and the labels on one thread equal to those on torch's.
+25. the dataset zoo's conversions with no pydicom, nibabel, imageio, pycocotools, geopandas, rasterio or
+   shapely (blocked for the phase): (a) 3D-IRCADb's archive of DICOM files, one a slice, two train
+   patients and one val patient of 96 slices of 512x512 int16 CT (BitsStored 12) with a uint8 liver
+   mask series, in explicit VR little endian (its masks deflated), implicit VR little endian and RLE
+   Lossless, written from a seed; ``get_ircadb_loader`` unpacks and converts them to gzip h5 (each
+   held equal to the series written), and phase 19b's UNet3d with one output (bf16) trains 4 steps and
+   2 more after ``from_checkpoint`` on (64, 128, 128) patches in the h5's (Z, Y, X) order; the
+   conversion's seconds a volume, an RLE slice's read time and the loader's patches/s beside the bare
+   step; (b) PUMA's layout, four 1024x1024 RGBA ROI TIFFs with a GeoJSON of 300 seeded nuclei each
+   (some with a hole, some MultiPolygons), rasterized on first use, the instance and semantic masks
+   held against a brute-force pixel-centre even-odd reference, and UNet2d at DSB width (phase 19a's
+   batch and patch) trained 4 + 2 steps; (c) OrgLine's COCO conversion (compressed-RLE ellipses and
+   polygon rectangles), UroCell's NIfTI volumes, ``write_data``'s PNG and TIFF round trips (multi-page
+   stacks), a Parhyale hyperstack, and HEST's CellViT GeoJSON and Xenium WKB nuclei at 0.5 and 0.25
+   um/px, each held against what was written.
 
 Phases 1 to 7, 22, 23 and 15 run one after another in this process, alone on the card: the
 kernels' times of the last lines come from phases 3 and 5, phases 22's and 23's loader rates
 are compared with phase 7's, and phase 15's two ranks need 50 GiB of the card. The other phases
-of 8 to 21, and phase 24, then run at the same time in ``FANOUT`` groups, each
+of 8 to 21, and phases 24 and 25, then run at the same time in ``FANOUT`` groups, each
 group one child process (``chip_smoke.py --phases 12,14``) that runs its phases in order on the
 same card, with a share of the host's cores; the child's lines, on a clock that starts with this
 process, are printed when all groups have ended, and a failed group stops the others. Times
@@ -316,7 +331,8 @@ test tail (batch 2) and at phase 19's steps, and phase 5 times them per step
 there: UNet2d f=64 at batch 8 of 512x512 from 3 input channels (rows 8 x 3 to
 8 x 1024, 262144 down to 4096 elements) and UNet3d f=32 at batch 2 of (128,
 128, 64) with isotropic pooling (rows 2 x 1 to 2 x 512, 1048576 down to 2048
-elements); and at phase 20's DSB probe, UNet2d f=16 at batch 4 of 128x128 (rows
+elements), and phase 25a's UNet3d at batch 2 of (64, 128, 128) (the same rows;
+25b takes 19a's); and at phase 20's DSB probe, UNet2d f=16 at batch 4 of 128x128 (rows
 4 x 1 to 4 x 256, 16384 down to 64 elements), which the SPOCO probe (20d) shares,
 and at phase 20e's SNEMI probe, AnisotropicUNet f=8 with [[1, 2, 2], [2, 2, 2]] at
 batch 1 of 8x64x64 (rows 1 x 1 to 1 x 32, 32768 down to 1024 elements), where phase 5
@@ -648,11 +664,27 @@ LOG_BLOCKED = ("tensorboardX", "tensorboard", "sklearn", "matplotlib")
 HDBSCAN_CROP, HDBSCAN_CROPS, HDBSCAN_METRIC = (128, 128), 2, dict(min_size=50, eps=0.2)
 # the loader rates of one run, for phase 22's comparison with phase 7's .npy loader
 LOADER_RATES = {}
-# phases 8 to 21 but 15, and 24, run at the same time in these groups of one child process each, about equal in
+# the zoo's conversions with no optional package (phase 25), with pydicom, nibabel, imageio, pycocotools, geopandas,
+# rasterio and shapely blocked: 25a 3D-IRCADb's layout, one DICOM file a slice, CONV_IRCADB_PATIENTS (train, val)
+# patients of CONV_CT_SHAPE int16 CT (BitsStored 12) with a uint8 liver mask series, in explicit VR LE (masks
+# deflated), implicit VR LE and RLE Lossless, converted by get_ircadb_loader and trained into phase 19b's UNet3d with
+# one output (bf16) on CONV_IRCADB_PATCH in the h5's (Z, Y, X) order; 25b PUMA's layout, CONV_PUMA_ROIS 1024x1024
+# RGBA TIFFs with CONV_PUMA_NUCLEI GeoJSON nuclei each, rasterized on first use, into UNet2d at DSB width (phase 19a's
+# model, batch and patch); each CONV_FIT steps and CONV_RESUME more after from_checkpoint. 25c: OrgLine's COCO
+# masks (CONV_ORGLINE_IMAGES stomach and breast images of CONV_ORGLINE_SHAPE), UroCell's NIfTI volumes
+# (CONV_URO_SHAPE), write_data's images, Parhyale's hyperstack (50 time points of CONV_PARHYALE_STACK) and HEST's
+# CellViT and Xenium nuclei (CONV_HEST_NUCLEI a slide of 2x2 patches), each held against what was written
+CONV_BLOCKED = ("pydicom", "nibabel", "imageio", "pycocotools", "geopandas", "rasterio", "shapely")
+CONV_CT_SHAPE, CONV_IRCADB_PATIENTS, CONV_IRCADB_PATCH = (96, 512, 512), (2, 1), (64, 128, 128)
+CONV_PUMA_ROIS, CONV_PUMA_NUCLEI = 4, 300
+CONV_FIT, CONV_RESUME = 4, 2
+CONV_ORGLINE_IMAGES, CONV_ORGLINE_SHAPE = (4, 2), (192, 256)
+CONV_URO_SHAPE, CONV_PARHYALE_STACK, CONV_HEST_NUCLEI = (48, 96, 80), (3, 64, 64), 150
+# phases 8 to 21 but 15, 24 and 25 run at the same time in these groups of one child process each, about equal in
 # length (phase 12 with 14: they train on the same images, and their card memory peaks near 32 and 28 GiB; phase 15,
 # whose two ranks hold 25 GiB each, runs alone before them); a group ends within FANOUT_DEADLINE s of the start of
 # the run or is stopped
-FANOUT = ((12, 14), (8, 16, 19, 21), (9, 10, 11, 13), (17, 18, 20, 24))
+FANOUT = ((12, 14), (8, 16, 19, 21), (9, 10, 11, 13, 25), (17, 18, 20, 24))
 FANOUT_DEADLINE = 1100
 
 # device kernels of the profiler breakdowns: the port's norms, cuDNN's convs
@@ -5430,6 +5462,276 @@ def phase_logs_hdbscan(port, inorm, device_ops):
     return launches
 
 
+def phase_zoo_conversions(port, inorm):
+    """The zoo's conversions with no optional package (25a-c in the module docstring), with pydicom, nibabel, imageio,
+    pycocotools, geopandas, rasterio and shapely blocked; returns the kernels' launches of its two training runs."""
+    import importlib.util
+    import zipfile
+
+    from torch_em_tpu_torch.data.datasets import (get_hest_data, get_ircadb_loader, get_ircadb_paths,
+                                                  get_parhyale_regen_paths, get_puma_loader, get_puma_paths,
+                                                  get_uro_cell_paths)
+    from torch_em_tpu_torch.data.datasets.histopathology import hest as hest_module
+    from torch_em_tpu_torch.data.datasets.light_microscopy import orgline
+    from torch_em_tpu_torch.transforms import BoundaryTransform
+    from torch_em_tpu_torch.transforms.label import labels_to_binary
+    from torch_em_tpu_torch.utils import dicom, hdf5, io, medical_io
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import torch_conversion_layouts as layouts
+
+    installed = [name for name in CONV_BLOCKED if importlib.util.find_spec(name) is not None]
+    blocked = [name for name in CONV_BLOCKED if name not in sys.modules]
+    for name in blocked:
+        sys.modules[name] = None  # an import of it raises
+    t_phase = time.perf_counter()
+    stats = {}
+    launches = [0, 0]
+    try:
+        log(f"25: installed here of {', '.join(CONV_BLOCKED)}: {installed or 'none'}; blocked for the phase: {blocked}")
+        with tempfile.TemporaryDirectory() as tmp:
+            # 25a: 3D-IRCADb's DICOM series, converted by get_ircadb_loader, into UNet3d
+            t = time.perf_counter()
+            roots = {split: os.path.join(tmp, "ircadb", split) for split in ("train", "val")}
+            names = [f"3Dircadb1.{k + 1}" for k in range(sum(CONV_IRCADB_PATIENTS))]
+            syntaxes = [(dicom.EXPLICIT_VR_LITTLE_ENDIAN, dicom.DEFLATED_EXPLICIT_VR_LITTLE_ENDIAN),
+                        (dicom.IMPLICIT_VR_LITTLE_ENDIAN, dicom.IMPLICIT_VR_LITTLE_ENDIAN),
+                        (dicom.RLE_LOSSLESS, dicom.RLE_LOSSLESS)]
+            n_train = CONV_IRCADB_PATIENTS[0]
+            written = {"train": layouts.ircadb_layout(roots["train"], names[:n_train], syntaxes[:n_train], 0,
+                                                      CONV_CT_SHAPE),
+                       "val": layouts.ircadb_layout(roots["val"], names[n_train:], syntaxes[n_train:], 1,
+                                                    CONV_CT_SHAPE)}
+            stats["a_write_s"] = time.perf_counter() - t
+            sizes = {split: os.path.getsize(os.path.join(root, "ircadb.zip")) for split, root in roots.items()}
+            log(f"25a data: {sum(CONV_IRCADB_PATIENTS)} patients of {CONV_CT_SHAPE} int16 CT (BitsStored 12) and uint8 "
+                f"liver masks, one DICOM file a slice ({2 * sum(CONV_IRCADB_PATIENTS) * CONV_CT_SHAPE[0]} files, "
+                f"{sum(sizes.values()) / 2 ** 20:.1f} MiB in two archives), in {stats['a_write_s']:.2f} s; syntaxes "
+                f"(CT, mask) {syntaxes}")
+            t = time.perf_counter()
+            paths = {split: get_ircadb_paths(root) for split, root in roots.items()}
+            stats["a_convert_s_per_volume"] = (time.perf_counter() - t) / sum(CONV_IRCADB_PATIENTS)
+            for split, patients in written.items():
+                sample = os.path.join(roots[split], "Dataset", patients[0][0], "PATIENT_DICOM", "image_0")
+                ds = dicom.dcmread(sample)
+                header = (ds.Rows, ds.Columns, ds.BitsAllocated, ds.BitsStored, ds.PixelRepresentation)
+                if header != (512, 512, 16, 12, 1):
+                    raise AssertionError(f"25a: {sample} reads as {ds.Rows}x{ds.Columns}, {ds.BitsAllocated} bits")
+                for (name, raw, mask), path in zip(patients, paths[split]):
+                    with hdf5.File(path, "r") as f:
+                        got_raw, got_mask = f["raw"][:], f["labels/liver"][:]
+                    if os.path.basename(path) != f"{name}.h5" or got_raw.dtype != np.int16 or \
+                            got_mask.dtype != np.uint8 or not np.array_equal(got_raw, raw) or \
+                            not np.array_equal(got_mask, mask):
+                        raise AssertionError(f"25a: the converted {path} is not the series written")
+            # the RLE decode alone, on the val patient's CT series (its files are left unpacked by the reader)
+            rle_dir = os.path.join(roots["val"], "Dataset", names[-1], "PATIENT_DICOM")
+            t = time.perf_counter()
+            for k in range(CONV_CT_SHAPE[0]):
+                dicom.dcmread(os.path.join(rle_dir, f"image_{k}")).pixel_array
+            stats["a_rle_read_ms_per_slice"] = (time.perf_counter() - t) / CONV_CT_SHAPE[0] * 1e3
+            log(f"25a: get_ircadb_paths unpacked and converted {sum(CONV_IRCADB_PATIENTS)} patients in "
+                f"{stats['a_convert_s_per_volume']:.2f} s a volume (CT and mask series to gzip h5); each h5 equals the "
+                f"series written; an RLE Lossless slice reads in {stats['a_rle_read_ms_per_slice']:.2f} ms")
+            del written
+
+            def ircadb_loader(split, shuffle, n_samples):
+                return get_ircadb_loader(roots[split], CONV_IRCADB_PATCH, MED_BATCH, organ="liver",
+                                         label_transform=labels_to_binary, num_workers=LOADER_THREADS,
+                                         shuffle=shuffle, n_samples=n_samples)
+
+            train, val = ircadb_loader("train", True, MED_BATCH * CONV_FIT), ircadb_loader("val", False, MED_BATCH)
+            np.random.seed(9)
+            model = port.UNet3d(**dict(MED_MODEL, out_channels=1), depth=MED_DEPTH, device="cuda", seed=0)
+            trainer = port.default_segmentation_trainer(
+                "conv-ircadb", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+                logger=LossLog, save_root=tmp)
+            t = time.perf_counter()
+            resumed, fit_launches = fit_and_resume(port, inorm, trainer, CONV_FIT, CONV_RESUME, len(val),
+                                                   "25a IRCADb UNet3d", falling=False)
+            stats["a_fit_s"] = time.perf_counter() - t
+            launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+            timed = MED_BATCH * (LOADER_THREADS + LM_LOADER_STEPS)
+            stats["a_loader_thread_patches_per_s"] = loader_rate(resumed, ircadb_loader("train", True, timed),
+                                                                 steps=LM_LOADER_STEPS, warmup=LOADER_THREADS)
+            x, y = bare_step(resumed, ircadb_loader("train", False, MED_BATCH), "25a UNet3d f=32 CT")
+            stats["a_step_ms"] = time_ms(resumed._train_step, x, y, iters=10, repeats=1)
+            log(f"25a loader, {LOADER_THREADS} thread workers over the gzip h5 volumes, feeding steps: "
+                f"{stats['a_loader_thread_patches_per_s']:.2f} patches/s; the bare step {stats['a_step_ms']:.2f} ms, "
+                f"{MED_BATCH * 1e3 / stats['a_step_ms']:.2f} patches/s; {nvidia_smi()}")
+            del trainer, resumed, model, train, val, x, y
+            torch.cuda.empty_cache()
+
+            # 25b: PUMA's GeoJSON nuclei, rasterized on first use, into UNet2d at DSB width
+            puma_root = os.path.join(tmp, "puma")
+            t = time.perf_counter()
+            rois = layouts.puma_layout(puma_root, CONV_PUMA_ROIS, CONV_PUMA_NUCLEI)
+            stats["b_write_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            puma_paths = get_puma_paths(puma_root, "train", "nuclei")
+            stats["b_convert_s_per_roi"] = (time.perf_counter() - t) / len(rois)
+            if sorted(os.path.basename(p) for p in puma_paths) != sorted(f"{n}.h5" for n in rois):
+                raise AssertionError(f"25b: converted {puma_paths}")
+            t = time.perf_counter()
+            for path in puma_paths:
+                rgb, nuclei, classes = rois[os.path.basename(path)[:-3]]
+                instances, semantic = layouts.puma_reference(nuclei, classes)
+                with hdf5.File(path, "r") as f:
+                    got = f["raw"][:], f["labels/instances/nuclei"][:], f["labels/semantic/nuclei"][:]
+                if not np.array_equal(got[0], rgb.transpose(2, 0, 1)):
+                    raise AssertionError(f"25b: the raw of {path} is not the ROI written")
+                for label, g, e in (("instance", got[1], instances), ("semantic", got[2], semantic)):
+                    if g.dtype != e.dtype or not np.array_equal(g, e):
+                        raise AssertionError(f"25b: the {label} mask of {path} differs from the brute-force pixel-"
+                                             f"centre reference at {int((g != e).sum())} pixels")
+                if len(np.unique(got[1])) - 1 != len(nuclei):
+                    raise AssertionError(f"25b: {len(np.unique(got[1])) - 1} instances of {len(nuclei)} nuclei")
+            stats["b_reference_s"] = time.perf_counter() - t
+            n_parts = sum(len(parts) > 1 for _, nuclei, _ in rois.values() for parts in nuclei)
+            n_holes = sum(len(parts[0]) > 1 for _, nuclei, _ in rois.values() for parts in nuclei)
+            log(f"25b: {len(rois)} PUMA ROIs of 1024x1024 with {CONV_PUMA_NUCLEI} GeoJSON nuclei each ({n_holes} "
+                f"with a hole, {n_parts} MultiPolygons in all) written in {stats['b_write_s']:.2f} s, converted in "
+                f"{stats['b_convert_s_per_roi']:.2f} s a ROI; instance and semantic masks equal to the brute-force "
+                f"pixel-centre even-odd reference ({stats['b_reference_s']:.2f} s)")
+
+            def puma_loader(shuffle, n_samples):
+                return get_puma_loader(puma_root, DSB_BATCH, HP_PATCH, "train", annotations="nuclei",
+                                       label_transform=BoundaryTransform(add_binary_target=True),
+                                       num_workers=LOADER_THREADS, shuffle=shuffle, n_samples=n_samples)
+
+            train, val = puma_loader(True, DSB_BATCH * CONV_FIT), puma_loader(False, DSB_BATCH)
+            np.random.seed(10)
+            model = port.UNet2d(**HP_MODEL, depth=DSB_DEPTH, device="cuda", seed=0)
+            trainer = port.default_segmentation_trainer(
+                "conv-puma", model, train, val, learning_rate=LEARNING_RATE, device="cuda", mixed_precision=True,
+                logger=LossLog, save_root=tmp)
+            t = time.perf_counter()
+            resumed, fit_launches = fit_and_resume(port, inorm, trainer, CONV_FIT, CONV_RESUME, len(val),
+                                                   "25b PUMA UNet2d", falling=False)
+            stats["b_fit_s"] = time.perf_counter() - t
+            launches = [launches[0] + fit_launches[0], launches[1] + fit_launches[1]]
+            del trainer, resumed, model, train, val
+            torch.cuda.empty_cache()
+
+            # 25c: the other conversions, each held against what was written
+            t = time.perf_counter()
+            org_root = os.path.join(tmp, "orgline", "data2")
+            organs = layouts.orgline_layout(org_root, CONV_ORGLINE_IMAGES, CONV_ORGLINE_SHAPE)
+            orgline._prepare_data(org_root, "stomach")
+            n_annotations = 0
+            for organ, images in organs.items():
+                converted = {os.path.basename(p)[:-3]: p
+                             for p in glob.glob(os.path.join(org_root, organ, "*", "*.h5"))}
+                if sorted(converted) != sorted(images):
+                    raise AssertionError(f"25c OrgLine: {organ} converted {sorted(converted)}")
+                for name, (image, expected) in images.items():
+                    with hdf5.File(converted[name], "r") as f:
+                        got_image, got_masks = f["image"][:], f["masks"][:]
+                    if not np.array_equal(got_image, image) or got_masks.dtype != np.uint16 or \
+                            not np.array_equal(got_masks, expected):
+                        raise AssertionError(f"25c OrgLine: {converted[name]} differs from the organoids written")
+                    n_annotations += int(expected.max())
+            stats["c_orgline_s"] = time.perf_counter() - t
+            log(f"25c OrgLine: {sum(map(len, organs.values()))} stomach and breast images, {n_annotations} organoids "
+                f"as compressed RLE and polygons, converted by the reader's COCO path to the masks written "
+                f"({stats['c_orgline_s']:.2f} s)")
+
+            t = time.perf_counter()
+            uro_root = os.path.join(tmp, "urocell")
+            os.makedirs(uro_root)
+            rng = np.random.default_rng(3)
+            volumes = {}
+            with zipfile.ZipFile(os.path.join(uro_root, "uro_cell.zip"), "w") as zf:
+                for name in ("fib1-0-0-0.nii.gz", "fib1-1-0-3.nii.gz"):
+                    raw = rng.integers(0, 256, CONV_URO_SHAPE, dtype=np.uint8)
+                    mito = rng.integers(0, 9, CONV_URO_SHAPE).astype(np.uint16)
+                    for sub, array in (("data", raw), ("mito/instance", mito)):
+                        medical_io.save_nifti(os.path.join(tmp, name), array)
+                        zf.write(os.path.join(tmp, name), f"UroCell-master/{sub}/{name}")
+                    volumes[name.replace("nii.gz", "h5")] = (raw, mito)
+            uro_paths = get_uro_cell_paths(uro_root, "mito")
+            for path in uro_paths:
+                raw, mito = volumes[os.path.basename(path)]
+                with hdf5.File(path, "r") as f:
+                    got_raw, got_mito = f["raw"][:], f["labels/mito"][:]
+                if got_raw.dtype != np.float64 or not np.array_equal(got_raw, raw.astype(np.float64)) or \
+                        got_mito.dtype != np.uint32 or not np.array_equal(got_mito, mito.astype(np.uint32)):
+                    raise AssertionError(f"25c UroCell: {path} is not the NIfTI volumes written")
+            if len(uro_paths) != len(volumes):
+                raise AssertionError(f"25c UroCell: {uro_paths}")
+            stats["c_urocell_s"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            rng = np.random.default_rng(4)
+            images = {"u8.png": rng.integers(0, 256, (96, 80), dtype=np.uint8),
+                      "u16.png": rng.integers(0, 2 ** 16, (96, 80), dtype=np.uint16),
+                      "rgb.png": rng.integers(0, 256, (96, 80, 3), dtype=np.uint8),
+                      "rgba.tif": rng.integers(0, 256, (96, 80, 4), dtype=np.uint8),
+                      "i32.tif": rng.integers(-2 ** 31, 2 ** 31, (96, 80), dtype=np.int32),
+                      "f32.tif": rng.standard_normal((96, 80), dtype=np.float32),
+                      "stack_u16.tif": rng.integers(0, 2 ** 16, (12, 96, 80), dtype=np.uint16),
+                      "stack_f32.tif": rng.standard_normal((5, 96, 80), dtype=np.float32)}
+            for name, array in images.items():
+                io.write_data(os.path.join(tmp, name), None, array)
+                got = io.load_image(os.path.join(tmp, name))
+                if got.dtype != array.dtype or not np.array_equal(got, array):
+                    raise AssertionError(f"25c write_data: {name} reads back as {got.shape} {got.dtype}")
+            stats["c_write_data_s"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            par_root = os.path.join(tmp, "parhyale")
+            os.makedirs(os.path.join(par_root, "data"))
+            rng = np.random.default_rng(5)
+            hyperstack = rng.integers(0, 2 ** 16, (50,) + CONV_PARHYALE_STACK, dtype=np.uint16)
+            io.write_data(os.path.join(par_root, "data", "Parhyale_H2B-EGFP_images_tp01-50.tif"), None,
+                          hyperstack.reshape((-1,) + CONV_PARHYALE_STACK[1:]))
+            tps = [0, 10, 20, 30, 40, 49]
+            labels_tp = {}
+            for tp in tps:
+                labels_tp[tp] = rng.integers(0, 40, CONV_PARHYALE_STACK, dtype=np.uint16)
+                name = f"Parhyale_instance-segmentation-labels_tp{tp + 1:02d}.tif"
+                io.write_data(os.path.join(par_root, "data", name), None, labels_tp[tp])
+            par_paths = get_parhyale_regen_paths(par_root)
+            if [os.path.basename(p) for p in par_paths] != [f"Parhyale_H2B-EGFP_{tp + 1}.h5" for tp in tps]:
+                raise AssertionError(f"25c Parhyale: {par_paths}")
+            for tp, path in zip(tps, par_paths):
+                with hdf5.File(path, "r") as f:
+                    if not np.array_equal(f["raw"][:], hyperstack[tp]) or not np.array_equal(f["labels"][:],
+                                                                                            labels_tp[tp]):
+                        raise AssertionError(f"25c Parhyale: {path} is not time point {tp} written")
+            stats["c_parhyale_s"] = time.perf_counter() - t
+
+            t = time.perf_counter()
+            hest_root = os.path.join(tmp, "hest")
+            slides = layouts.hest_layout(hest_root, CONV_HEST_NUCLEI)
+            get_hest_data(hest_root)
+            n_nuclei = 0
+            for sid, (coords, scale, cellvit, xenium) in slides.items():
+                with hdf5.File(os.path.join(hest_root, "preprocessed", f"{sid}.h5"), "r") as f:
+                    got = f[hest_module.LABEL_KEYS["instances"]][:], f[hest_module.LABEL_KEYS["xenium_instances"]][:]
+                for i, coord in enumerate(coords):
+                    for label, nuclei, mask in (("CellViT", cellvit, got[0][i]), ("Xenium", xenium, got[1][i])):
+                        expected = layouts.hest_reference(nuclei, coord, 224, scale)
+                        if not np.array_equal(mask, expected):
+                            raise AssertionError(f"25c HEST: {sid} patch {i} {label} nuclei differ from the reference "
+                                                 f"at {int((mask != expected).sum())} pixels")
+                        n_nuclei += int(expected.max())
+            stats["c_hest_s"] = time.perf_counter() - t
+            log(f"25c: UroCell's NIfTI volumes to float64 h5 ({stats['c_urocell_s']:.2f} s), write_data's PNG and TIFF "
+                f"round trips, multi-page stacks included ({stats['c_write_data_s']:.2f} s), Parhyale's hyperstack of "
+                f"{50 * CONV_PARHYALE_STACK[0]} pages ({stats['c_parhyale_s']:.2f} s) and HEST's CellViT GeoJSON and "
+                f"Xenium WKB nuclei at 0.5 and 0.25 um/px, {n_nuclei} window selections ({stats['c_hest_s']:.2f} s): "
+                "each equal to what was written")
+    finally:
+        for name in blocked:
+            del sys.modules[name]
+    stats["norm_launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"zoo conversions: {json.dumps(stats)}; {nvidia_smi()}")
+    torch.cuda.empty_cache()
+    return tuple(launches)
+
+
 def time_host_ms(fn, *args, repeats=5):
     """Median host time of ``fn(*args)`` in ms."""
     times = []
@@ -5474,16 +5776,20 @@ PHASE_TITLES = {
     24: "training logs with the default loggers and HDBSCAN, with no tensorboardX, tensorboard, sklearn or "
         "matplotlib: the tracked model's TensorBoard events read back, SPOCO, MeanTeacher and classification with "
         "their loggers, the sklearn fixtures, HDBScanRandMetric on SPOCO embeddings",
+    25: "the zoo's conversions with no pydicom, nibabel, imageio, pycocotools, geopandas, rasterio or shapely: "
+        "3D-IRCADb's DICOM series into UNet3d, PUMA's GeoJSON nuclei into UNet2d; OrgLine's COCO masks, UroCell's "
+        "NIfTI, write_data's images, Parhyale's hyperstack, HEST's CellViT and Xenium nuclei",
 }
 # the phases of the fan-out that launch the norm kernels, by the name of their path in the launches line
 FANOUT_NAMES = {9: "DSB", 10: "SNEMI", 11: "SPOCO", 12: "UNETR and ViM-UNet", 13: "self-training",
                 14: "encoder families", 15: "multi-device", 16: "Shallow2Deep", 17: "EM zoo", 18: "LM zoo",
-                19: "histopathology and medical zoo", 20: "quality probes", 24: "training logs"}
+                19: "histopathology and medical zoo", 20: "quality probes", 24: "training logs",
+                25: "zoo conversions"}
 
 
 def run_phases(numbers):
-    """Run phases ``numbers`` (of 8 to 21 and 24) in order in this process; returns {phase: [forward, backward]}, the
-    norm kernels' launches of each."""
+    """Run phases ``numbers`` (of 8 to 21, 24 and 25) in order in this process; returns {phase: [forward,
+    backward]}, the norm kernels' launches of each."""
     import torch_em_tpu_torch as port
     import torch_em_tpu_torch.models.unet as unet_module
     import torch_em_tpu_torch.ops.device as device_ops
@@ -5529,8 +5835,10 @@ def run_phases(numbers):
                 phase_public_names(unet_module, inorm)
             elif number == 24:
                 got = phase_logs_hdbscan(port, inorm, device_ops)
+            elif number == 25:
+                got = phase_zoo_conversions(port, inorm)
             else:
-                raise ValueError(f"no phase {number} among 8 to 21 and 24")
+                raise ValueError(f"no phase {number} among 8 to 21, 24 and 25")
             launches[number] = [int(got[0]), int(got[1])]
             # the next phase, and the other groups, get the card memory this one held
             torch.cuda.empty_cache()
@@ -5662,6 +5970,10 @@ def main():
                                                         in_channels=HP_MODEL["in_channels"])),
                      "amos": (MED_BATCH, norm_shapes(MED_PATCH, [[2, 2, 2]] * MED_DEPTH,
                                                      widths(MED_MODEL["initial_features"], MED_DEPTH))),
+                     # and phase 25a's: the same UNet3d on (64, 128, 128) patches of the converted IRCADb volumes
+                     # (25b's UNet2d on PUMA takes 19a's rows)
+                     "ircadb": (MED_BATCH, norm_shapes(CONV_IRCADB_PATCH, [[2, 2, 2]] * MED_DEPTH,
+                                                       widths(MED_MODEL["initial_features"], MED_DEPTH))),
                      # and phase 20's DSB probe: UNet2d f=16 at batch 4 of 128x128, its validation and scoring
                      # batches too
                      "dsb_probe": (DSB_PROBE_BATCH, norm_shapes(DSB_PROBE_PATCH, [[2, 2]] * DSB_DEPTH,
@@ -5726,7 +6038,7 @@ def main():
         zn_fwd, zn_bwd = phase_zarr_n5(port, inorm)
 
         fanout = run_phases([15])
-        log(f"phases 8 to 21 but 15, and 24, in {len(FANOUT)} child processes at once: "
+        log(f"phases 8 to 21 but 15, 24 and 25, in {len(FANOUT)} child processes at once: "
             + ", ".join("+".join(map(str, group)) for group in FANOUT))
         fanout.update(run_fanout(FANOUT))
         parts = [("serving", serving_launches, 0), ("training", train_fwd, train_bwd),

@@ -21,7 +21,10 @@ package's raises: a test reads one with a prose footer.
 import gzip
 import importlib.util
 import json
+import struct
+import sys
 import tarfile
+from pathlib import Path
 
 import h5py
 import numpy as np
@@ -30,6 +33,10 @@ import pytest
 from torch_zoo_layouts import (HISTOPATHOLOGY, IMAGE, PATCH_2D, HPCase, check_case, labels, modules, raw, save_image,
                                save_mat, write_h5, zip_folder)
 from torch_zoo_layouts import no_network  # noqa: F401 (the fixture of pytestmark)
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "scripts"))
+import torch_conversion_layouts as layouts  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("no_network")
 
@@ -226,8 +233,6 @@ def build_segpath(root):
 
 
 def convert_segpath(module, root):
-    from pathlib import Path
-
     for folder in ("panCK_Epithelium", "aSMA_SmoothMuscle"):
         module._extract_data(Path(root) / f"{folder}.tar.gz", Path(root) / folder)
 
@@ -432,26 +437,51 @@ def _same_error(call, *args, **kwargs):
     return errors[0]
 
 
-def test_missing_packages_raise_as_in_jax(tmp_path):
-    """Where a conversion needs a package that neither machine has (geopandas, rasterio, shapely,
-    scanpy, tiffslide), both packages raise the same exception."""
+def test_missing_packages_raise_as_in_jax(tmp_path, monkeypatch):
+    """Where a conversion needs a package that neither machine has, the JAX package raises: for scanpy and
+    tiffslide the port raises the same exception; for geopandas, rasterio and shapely (PUMA's and HEST's nuclei)
+    the port converts with its own ``utils/geometry.py`` (``tests/test_torch_zoo_conversions.py`` holds what it
+    converts against a brute force)."""
+    import pandas as pd
+
+    from torch_em_tpu_torch.utils import geometry
+
     jax_puma, port_puma = modules("puma", HISTOPATHOLOGY)
     jax_hest, port_hest = modules("hest", HISTOPATHOLOGY)
     jax_monusac, port_monusac = modules("monusac", HISTOPATHOLOGY)
     for name in ("geopandas", "rasterio", "shapely", "scanpy", "tiffslide"):
         assert importlib.util.find_spec(name) is None, f"{name} is installed: this test needs it missing"
-    build_puma(tmp_path)
-    assert isinstance(_same_error((jax_puma._preprocess_inputs, port_puma._preprocess_inputs), str(tmp_path),
-                                  "nuclei", "train"), RuntimeError)
-    (tmp_path / "cells.geojson").write_text("[]")
-    for name in ("_gdf_from_cellvit_geojson", "_gdf_from_xenium_parquet"):
-        err = _same_error((getattr(jax_hest, name), getattr(port_hest, name)), str(tmp_path / "cells.geojson"))
-        assert isinstance(err, ImportError)
+    for side in ("jax", "port"):
+        layouts.puma_layout(str(tmp_path / side / "puma"), 2, 30)
+        build_puma(tmp_path / side / "converted")
+    with pytest.raises(RuntimeError, match="geopandas"):
+        jax_puma.get_puma_paths(str(tmp_path / "jax" / "puma"), "train")
+    assert len(port_puma.get_puma_paths(str(tmp_path / "port" / "puma"), "train")) == 2
+    with pytest.raises(RuntimeError, match="geopandas"):
+        jax_puma._preprocess_inputs(str(tmp_path / "jax" / "converted"), "nuclei", "train")
+    port_puma._preprocess_inputs(str(tmp_path / "port" / "converted"), "nuclei", "train")  # no annotations there
+    parts = [[[[0, 0], [4, 0], [4, 4], [0, 0]]], [[[9, 9], [12, 9], [9, 12], [9, 9]]]]
+    (tmp_path / "cells.geojson").write_text(json.dumps([{"type": "Feature", "geometry": {
+        "type": "MultiPolygon", "coordinates": parts}}]))
+    pd.DataFrame({"geometry": [bytes([1]) + struct.pack("<III", 3, 1, 4)
+                               + np.array([[1, 1], [5, 1], [1, 5], [1, 1]], "<f8").tobytes()]}).to_parquet(
+        tmp_path / "cells.parquet")
+    for name, path in (("_gdf_from_cellvit_geojson", "cells.geojson"), ("_gdf_from_xenium_parquet", "cells.parquet")):
+        with pytest.raises(ImportError, match="geopandas and shapely"):
+            getattr(jax_hest, name)(str(tmp_path / path))
+    cells = port_hest._gdf_from_cellvit_geojson(str(tmp_path / "cells.geojson"))
+    assert len(cells) == 2 and all(isinstance(g, geometry.Polygon) for g in cells.geometry)
+    xenium = port_hest._gdf_from_xenium_parquet(str(tmp_path / "cells.parquet"))
+    assert len(xenium) == 1 and xenium["cell_id"] == ["0"]
     assert isinstance(_same_error((jax_hest._compute_cell_type_map, port_hest._compute_cell_type_map),
                                   "st.h5ad", None), ImportError)
-    assert isinstance(_same_error((jax_hest._rasterize_patch_instances, port_hest._rasterize_patch_instances),
-                                  0, 0, 224, None), ImportError)
-    assert isinstance(_same_error((jax_hest._burn, port_hest._burn), [], [], 224), ImportError)
+    with pytest.raises(ImportError, match="rasterio and shapely"):
+        jax_hest._rasterize_patch_instances(0, 0, 224, None)
+    instances = port_hest._rasterize_patch_instances(0, 0, 224, cells)
+    assert instances.dtype == np.int32 and sorted(np.unique(instances)) == [0, 1, 2]
+    with pytest.raises(ImportError, match="rasterio"):
+        jax_hest._burn([], [], 224)
+    assert not port_hest._burn([], [], 224).any()
     # MoNuSAC's test scans that ship only as svs go through tiffslide
     for root, mod in ((tmp_path / "jax", jax_monusac), (tmp_path / "port", port_monusac)):
         src = root / "src" / "MoNuSAC Testing Data and Annotations" / "TCGA-49-6743-01Z-00-DX2"
@@ -504,18 +534,33 @@ class _FakeFrame:
 
 
 def test_hest_and_puma_helpers_match_jax():
-    """The pure helpers: HEST's cell-type keyword mapping and patch windows (on a stand-in for the
-    GeoDataFrame), PUMA's sample split."""
+    """The pure helpers: HEST's cell-type keyword mapping; its patch windows, on the JAX side over a stand-in for
+    the GeoDataFrame that keeps the points in the closed window and records the translation and scaling, on the
+    port's side over its ``GeoFrame`` of one degenerate polygon a point (its ``.cx`` keeps a point in the closed
+    window too): the same rows, moved and scaled by the same numbers; PUMA's sample split."""
+    from torch_em_tpu_torch.utils import geometry
+
     jax_hest, port_hest = modules("hest", HISTOPATHOLOGY)
     names = ["Alveolar macrophages", "Hepatocytes", "Fibroblasts", "Unicorn cells", "Beta cells", "T cells",
              "Smooth muscle cells", "Pericytes", "Plasma cells", "Ductal cells", "Neurons", ""]
     assert [port_hest._cell_type_to_category(n) for n in names] == [jax_hest._cell_type_to_category(n) for n in names]
-    frame = _FakeFrame(np.random.default_rng(0).uniform(0, 1000, (200, 2)))
+    points = np.random.default_rng(0).uniform(0, 1000, (200, 2))
+    points[:3] = [(100, 200), (324, 424), (500, 224)]  # on the windows' borders
+    frame = _FakeFrame(points)
+    cells = geometry.GeoFrame([geometry.Polygon(np.repeat(p[None], 4, axis=0)) for p in points])
     for args in ((100, 200, 224, 1.0), (500, 0, 224, 2.0), (990, 990, 224, 0.5), (5000, 5000, 224, 1.0)):
-        got, expected = port_hest._window_geometries(frame, *args), jax_hest._window_geometries(frame, *args)
+        got, expected = port_hest._window_geometries(cells, *args), jax_hest._window_geometries(frame, *args)
         assert (got is None) == (expected is None)
-        if got is not None:
-            assert got.ops == expected.ops
+        if got is None:
+            continue
+        span = round(args[2] * args[3])
+        inside = points[(points[:, 0] >= args[0]) & (points[:, 0] <= args[0] + span)
+                        & (points[:, 1] >= args[1]) & (points[:, 1] <= args[1] + span)]
+        moved = inside.copy()
+        for op in expected.ops:
+            moved = moved + op[1:3] if op[0] == "translate" else moved * op[1:3]
+        assert len(got) == len(inside)
+        np.testing.assert_array_equal(np.array([g.exterior[0] for g in got.geometry]), moved)
     jax_puma, port_puma = modules("puma", HISTOPATHOLOGY)
     ids = [f"training_set_metastatic_roi_{i:03d}" for i in range(23)]
     assert port_puma._split_sample_ids(ids, np.random.RandomState(3)) == \

@@ -416,8 +416,9 @@ def test_zoo_exports_the_recipes_readers():
 
 
 def test_livecell_decoder_matches_jax():
-    """The COCO decoder (``_annotation_to_mask``) on polygons and an uncompressed RLE, and its error on a
-    compressed RLE, as in the JAX package."""
+    """The COCO decoder (``_annotation_to_mask``) on polygons and an uncompressed RLE, as in the JAX package; a
+    compressed RLE, on which the JAX package raises naming pycocotools, the port decodes with ``utils/coco.py``
+    to the mask of the same runs uncompressed."""
     jax_mod, port_mod = modules("livecell", LIGHT_MICROSCOPY)
     rng = np.random.default_rng(3)
     for _ in range(4):
@@ -427,6 +428,9 @@ def test_livecell_decoder_matches_jax():
                                       jax_mod._annotation_to_mask(ann, (48, 40)))
     ann = {"segmentation": {"size": [6, 5], "counts": [3, 4, 10, 2, 11]}}
     np.testing.assert_array_equal(port_mod._annotation_to_mask(ann, (6, 5)), jax_mod._annotation_to_mask(ann, (6, 5)))
-    for mod in (jax_mod, port_mod):
-        with pytest.raises(ValueError, match="pycocotools"):
-            mod._annotation_to_mask({"segmentation": {"size": [6, 5], "counts": "abc"}}, (6, 5))
+    with pytest.raises(ValueError, match="pycocotools"):
+        jax_mod._annotation_to_mask({"segmentation": {"size": [6, 5], "counts": "abc"}}, (6, 5))
+    # the runs 3, 4, 10, 2, 11 compressed: 3, 4, 10 (':' = 48 + 10), then 2 - 4 = -2 ('N' = 48 + 30), 11 - 10 = 1
+    compressed = {"segmentation": {"size": [6, 5], "counts": "34:N1"}}
+    np.testing.assert_array_equal(port_mod._annotation_to_mask(compressed, (6, 5)),
+                                  jax_mod._annotation_to_mask(ann, (6, 5)))

@@ -5,15 +5,16 @@ against the JAX package's, and the medical module lists.
 Each case lays out one module's files at a small size and holds the port's getters against the
 JAX package's on them (``torch_zoo_layouts.check_case``). Where a conversion reads DICOM (CHAOS,
 Duke Liver, 3D-IRCADb, OSIC, PLETHORA) the case starts from the converted layout, or, for CHAOS,
-from PNG slices, which its reader takes without pydicom; a test holds that both packages raise the
-same exception for the missing pydicom. KiTS23's, LGG-MRI's and SA-Med2D's conversions run through
-the reader's own function on both sides (``prepare``): KiTS23 splits its cases with sklearn's
-``train_test_split`` (seeded) in the JAX package and with the port's numpy copy; SA-Med2D resizes
-through ``transforms/generic.py:ResizeLongestSideInputs`` and relabels with
-``ops/host.relabel_consecutive``.
+from PNG slices, which its reader takes without pydicom; a test holds that the JAX package raises for
+the missing pydicom where the port converts the DICOM files with its own reader. KiTS23's, LGG-MRI's
+and SA-Med2D's conversions run through the reader's own function on both sides (``prepare``): KiTS23
+splits its cases with sklearn's ``train_test_split`` (seeded) in the JAX package and with the port's
+numpy copy; SA-Med2D resizes through ``transforms/generic.py:ResizeLongestSideInputs`` and relabels
+with ``ops/host.relabel_consecutive``.
 """
 
 import json
+import sys
 import zipfile
 from pathlib import Path
 
@@ -26,6 +27,10 @@ from torch_em_tpu.utils.medical_io import save_nifti
 from torch_zoo_layouts import (IMAGE, MEDICAL, PATCH_3D, VOLUME, MedCase, check_case, check_domain_matches_jax,
                                check_every_module_has_a_case, labels, modules, raw, save_image, save_tif, write_h5)
 from torch_zoo_layouts import no_network  # noqa: F401 (the fixture of pytestmark)
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "scripts"))
+import torch_conversion_layouts as layouts  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("no_network")
 
@@ -256,8 +261,34 @@ def _raises_alike(calls, tmp_path):
     return errors[0][0]
 
 
+def _dicom_series(root):
+    """One DICOM file a series for each reader that converts DICOM (written with ``torch_conversion_layouts.dcmwrite``):
+    CHAOS' CT case 3 beside its PNG ground truth, a Duke Liver scan, a 3D-IRCADb patient, an OSIC scan with a
+    heart annotation of its shape, and PLETHORA's series of LUNG1-002."""
+    from torch_em_tpu_torch.utils.medical_io import save_nrrd
+
+    rng = np.random.default_rng(609)
+    files = {"data/Train_Sets/CT/3/DICOM_anon/i0000,0000b.dcm": "int16",
+             "data/Segmentation/0001/01/images/000.dicom": "uint16",
+             "data/Segmentation/0001/01/masks/000.dicom": "uint8",
+             "Dataset/3Dircadb1.1/PATIENT_DICOM/image_0": "int16",
+             "Dataset/3Dircadb1.1/MASKS_DICOM/liver/image_0": "uint8",
+             "data/train/ID00000000/1.dcm": "int16",
+             "pl/data/images/1.3.6.1.4.1.0002/1-1.dcm": "int16"}
+    for rel, dtype in files.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        layouts.dcmwrite(str(root / rel), rng.integers(0, 200, IMAGE).astype(dtype))
+    save_image(root / "data" / "Train_Sets" / "CT" / "3" / "Ground" / "liver_GT_000.png",
+               (labels(rng, 2, IMAGE, "uint8") * 255).astype("uint8"))
+    (root / "data" / "segmentations" / "heart").mkdir(parents=True)
+    save_nrrd(str(root / "data" / "segmentations" / "heart" / "ID00000000_heart.nrrd"),
+              labels(rng, 2, IMAGE + (1,), "uint8"))
+
+
 def test_missing_pydicom_raises_as_in_jax(tmp_path):
-    """Where a conversion reads DICOM, both packages raise the same exception without pydicom."""
+    """Where a conversion reads DICOM, the JAX package still raises without pydicom; the port reads the files with
+    its own ``utils/dicom.py`` and converts them (``tests/test_torch_zoo_conversions.py`` holds the converted files
+    against the JAX package's over a stand-in pydicom)."""
     import importlib.util
 
     assert importlib.util.find_spec("pydicom") is None, "pydicom is installed: this test needs it missing"
@@ -265,21 +296,26 @@ def test_missing_pydicom_raises_as_in_jax(tmp_path):
     for side in ("jax", "port"):
         root = tmp_path / side
         build_chaos(root)
-        (root / "data" / "Train_Sets" / "CT" / "3" / "DICOM_anon").mkdir(parents=True)
-        (root / "data" / "Train_Sets" / "CT" / "3" / "DICOM_anon" / "i0000.dcm").write_bytes(b"\0" * 132)
-        (root / "data" / "Segmentation" / "0001" / "01").mkdir(parents=True)
-        (root / "Dataset" / "3Dircadb1.1" / "PATIENT_DICOM").mkdir(parents=True)
-        (root / "data" / "train" / "ID00000000").mkdir(parents=True)
         build_plethora(root / "pl")
         (root / "pl" / "data" / "images" / "preprocessed" / "LUNG1-002.nii.gz").unlink()
+        _dicom_series(root)
     cases = [
-        (lambda m: lambda r: m.get_chaos_paths(str(r), modality="CT"), "chaos", ModuleNotFoundError),
-        (lambda m: lambda r: m.get_duke_liver_paths(str(r)), "duke_liver", ImportError),
-        (lambda m: lambda r: m._preprocess_inputs(str(r)), "ircadb", ImportError),
-        (lambda m: lambda r: m.get_osic_pulmofib_paths(str(r), "train"), "osic_pulmofib", ImportError),
-        (lambda m: lambda r: m.get_plethora_paths(str(r / "pl"), "thoracic"), "plethora", ImportError)]
-    for make, name, error in cases:
-        assert issubclass(_raises_alike([make(m) for m in mods[name]], tmp_path), error), name
+        (lambda m: lambda r: m.get_chaos_paths(str(r), modality="CT"), "chaos", ModuleNotFoundError,
+         "data/Train_Sets/preprocessed/CT/image/3_CT.nii.gz"),
+        (lambda m: lambda r: m.get_duke_liver_paths(str(r)), "duke_liver", ImportError,
+         "data/preprocessed/images/0001_01.nii.gz"),
+        (lambda m: lambda r: m._preprocess_inputs(str(r)), "ircadb", ImportError, "data/3Dircadb1.1.h5"),
+        (lambda m: lambda r: m.get_osic_pulmofib_paths(str(r), "train"), "osic_pulmofib", ImportError,
+         "data/preprocessed/images/ID00000000.nii.gz"),
+        (lambda m: lambda r: m.get_plethora_paths(str(r / "pl"), "thoracic"), "plethora", ImportError,
+         "pl/data/images/preprocessed/LUNG1-002.nii.gz")]
+    for make, name, error, converted in cases:
+        jax_mod, port_mod = mods[name]
+        with pytest.raises(error, match="pydicom") as info:
+            make(jax_mod)(tmp_path / "jax")
+        assert type(info.value) is error, name
+        make(port_mod)(tmp_path / "port")
+        assert (tmp_path / "port" / converted).exists() and not (tmp_path / "jax" / converted).exists(), name
 
 
 def test_downloads_refused_as_in_jax(tmp_path):

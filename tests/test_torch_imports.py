@@ -3,7 +3,7 @@
 The machine with the card has PyTorch, numpy and scipy (and, lately,
 PyYAML, tqdm, pandas, PIL and requests) but none of jax, flax, optax, h5py,
 tensorstore, imageio, sklearn, napari, tensorboardX, tensorboard, wandb,
-matplotlib or onnx, and
+matplotlib, onnx, pydicom, nibabel, pycocotools, geopandas, rasterio or shapely, and
 neither machine has timm, segment_anything or mamba_ssm, whose models the
 port builds itself. The port needs none of the optional ones: here most of
 them are installed, so a
@@ -28,10 +28,13 @@ trainer validates with the macro F1 score in numpy; reading a pickled forest and
 the port does not compute raise naming scikit-learn, ``prepare_shallow2deep`` without tqdm tqdm,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
 packages, and the dataset zoo's download and conversion packages (requests, gdown, rarfile,
-kaggle, nd2, pycocotools, cloud-volume, s3fs and zarr, and the histopathology and medical readers'
-geopandas, rasterio, shapely, scanpy, huggingface_hub, pydicom and tiffslide, blocked here too, with
-the zoo's every module imported, the 81 light-microscopy, 24 histopathology and 60 medical readers
-among them), may be imported inside a function, never at module level. The native host library builds under
+kaggle, nd2, cloud-volume, s3fs and zarr, and the histopathology and medical readers' scanpy,
+huggingface_hub and tiffslide, blocked here too, with the zoo's every module imported, the 81
+light-microscopy, 24 histopathology and 60 medical readers among them), may be imported inside a
+function, never at module level. With pydicom, nibabel, imageio, pycocotools, geopandas, rasterio and
+shapely blocked (PIL and pandas let in) the port converts a small 3D-IRCADb (DICOM), UroCell (NIfTI),
+OrgLine (COCO), PUMA (GeoJSON) and HEST (GeoJSON and WKB) layout and writes a PNG and a TIFF; none of
+the seven is imported anywhere in the port. The native host library builds under
 ``torch_em_tpu_torch/_build/`` and writes nothing under ``HOME`` or
 ``TMPDIR``.
 """
@@ -51,7 +54,7 @@ PACKAGE = REPO / "torch_em_tpu_torch"
 BLOCKED = ("jax", "flax", "optax", "h5py", "tqdm", "PIL", "imageio", "sklearn", "napari", "pandas", "tensorboardX",
            "tensorboard", "wandb", "matplotlib", "torch_em_tpu", "timm", "segment_anything", "mamba_ssm", "yaml",
            "onnx", "tensorstore", "requests", "gdown", "rarfile", "kaggle", "nd2", "pycocotools", "cloudvolume", "s3fs",
-           "zarr", "geopandas", "rasterio", "shapely", "scanpy", "huggingface_hub", "pydicom", "tiffslide")
+           "zarr", "geopandas", "rasterio", "shapely", "scanpy", "huggingface_hub", "pydicom", "tiffslide", "nibabel")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -214,6 +217,39 @@ with tempfile.TemporaryDirectory() as tmp:
             assert package in str(e), e
         else:
             raise AssertionError(package + " was not needed")
+# the zoo's conversions with pydicom, nibabel, imageio, pycocotools, geopandas, rasterio and shapely blocked (PIL
+# and pandas, which the card has, let in): 3D-IRCADb's DICOM series, UroCell's NIfTI volumes, OrgLine's COCO
+# masks, PUMA's and HEST's nuclei, and a PNG and a multi-page TIFF written and read back
+import glob, zipfile
+for name in ("PIL", "pandas"):
+    sys.modules.pop(name)
+from torch_em_tpu_torch.data.datasets import get_hest_data, get_ircadb_paths, get_puma_paths, get_uro_cell_paths
+from torch_em_tpu_torch.data.datasets.light_microscopy import orgline
+from torch_em_tpu_torch.utils import dicom, medical_io
+sys.path.insert(0, "scripts")
+import torch_conversion_layouts as layouts
+with tempfile.TemporaryDirectory() as tmp:
+    layouts.ircadb_layout(tmp + "/ircadb", ["3Dircadb1.1"], [(dicom.RLE_LOSSLESS, dicom.IMPLICIT_VR_LITTLE_ENDIAN)],
+                          0, (3, 16, 16))
+    assert [os.path.basename(p) for p in get_ircadb_paths(tmp + "/ircadb")] == ["3Dircadb1.1.h5"]
+    os.makedirs(tmp + "/uro")
+    with zipfile.ZipFile(tmp + "/uro/uro_cell.zip", "w") as zf:
+        for sub in ("data", "mito/instance"):
+            medical_io.save_nifti(tmp + "/v.nii.gz", np.arange(24, dtype="uint8").reshape(2, 3, 4))
+            zf.write(tmp + "/v.nii.gz", "UroCell-master/" + sub + "/v.nii.gz")
+    assert len(get_uro_cell_paths(tmp + "/uro", "mito")) == 1
+    layouts.orgline_layout(tmp + "/org/data2", (4, 2), (192, 256))
+    orgline._prepare_data(tmp + "/org/data2", "stomach")
+    assert glob.glob(tmp + "/org/data2/stomach/*/*.h5")
+    layouts.puma_layout(tmp + "/puma", 1, 10)
+    assert len(get_puma_paths(tmp + "/puma", "train")) == 1
+    layouts.hest_layout(tmp + "/hest", 8)
+    get_hest_data(tmp + "/hest")
+    assert sorted(os.listdir(tmp + "/hest/preprocessed")) == ["NCBI91.h5", "TENX90.h5"]
+    for name, image in (("a.png", np.arange(12, dtype="uint8").reshape(3, 4)),
+                        ("b.tif", np.ones((2, 3, 4), "float32"))):
+        io.write_data(tmp + "/" + name, None, image)
+        assert (io.load_image(tmp + "/" + name) == image).all()
 print(len(names))
 """
 
@@ -244,12 +280,17 @@ def test_source_names_no_jax(path):
     # utils/tensorboard.py
     assert not re.search(r"^\s*(from|import)\s+(h5py|tensorstore|tensorboardX|tensorboard)\b"
                          r"|import_module\(.(h5py|tensorstore|tensorboardX|tensorboard).\)", text, flags=re.MULTILINE)
-    # PIL, imageio, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and
-    # the zoo's download and conversion packages only inside the functions that need them
-    assert not re.search(r"^(from|import)\s+(h5py|PIL|imageio|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
+    # PIL, sklearn, napari, pandas, tensorboard, wandb, matplotlib, tqdm, yaml, onnx, tensorstore and the zoo's
+    # download and conversion packages only inside the functions that need them
+    assert not re.search(r"^(from|import)\s+(h5py|PIL|sklearn|napari|pandas|tensorboard|wandb|matplotlib|tqdm"
                          r"|yaml|onnx|tensorstore|requests|gdown|rarfile|kaggle|zarr|s3fs|cloudvolume|quilt3|nd2"
-                         r"|pycocotools|geopandas|rasterio|shapely|scanpy|huggingface_hub|pydicom|tiffslide)\b", text,
-                         flags=re.MULTILINE)
+                         r"|scanpy|huggingface_hub|tiffslide)\b", text, flags=re.MULTILINE)
+    # pydicom, nibabel, imageio, pycocotools, geopandas, rasterio and shapely nowhere: the port reads DICOM, NIfTI,
+    # image files, COCO masks and GeoJSON/WKB polygons with its own utils/dicom.py, medical_io.py, io.py (PIL),
+    # coco.py and geometry.py
+    assert not re.search(r"^\s*(from|import)\s+(pydicom|nibabel|imageio|pycocotools|geopandas|rasterio|shapely)\b"
+                         r"|import_module\(.(pydicom|nibabel|imageio|pycocotools|geopandas|rasterio|shapely)",
+                         text, flags=re.MULTILINE)
 
 
 _BUILD_NATIVE = """

@@ -1,7 +1,9 @@
 """UroCell dataset for organelle segmentation in FIB-SEM (reference
 torch_em/data/datasets/electron_microscopy/uro_cell.py).
 
-Publication: https://doi.org/10.1016/j.compbiomed.2020.103693
+Publication: https://doi.org/10.1016/j.compbiomed.2020.103693. The NIfTI volumes are read by the
+port's own reader (``utils/medical_io.load_nifti``), with no nibabel: float64 in (X, Y, Z) order,
+as ``nibabel.load(path).get_fdata()`` gives them.
 """
 
 import os
@@ -12,10 +14,16 @@ from typing import List, Optional, Tuple, Union
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
 from ....utils.io import _h5py
+from ....utils.medical_io import load_nifti
 from .. import util
 
 URL = "https://github.com/MancaZerovnikMekuc/UroCell/archive/refs/heads/master.zip"
 CHECKSUM = "a48cf31b06114d7def642742b4fcbe76103483c069122abe10f377d71a1acabc"
+
+
+def _get_fdata(path):
+    """A NIfTI volume as ``nibabel.load(path).get_fdata()`` gives it: scaled, float64, (X, Y, Z)."""
+    return load_nifti(path, apply_scaling=True).astype("float64")
 
 
 def get_uro_cell_data(path: Union[os.PathLike, str], download: bool = False) -> str:
@@ -24,10 +32,6 @@ def get_uro_cell_data(path: Union[os.PathLike, str], download: bool = False) -> 
 
     if os.path.exists(path) and glob(os.path.join(path, "*.h5")):
         return path
-    try:
-        import nibabel as nib
-    except ImportError as e:
-        raise RuntimeError("Please install the nibabel package for the UroCell dataset.") from e
 
     os.makedirs(path, exist_ok=True)
     tmp_path = os.path.join(path, "uro_cell.zip")
@@ -38,14 +42,14 @@ def get_uro_cell_data(path: Union[os.PathLike, str], download: bool = False) -> 
     files = sorted(glob(os.path.join(root, "data", "*.nii.gz")))
     for data_path in files:
         fname = os.path.basename(data_path)
-        data = nib.load(data_path).get_fdata()
+        data = _get_fdata(data_path)
         out_path = os.path.join(path, fname.replace("nii.gz", "h5"))
         with h5py.File(out_path, "w") as f:
             f.create_dataset("raw", data=data, compression="gzip")
             for label_name in ("fv", "golgi", "lyso", "mito"):
                 label_path = os.path.join(root, label_name, "instance", fname)
                 if os.path.exists(label_path):
-                    labels = nib.load(label_path).get_fdata().astype("uint32")
+                    labels = _get_fdata(label_path).astype("uint32")
                     f.create_dataset(f"labels/{label_name}", data=labels, compression="gzip")
     return path
 

@@ -9,8 +9,10 @@ semantic labels (Leiden clustering + PanglaoDB marker voting; classes
 filter with ``organs``). Publications: Jaume et al. 2024
 (https://doi.org/10.48550/arXiv.2406.16192) and arXiv 2604.23481.
 
-Optional deps: huggingface_hub (download); geopandas/rasterio/scipy
-(preprocessing); scanpy/igraph/leidenalg (semantic labels).
+Optional deps: huggingface_hub (download); pandas with pyarrow (the Xenium
+parquet); scanpy/igraph/leidenalg (semantic labels). The nucleus polygons are
+parsed, selected and rasterized by the port's own ``utils/geometry.py``, with no
+geopandas, rasterio or shapely.
 """
 
 import json
@@ -25,6 +27,7 @@ from ... import DataLoader
 from ...base import Dataset
 from ....segmentation import get_data_loader
 from .. import util
+from ....utils import geometry
 from ....utils.io import _h5py
 
 HF_REPO = "MahmoodLab/hest"
@@ -123,45 +126,30 @@ def _unzip_cellvit(zip_path, out_dir):
 
 
 def _gdf_from_xenium_parquet(parquet_path):
-    try:
-        import geopandas as gpd
-        import pandas as pd
-        import shapely
-    except ImportError:
-        raise ImportError("geopandas and shapely are required for HEST preprocessing.")
+    import pandas as pd
 
     df = pd.read_parquet(parquet_path)
-    geometries = shapely.from_wkb(df["geometry"].values)
-    return gpd.GeoDataFrame({"cell_id": df.index.astype(str), "geometry": geometries}, geometry="geometry")
+    geometries = [geometry.from_wkb(wkb) for wkb in df["geometry"].values]
+    return geometry.GeoFrame(geometries, {"cell_id": df.index.astype(str)})
 
 
 def _gdf_from_cellvit_geojson(geojson_path):
-    try:
-        import geopandas as gpd
-        from shapely.geometry import MultiPolygon, shape
-    except ImportError:
-        raise ImportError("geopandas and shapely are required for HEST preprocessing.")
-
     with open(geojson_path) as fh:
         data = json.load(fh)
-    records = []
+    geoms = []
     for feat in data:
-        geom = shape(feat["geometry"])
-        if isinstance(geom, MultiPolygon):
-            records.extend({"geometry": poly} for poly in geom.geoms)
+        geom = geometry.shape(feat["geometry"])
+        if isinstance(geom, geometry.MultiPolygon):
+            geoms.extend(geom.geoms)
         else:
-            records.append({"geometry": geom})
-    if not records:
-        return gpd.GeoDataFrame(columns=["geometry"])
-    return gpd.GeoDataFrame(records, geometry="geometry")
+            geoms.append(geom)
+    return geometry.GeoFrame(geoms)
 
 
 def _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale):
-    """Select the nuclei whose bounding boxes overlap one patch window and map
-    them into patch-pixel coordinates (0.5 um/px grid), vectorized over the
-    whole GeoSeries. Geometries that only graze the window rasterize to zero
-    pixels downstream, so bbox selection via the ``.cx`` spatial index matches
-    an exact intersection test while staying index-accelerated."""
+    """Select the nuclei that intersect one patch window (``.cx``: an exact
+    intersection with the closed window box, as geopandas' ``.cx``) and map
+    them into patch-pixel coordinates (0.5 um/px grid)."""
     span = round(patch_size * native_scale)
     window = cells_gdf.cx[patch_x:patch_x + span, patch_y:patch_y + span]
     if len(window) == 0:
@@ -173,21 +161,13 @@ def _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale):
 
 
 def _burn(geoms, values, patch_size):
-    from rasterio.features import rasterize as rio_rasterize
-
-    return rio_rasterize(
-        zip(geoms, values), out_shape=(patch_size, patch_size), fill=0, dtype=np.int32)
+    return geometry.rasterize(zip(geoms, values), out_shape=(patch_size, patch_size), fill=0, dtype=np.int32)
 
 
 def _rasterize_patch_instances(patch_x, patch_y, patch_size, cells_gdf, native_scale=1.0):
     """Instance mask for one patch: each nucleus polygon gets a unique id >= 1.
     native_scale = native WSI pixels per 0.5 um/px patch pixel."""
-    try:
-        import rasterio.features  # noqa: F401
-
-        geoms = _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale)
-    except ImportError:
-        raise ImportError("rasterio and shapely are required for HEST preprocessing.")
+    geoms = _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale)
     if geoms is None:
         return np.zeros((patch_size, patch_size), dtype=np.int32)
     return _burn(geoms, range(1, len(geoms) + 1), patch_size)
@@ -198,21 +178,16 @@ def _rasterize_patch_semantic(patch_x, patch_y, patch_size, cells_gdf, spot_labe
     """Cell-type mask for one patch: each nucleus is burned with the label of
     its nearest ST spot (nearest-neighbor lookup in native WSI coordinates,
     queried on the patch-local centroids mapped back to native space)."""
-    try:
-        import rasterio.features  # noqa: F401
-        from scipy.spatial import cKDTree
+    from scipy.spatial import cKDTree
 
-        geoms = _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale)
-    except ImportError:
-        raise ImportError("rasterio, shapely, and scipy are required for HEST preprocessing.")
+    geoms = _window_geometries(cells_gdf, patch_x, patch_y, patch_size, native_scale)
     if geoms is None:
         return np.zeros((patch_size, patch_size), dtype=np.int32)
 
     if spot_tree is None:
         spot_tree = cKDTree(spot_labels[:, :2])
     # patch-local centroid -> native WSI coordinate, vectorized
-    cent = geoms.centroid
-    native_xy = np.stack([cent.x.to_numpy(), cent.y.to_numpy()], axis=1) * native_scale
+    native_xy = geoms.centroid * native_scale
     native_xy += (patch_x, patch_y)
     nearest = spot_tree.query(native_xy)[1]
     return _burn(geoms, spot_labels[nearest, 2].astype(np.int32), patch_size)

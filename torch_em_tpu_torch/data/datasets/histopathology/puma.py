@@ -3,8 +3,9 @@ histopathology (reference torch_em/data/datasets/histopathology/puma.py).
 
 Part of the PUMA Grand Challenge (https://puma.grand-challenge.org/); data at
 https://zenodo.org/records/13859989; publication
-https://doi.org/10.1093/gigascience/giaf011. Preprocessing the geojson
-annotations requires the optional ``geopandas`` and ``rasterio`` packages.
+https://doi.org/10.1093/gigascience/giaf011. The geojson annotations are read
+and rasterized by the port's own ``utils/geometry.py``, with no geopandas or
+rasterio.
 """
 
 import json
@@ -17,6 +18,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils import geometry
 from ....utils.io import _h5py, load_image
 from .. import util
 
@@ -85,18 +87,13 @@ def _create_split_csv(path, annotations, split):
     return split_ids[split]
 
 
+def _classification(entry):
+    """A feature's ``classification``: a dict in raw GeoJSON, a JSON string where geopandas read the file."""
+    return json.loads(entry) if isinstance(entry, str) else entry
+
+
 def _preprocess_inputs(path, annotations, split):
     h5py = _h5py()
-
-    try:
-        import geopandas as gpd
-    except ModuleNotFoundError:
-        raise RuntimeError("Please install 'geopandas' to preprocess the PUMA annotations.")
-    try:
-        from rasterio.features import rasterize
-        from rasterio.transform import from_bounds
-    except ModuleNotFoundError:
-        raise RuntimeError("Please install 'rasterio' to preprocess the PUMA annotations.")
 
     annotation_paths = glob(os.path.join(
         path, "annotations", annotations, f"01_training_dataset_geojson_{annotations}", "*.geojson"))
@@ -116,20 +113,19 @@ def _preprocess_inputs(path, annotations, split):
         assert os.path.exists(image_path), image_path
 
         volume_path = os.path.join(preprocessed_dir, str(Path(fname).with_suffix(".h5")))
-        gdf = gpd.read_file(ann_path)
+        gdf = geometry.read_geojson(ann_path)
         minx, miny, maxx, maxy = gdf.total_bounds
         width, height = 1024, 1024  # roi shape
-        transform = from_bounds(minx, miny, maxx, maxy, width, height)
+        transform = geometry.from_bounds(minx, miny, maxx, maxy, width, height)
 
         class_dict = CLASS_DICT[annotations]
-        class_ids = [class_dict[cls_entry["name"]]
-                     for cls_entry in gdf["classification"].apply(json.loads)]
-        semantic_mask = rasterize(
+        class_ids = [class_dict[_classification(cls_entry)["name"]] for cls_entry in gdf["classification"]]
+        semantic_mask = geometry.rasterize(
             ((geom, cid) for geom, cid in zip(gdf.geometry, class_ids)),
             out_shape=(height, width), transform=transform, fill=0, dtype=np.uint8)
 
         gdf["id"] = range(1, len(gdf) + 1)
-        instance_mask = rasterize(
+        instance_mask = geometry.rasterize(
             ((geom, uid) for geom, uid in zip(gdf.geometry, gdf["id"])),
             out_shape=(height, width), transform=transform, fill=0, dtype=np.int32)
 

@@ -5,8 +5,8 @@ Phase-contrast microscopy with COCO-style instance annotations.
 Publication: https://doi.org/10.1038/s41592-021-01249-6
 
 The COCO annotations are converted with a pure-python decoder (polygon
-rasterization via PIL, uncompressed RLE via numpy) — pycocotools is not
-required in this rebuild.
+rasterization via PIL, uncompressed RLE via numpy, compressed RLE through the
+port's own ``utils/coco.py``) — pycocotools is not required in this rebuild.
 """
 
 import json
@@ -19,6 +19,7 @@ import numpy as np
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
 from ....ops.host import label_consecutive
+from ....utils import coco
 from ....utils.io import _pil_draw, _pil_image
 from .. import util
 
@@ -51,7 +52,7 @@ def _download_annotation_file(path, split, download):
 
 
 def _annotation_to_mask(annotation, shape):
-    """Decode a COCO segmentation (polygons or uncompressed RLE) to a mask."""
+    """Decode a COCO segmentation (polygons, uncompressed or compressed RLE) to a mask."""
     seg = annotation["segmentation"]
     if isinstance(seg, list):  # polygons
         Image, ImageDraw = _pil_image(), _pil_draw()
@@ -63,17 +64,9 @@ def _annotation_to_mask(annotation, shape):
             if len(pts) >= 3:
                 draw.polygon(pts, outline=1, fill=1)
         return np.asarray(img, dtype=bool)
-    if isinstance(seg, dict) and isinstance(seg.get("counts"), list):  # uncompressed RLE
-        h, w = seg["size"]
-        flat = np.zeros(h * w, dtype=bool)
-        pos, val = 0, False
-        for count in seg["counts"]:
-            if val:
-                flat[pos: pos + count] = True
-            pos += count
-            val = not val
-        return flat.reshape(w, h).T  # COCO RLE is column-major
-    raise ValueError("Unsupported segmentation encoding (compressed RLE requires pycocotools).")
+    if isinstance(seg, dict):  # uncompressed or compressed RLE
+        return coco.decode(seg).astype(bool)
+    raise ValueError("Unsupported segmentation encoding.")
 
 
 def _annotations_to_instances(image_metadata, annotations):

@@ -3,8 +3,9 @@ several prior publications across organs (intestine, brain, colon, PDAC,
 stomach, breast) — reference torch_em/data/datasets/light_microscopy/orgline.py.
 
 Please cite https://zenodo.org/records/16355179 and the relevant original
-publications. Stomach/breast ground truth is COCO-encoded and requires the
-optional ``pycocotools`` package.
+publications. Stomach/breast ground truth is COCO-encoded: it is decoded by the
+port's own ``utils/coco.py`` (pycocotools' mask algorithms in numpy), with no
+pycocotools.
 """
 
 import os
@@ -16,6 +17,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils.coco import COCO
 from ....utils.io import _h5py, load_image
 from .. import util
 
@@ -91,12 +93,6 @@ def _prepare_data(data_dir, organ):
                         f.create_dataset("masks", data=mask, compression="gzip")
         shutil.rmtree(os.path.join(data_dir, "InstanceSeg"))
     else:
-        try:
-            from pycocotools.coco import COCO
-        except ImportError:
-            raise ModuleNotFoundError(
-                "'pycocotools' is required for processing the OrgLine ground-truth.")
-
         for org in ORGANS2:
             input_root = output_root = os.path.join(data_dir, org)
             coco = COCO(os.path.join(input_root, "coco.json"))

@@ -13,7 +13,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
-from ....utils.io import _h5py, _imageio, load_image
+from ....utils.io import _h5py, load_image
 from .. import util
 
 RECORD_API = "https://zenodo.org/api/records/8252039"
@@ -21,15 +21,14 @@ RECORD_API = "https://zenodo.org/api/records/8252039"
 
 def _preprocess_data(root, path):
     h5py = _h5py()
-    iio = _imageio()
 
     raw_path = os.path.join(path, "Parhyale_H2B-EGFP_images_tp01-50.tif")
     assert os.path.exists(raw_path)
     # the raw stack is a 4D ImageJ hyperstack over 50 timepoints (tp, z, y, x);
-    # reference parhyale_regen.py:28 reads it with imageio. Without a
-    # tifffile backend the pages come back flattened as (tp * z, y, x), so
-    # restore the timepoint axis from the known count.
-    raw = np.asarray(iio.imread(raw_path))
+    # reference parhyale_regen.py:28 reads it with imageio. load_image reads its
+    # pages one by one through PIL, flattened as (tp * z, y, x), so restore the
+    # timepoint axis from the known count.
+    raw = np.asarray(load_image(raw_path))
     n_tps = 50
     if raw.ndim == 3 and raw.shape[0] != n_tps and raw.shape[0] % n_tps == 0:
         raw = raw.reshape(n_tps, raw.shape[0] // n_tps, *raw.shape[1:])

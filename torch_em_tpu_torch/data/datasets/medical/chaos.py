@@ -1,8 +1,8 @@
 """CHAOS dataset: abdominal organ segmentation in CT and MRI
 (reference torch_em/data/datasets/medical/chaos.py).
 
-Located at https://zenodo.org/records/3431873; conversion from dicom
-requires the optional pydicom package.
+Located at https://zenodo.org/records/3431873; the DICOM slices are read by
+the port's own reader (``utils/dicom.py``), with no pydicom.
 """
 
 import os
@@ -13,6 +13,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils import dicom
 from ....utils.io import load_image
 from ....utils.medical_io import save_nifti
 from .. import util
@@ -43,8 +44,6 @@ def get_chaos_data(path: Union[os.PathLike, str], split: str = "train",
 
 def _open_image(input_path):
     if os.path.splitext(input_path)[-1] == ".dcm":
-        import pydicom as dicom
-
         return dicom.dcmread(input_path).pixel_array
     return np.asarray(load_image(input_path))
 

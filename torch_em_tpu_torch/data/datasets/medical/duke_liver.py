@@ -2,8 +2,8 @@
 (reference torch_em/data/datasets/medical/duke_liver.py).
 
 The data must be requested at https://doi.org/10.5281/zenodo.7774566
-(Segmentation.zip); conversion from dicom requires the optional pydicom
-package.
+(Segmentation.zip); the DICOM series are read by the port's own reader
+(``utils/dicom.py``), with no pydicom.
 """
 
 import os
@@ -14,6 +14,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils import dicom
 from ....utils.medical_io import save_nifti
 from .. import util
 
@@ -39,10 +40,6 @@ def _preprocess_data(path, data_dir):
         return (util.natsorted(glob(os.path.join(preprocess_dir, "images", "*.nii.gz"))),
                 util.natsorted(glob(os.path.join(preprocess_dir, "masks", "*.nii.gz"))))
 
-    try:
-        import pydicom as dicom
-    except ImportError as e:
-        raise ImportError("pydicom is required to convert the Duke Liver dicom data.") from e
     os.makedirs(os.path.join(preprocess_dir, "images"), exist_ok=True)
     os.makedirs(os.path.join(preprocess_dir, "masks"), exist_ok=True)
 

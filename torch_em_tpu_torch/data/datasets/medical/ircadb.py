@@ -1,8 +1,8 @@
 """3D-IRCADb dataset: liver (and other organ) segmentation in CT
 (reference torch_em/data/datasets/medical/ircadb.py).
 
-From https://www.ircad.fr/research/data-sets/; conversion from dicom
-requires the optional pydicom package.
+From https://www.ircad.fr/research/data-sets/; the DICOM series are read by the
+port's own reader (``utils/dicom.py``), with no pydicom.
 """
 
 import os
@@ -14,6 +14,7 @@ import numpy as np
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
 from .. import util
+from ....utils import dicom
 from ....utils.io import _h5py
 
 URL = "https://cloud.ircad.fr/index.php/s/JN3z7EynBiwYyjy/download"
@@ -21,10 +22,6 @@ CHECKSUM = None  # the server produces varying archives
 
 
 def _preprocess_inputs(path):
-    try:
-        import pydicom as dicom
-    except ImportError as e:
-        raise ImportError("pydicom is required to convert the 3D-IRCADb dicom data.") from e
     h5py = _h5py()
 
     data_dir = os.path.join(path, "Dataset")

@@ -3,7 +3,8 @@
 
 Images from the OSIC pulmonary fibrosis kaggle competition; segmentations
 from https://www.kaggle.com/datasets/sandorkonya/ct-lung-heart-trachea-segmentation.
-Conversion from dicom requires the optional pydicom package.
+The DICOM scans are read by the port's own reader (``utils/dicom.py``), with
+no pydicom.
 """
 
 import json
@@ -16,6 +17,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils import dicom
 from ....utils.medical_io import load_nrrd, save_nifti
 from .. import util
 
@@ -45,13 +47,6 @@ def _preprocess_inputs(data_dir, split):
     os.makedirs(gt_dir, exist_ok=True)
     cpath = os.path.join(data_dir, "preprocessed", "confirmer.json")
     completed = os.path.exists(cpath)
-    if not completed:
-        # only the initial conversion needs the optional dicom reader; a
-        # completed preprocessed cache is consumed without it
-        try:
-            import pydicom as dicom
-        except ImportError as e:
-            raise ImportError("pydicom is required to convert the OSIC dicom scans.") from e
 
     image_paths, gt_paths = [], []
     for uid_path in util.natsorted(glob(os.path.join(data_dir, "train", "*"))):

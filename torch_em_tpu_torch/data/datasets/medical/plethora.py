@@ -3,8 +3,8 @@
 
 Publication: https://doi.org/10.1002/mp.14424. Images are NSCLC-Radiomics CTs
 fetched via a TCIA manifest; ground truth is nifti per task ('thoracic' /
-'pleural_effusion'). Reading the DICOM series requires the optional
-``pydicom`` package.
+'pleural_effusion'). The DICOM series are read by the port's own reader
+(``utils/dicom.py``), with no pydicom.
 """
 
 import os
@@ -17,6 +17,7 @@ import numpy as np
 
 from ... import DataLoader
 from ....segmentation import default_segmentation_dataset, get_data_loader
+from ....utils import dicom
 from ....utils.medical_io import load_nifti, save_nifti
 from .. import util
 
@@ -100,10 +101,6 @@ def _assort_plethora_inputs(image_dir, gt_dir, task, csv_path):
             continue
 
         if not os.path.exists(vol_path):
-            try:  # only needed when the series still has to be converted
-                import pydicom as dicom
-            except ImportError:
-                raise ImportError("The 'pydicom' package is required to read the PLETHORA DICOM series.")
             all_slices = [dicom.dcmread(p).pixel_array
                           for p in util.natsorted(glob(os.path.join(series_uid_dir, "*.dcm")))]
             volume = np.stack(all_slices).transpose(1, 2, 0)

@@ -15,10 +15,10 @@ file; ``open_container`` opens an HDF5 file; ``get_dataset_shape`` and
 and written through its transpose, in C order. HDF5 goes through the port's own
 reader and writer (``utils/hdf5.py``, numpy and zlib), never h5py; zarr and N5 through
 ``utils/zarr_n5.py`` (numpy, the standard library's codecs and the native blosc build),
-never tensorstore, whose name ``LazyTensorStore`` keeps as the JAX package's does; PIL and
-imageio are imported only inside the functions that need them, which raise an
-``ImportError`` naming the package where it is missing. ``write_data`` writes no medical
-format (``medical_io``'s writers do), as in the JAX package.
+never tensorstore, whose name ``LazyTensorStore`` keeps as the JAX package's does; image files
+are read and written through PIL (with no imageio), imported only inside the functions that
+need it, which raise an ``ImportError`` naming it where it is missing. ``write_data`` writes no
+medical format (``medical_io``'s writers do), as in the JAX package.
 """
 
 import os
@@ -62,14 +62,6 @@ def _pil_draw():
     except ImportError as e:
         raise ImportError("drawing annotations needs PIL (Pillow), which is not installed") from e
     return ImageDraw
-
-
-def _imageio():
-    try:
-        import imageio.v3 as iio
-    except ImportError as e:
-        raise ImportError("writing image files needs imageio, which is not installed") from e
-    return iio
 
 
 def _extension(path) -> str:
@@ -256,7 +248,7 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
                chunks: Optional[Tuple[int, ...]] = None) -> None:
     """Write an array into an HDF5 container (gzip, replacing ``key``), a zarr or N5 container
     (replacing ``key``; N5's ``dimensions`` and ``blockSize`` column-major), a ``.npy`` file or
-    an image file (imageio)."""
+    an image file (PIL; see ``_write_image``)."""
     ext = _extension(path)
     if ext in HDF5_EXTENSIONS:
         with _h5py().File(path, "a") as f:
@@ -273,7 +265,7 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
         np.save(path, data)
         return
     if ext in IMAGE_EXTENSIONS:
-        _imageio().imwrite(path, data)
+        _write_image(path, data)
         return
     if str(path).lower().endswith(MEDICAL_EXTENSIONS):
         raise NotImplementedError(
@@ -281,6 +273,51 @@ def write_data(path: Union[str, os.PathLike], key: Optional[str], data: np.ndarr
             "utils/medical_io.py (save_nifti, save_mha, save_mrc, save_nrrd)."
         )
     raise ValueError(f"Unsupported output format: {ext} ({path}).")
+
+
+# the PIL modes that each image format stores and reads back as they were written (JPEG: through its lossy codec)
+IMAGE_MODES = {".png": ("1", "L", "I;16", "RGB", "RGBA"), ".tif": ("1", "L", "I;16", "I", "F", "RGB", "RGBA"),
+               ".tiff": ("1", "L", "I;16", "I", "F", "RGB", "RGBA"), ".bmp": ("1", "L", "RGB"),
+               ".jpg": ("L", "RGB"), ".jpeg": ("L", "RGB")}
+_GREY_MODES = {np.dtype(bool): "1", np.dtype(np.uint8): "L", np.dtype(np.uint16): "I;16", np.dtype(np.int32): "I",
+               np.dtype(np.float32): "F"}
+
+
+def _image_mode(dtype: np.dtype, shape: Tuple[int, ...]) -> Optional[str]:
+    """The PIL mode of one image (page) of ``dtype`` and ``shape``, or None."""
+    if len(shape) == 2:
+        return _GREY_MODES.get(dtype)
+    if len(shape) == 3 and dtype == np.uint8 and shape[-1] in (3, 4):
+        return "RGB" if shape[-1] == 3 else "RGBA"
+    return None
+
+
+def _write_image(path: Union[str, os.PathLike], data: np.ndarray) -> None:
+    """Write an image file through PIL: a 2-D ``bool``, ``uint8``, ``uint16``, ``int32`` or ``float32`` image,
+    an (H, W, 3) or (H, W, 4) ``uint8`` RGB or RGBA image, or (TIFF only) a stack of either along the first axis
+    as a multi-page TIFF, which ``load_image`` reads back as the same array. A dtype, shape or format that PIL
+    does not store as written raises ``ValueError`` naming it (``IMAGE_MODES``)."""
+    ext = _extension(path)
+    data = np.asarray(data)
+    if ext not in IMAGE_MODES:
+        raise ValueError(f"write_image writes {', '.join(IMAGE_MODES)}, not {ext} ({path})")
+    mode = _image_mode(data.dtype, data.shape)
+    pages = [data]
+    if mode is None and data.ndim >= 3:
+        mode = _image_mode(data.dtype, data.shape[1:])
+        pages = list(data)
+        if mode is not None and ext not in (".tif", ".tiff"):
+            raise ValueError(f"a stack of {data.shape[0]} images {data.shape[1:]} ({data.dtype}) is written as a "
+                             f"multi-page TIFF, not as {ext} ({path})")
+    if mode is None or mode not in IMAGE_MODES[ext]:
+        raise ValueError(f"PIL does not write an image of dtype {data.dtype} and shape {data.shape} as {ext} "
+                         f"({path}); {ext} stores the modes {', '.join(IMAGE_MODES[ext])}")
+    Image = _pil_image()
+    images = [Image.fromarray(np.ascontiguousarray(page)) for page in pages]
+    if len(images) == 1:
+        images[0].save(path)
+    else:
+        images[0].save(path, save_all=True, append_images=images[1:])
 
 
 def get_dataset_shape(path: Union[str, os.PathLike], key: Optional[str] = None) -> Tuple[int, ...]:
