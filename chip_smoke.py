@@ -155,21 +155,31 @@ toolkit. Phases, each announced by a flushed ``[smoke +Ns] <phase>`` line:
    with two replicas on the card against one, and ``validate_checkpoint``
    with two ids;
 16. the Shallow2Deep recipe with no sklearn (the phase fails where it was
-   imported): (a) ``fit_forest`` refits every forest fixture of
-   ``scripts/make_forest_fixtures.py`` (data made anew from their seeds) and
-   holds each against sklearn's recorded trees node for node, with each
-   fit's seconds; (b) ``prepare_shallow2deep`` refits the committed forests
+   imported, and where a ``sklearn`` module stands in ``sys.modules`` at its
+   end): (a) ``fit_forest`` refits every forest fixture of
+   ``scripts/make_forest_fixtures.py`` (data made anew from their seeds; every
+   argument of ``RandomForestClassifier``: class weights, best-first trees,
+   pruning, the out-of-bag score, warm start, monotonic constraints) and
+   holds each against sklearn's recorded trees node for node, the
+   out-of-bag arrays bitwise, with each fit's seconds; (b)
+   ``prepare_shallow2deep`` refits the committed forests
    of ``scripts/s2d_forests/`` by their recipe (``scripts/torch_s2d_forests.py``:
-   seed 0, one thread, 4 forests of 10 trees, 128-192 pixel patches), with
+   seed 0, one thread, 4 forests of 10 trees, 128-192 pixel patches), writes
+   each as ``.npz`` and as sklearn's ``.pkl`` (no sklearn), with
    its seconds, whether its features' sha256 equals the one recorded on the
    CPU, and whether the forests equal the committed ones node for node
-   (unequal trees fail where the features are equal); (c)
+   (unequal trees fail where the features are equal); (d) the committed
+   sklearn pickles of the fixtures (``sklearn_pickles.zip``) read with
+   ``load_forest`` node for node against their ``.npz`` records, the port's
+   pickle of one refitted fixture against the sha256 recorded on the CPU,
+   (b)'s pickles against their ``.npz``, and the ms of reading and writing
+   a pickle of (b)'s size; (c)
    ``prepare_shallow2deep_advanced`` with ``worst_tiles``, 2 stages of 2
    forests of 10 trees, its stage-2 sample counts checked and every forest's
    probabilities in [0, 1], with its seconds; per 256x256 patch the host's
    ms in the filter bank and in ``predict_proba`` of (b)'s forests; the
    enhancer ``UNet2d(1, 1, depth 4, f=64, Sigmoid)`` on (b)'s forests'
-   predictions
+   predictions, read from their ``.pkl`` files,
    through ``get_shallow2deep_loader`` over the script's eight 512x512
    images (forest probabilities in, foreground out), bf16, batch 8 of
    256x256, DiceLoss, AdamW 1e-4, 8 iterations and 2 more after
@@ -3552,9 +3562,54 @@ def s2d_host_costs(prepare, forests, raw):
     return {"filter_bank_ms": float(np.median(bank_ms)), "predict_proba_ms": float(np.median(forest_ms))}
 
 
+def s2d_pickles(paths, tmp):
+    """16d, sklearn's pickles with no sklearn: the committed pickles of the fixtures read node for node against their
+    .npz records, the port's pickle of one refitted fixture against the sha256 recorded on the CPU, 16b's pickles
+    against their .npz, and the ms of reading and writing a pickle of 16b's size. Returns the stats."""
+    import make_forest_fixtures
+
+    from torch_em_tpu_torch.shallow2deep import load_forest, node_differences, save_forest_pickle
+
+    stats = {}
+    read = make_forest_fixtures.read_pickled_fixtures(os.path.join(tmp, "sklearn_pickles"))
+    wrong = {name: differences for name, (differences, _) in read.items() if differences}
+    if wrong or sorted(read) != sorted(make_forest_fixtures.PICKLED_CASES):
+        raise AssertionError(f"16d the committed sklearn pickles read as {sorted(read)}, differing in {wrong}")
+    stats["fixture_pickle_read_ms"] = {name: seconds * 1e3 for name, (_, seconds) in read.items()}
+    with open(make_forest_fixtures.PICKLE_RECORD) as f:
+        recorded = json.load(f)["sha256"]
+    digest = make_forest_fixtures.port_pickle(os.path.join(tmp, "port_fixture.pkl"))
+    if digest != recorded:
+        raise AssertionError(f"16d the port's pickle of {make_forest_fixtures.PICKLED_CASE} has sha256 {digest}, "
+                             f"the CPU's {recorded}")
+    for path in paths:
+        if node_differences(load_forest(path[:-len(".npz")] + ".pkl"), load_forest(path)):
+            raise AssertionError(f"16d {os.path.basename(path)[:-4]}.pkl differs from its .npz")
+    forest, reads, writes = load_forest(paths[0]), [], []
+    for k in range(5):
+        target = os.path.join(tmp, f"timed_{k}.pkl")
+        t = time.perf_counter()
+        save_forest_pickle(forest, target)
+        writes.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        load_forest(target)
+        reads.append(time.perf_counter() - t)
+    stats.update(pickle_write_ms=float(np.median(writes)) * 1e3, pickle_read_ms=float(np.median(reads)) * 1e3,
+                 pickle_bytes=os.path.getsize(target), pickle_nodes=len(forest.feature))
+    log(f"16d sklearn pickles with no sklearn: the {len(read)} committed sklearn pickles of the fixtures "
+        f"({', '.join(sorted(read))}) equal to their .npz records node for node, read in "
+        f"{min(stats['fixture_pickle_read_ms'].values()):.2f}-{max(stats['fixture_pickle_read_ms'].values()):.2f} ms; "
+        f"the port's pickle of {make_forest_fixtures.PICKLED_CASE} has the CPU's sha256 {digest[:16]}...; 16b's "
+        f"{len(paths)} pickles equal their .npz; a forest of 16b ({forest.n_estimators} trees, {len(forest.feature)} "
+        f"nodes, {stats['pickle_bytes']} bytes) written in {stats['pickle_write_ms']:.2f} ms and read in "
+        f"{stats['pickle_read_ms']:.2f} ms (medians of 5)")
+    return stats
+
+
 def s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp):
     """Phase 16's forest fits with no sklearn: (a) the fixtures of scripts/make_forest_fixtures.py node for node,
-    (b) the committed forests' recipe, (c) the advanced path with worst_tiles. Returns (b)'s paths and the stats."""
+    (b) the committed forests' recipe, (d) sklearn's pickles, (c) the advanced path with worst_tiles. Returns (b)'s
+    .npz paths and the stats."""
     from torch_em_tpu_torch.ops.native import load_forest_library
     from torch_em_tpu_torch.shallow2deep import ForegroundTransform, load_forest
 
@@ -3583,7 +3638,8 @@ def s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp):
         raise AssertionError(f"16a found {len(fits)} forest fixtures")
     stats["fixture_fit_s"] = fits
     log(f"16a fit_forest on the {len(fits)} forest fixtures: every forest equal to sklearn 1.9's node for node "
-        f"(thresholds bitwise); fit seconds " + ", ".join(f"{k} {v:.4f}" for k, v in fits.items())
+        f"(thresholds bitwise, out-of-bag arrays bitwise); fit seconds " + ", ".join(f"{k} {v:.4f}"
+                                                                                     for k, v in fits.items())
         + f"; forest.cpp built and loaded in {stats['forest_build_s']:.2f} s")
 
     # 16b: the committed forests' recipe, refitted here
@@ -3602,6 +3658,7 @@ def s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp):
     if not same_features:
         log("16b this machine's filter bank differs from the CPU's in some bit, so its forests may too; 16a's "
             "fixtures are the gate of the fit")
+    stats.update(s2d_pickles(paths, tmp))
 
     # 16c: the advanced path, worst_tiles, the stage-2 sample counts checked
     strategy_inputs = {}
@@ -3658,8 +3715,10 @@ def phase_shallow2deep(port, inorm):
     stats = {}
     with tempfile.TemporaryDirectory() as tmp:
         (raw_path, label_path), test_raw, test_labels = s2d_data(tmp)
-        rf_paths, fit_stats = s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp)
+        npz_paths, fit_stats = s2d_forest_fits(prepare, raw_path, label_path, test_raw, tmp)
         stats.update(fit_stats)
+        # the enhancer trains from the sklearn pickles the port wrote, as the JAX package's enhancers do
+        rf_paths = [p[:-len(".npz")] + ".pkl" for p in npz_paths]
         forests = [load_forest(p) for p in rf_paths]
         default_config = prepare._serialize_feature_config(prepare._get_filters(2, None))
         if len(forests) != 4 or any(f.feature_config != default_config or f.n_features_in_ != 28 for f in forests):
@@ -3806,6 +3865,8 @@ def phase_shallow2deep(port, inorm):
             raise AssertionError("a SegmentationDataset patch of the NIfTI volume does not match its labels")
         log(f"medical formats: {S2D_MEDICAL} float32 as .nii.gz and .mha read back bitwise through load_data; a "
             f"SegmentationDataset patch {patch.shape} of the .nii.gz")
+    if sys.modules.get("sklearn") is not None:
+        raise AssertionError("phase 16 imported sklearn")
     stats["norm_launches"] = [launches[0] + predict_launches[0], launches[1]]
     stats["phase_s"] = time.perf_counter() - t_phase
     log(f"Shallow2Deep: {json.dumps(stats)}; {nvidia_smi()}")

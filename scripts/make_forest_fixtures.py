@@ -34,14 +34,18 @@ three, with 1 and 4 threads.
 import argparse
 import hashlib
 import json
+import os
 import sys
 import time
 import warnings
+import zipfile
 from pathlib import Path
 
 import numpy as np
 
-OUT = Path(__file__).resolve().parent / "records" / "forest"
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+OUT = REPO / "scripts" / "records" / "forest"
 N_SAMPLES = 600
 # name, labels ("binary": {0, 1}; "three": {0, 2, 5}), data seed, RandomForestClassifier kwargs, global seed (or None)
 FOREST_CASES = (
@@ -55,7 +59,44 @@ FOREST_CASES = (
     ("depth6_leaf3", "three", 7, dict(n_estimators=5, max_depth=6, min_samples_leaf=3, random_state=7), None),
     ("min_impurity_decrease", "binary", 8, dict(n_estimators=5, min_impurity_decrease=0.002, random_state=8), None),
     ("global_random_state", "three", 9, dict(n_estimators=5), 13),
+    # the rest of RandomForestClassifier's arguments, on forests of 2 trees (4 for the out-of-bag score), most of
+    # them cut to a depth that keeps the records small
+    ("class_weight_balanced", "binary", 10,
+     dict(n_estimators=2, class_weight="balanced", max_depth=6, random_state=10), None),
+    ("class_weight_balanced_no_bootstrap", "three", 11,
+     dict(n_estimators=2, class_weight="balanced", bootstrap=False, max_depth=6, random_state=11), None),
+    ("class_weight_subsample", "three", 12,
+     dict(n_estimators=2, class_weight="balanced_subsample", max_depth=6, random_state=12), None),
+    ("class_weight_subsample_no_bootstrap", "binary", 13,
+     dict(n_estimators=2, class_weight="balanced_subsample", bootstrap=False, max_depth=6, random_state=13), None),
+    ("class_weight_dict_max_samples", "binary", 14,
+     dict(n_estimators=2, class_weight={0: 2.5, 1: 0.7}, max_samples=0.5, random_state=14), None),
+    ("class_weight_dict_no_bootstrap", "three", 15,
+     dict(n_estimators=2, class_weight={0: 1.3, 2: 0.4, 5: 3.1}, bootstrap=False, max_depth=6, random_state=15),
+     None),
+    ("entropy_class_weight", "three", 16,
+     dict(n_estimators=2, criterion="entropy", class_weight="balanced_subsample", max_depth=6, random_state=16),
+     None),
+    ("max_leaf_nodes_2", "binary", 17, dict(n_estimators=2, max_leaf_nodes=2, random_state=17), None),
+    ("max_leaf_nodes_7", "three", 18, dict(n_estimators=2, max_leaf_nodes=7, random_state=18), None),
+    ("max_leaf_nodes_50", "binary", 19, dict(n_estimators=2, max_leaf_nodes=50, random_state=19), None),
+    ("ccp_alpha", "three", 20, dict(n_estimators=2, ccp_alpha=0.004, random_state=20), None),
+    ("ccp_alpha_stump", "binary", 21, dict(n_estimators=2, ccp_alpha=0.5, random_state=21), None),
+    ("oob_score", "three", 22, dict(n_estimators=4, oob_score=True, max_depth=5, random_state=22), None),
+    ("warm_start", "binary", 23, dict(n_estimators=2, warm_start=True, max_depth=6, random_state=23), None),
+    ("monotonic_cst", "binary", 24,
+     dict(n_estimators=2, monotonic_cst=[1, 0, 0, -1, 0, 1, 0, 0], max_depth=8, random_state=24), None),
 )
+# the cases whose sklearn pickles are committed (in PICKLES), one of each kind of tree and forest attribute; the
+# tests pickle every case with sklearn where it is installed
+PICKLED_CASES = ("class_weight_subsample", "class_weight_dict_max_samples", "max_leaf_nodes_7", "ccp_alpha",
+                 "oob_score", "monotonic_cst")
+# the fixture whose forest the port refits and pickles, the sha256 of that pickle recorded in PICKLE_RECORD
+PICKLED_CASE = "class_weight_dict_max_samples"
+PICKLES = OUT / "sklearn_pickles.zip"
+PICKLE_RECORD = OUT / "pickle_sha256.json"
+# the Shallow2Deep metadata the pickled fixtures carry, as the JAX package's forests do
+PICKLE_CONFIG = [["gaussianSmoothing", 0.7], ["structureTensorEigenvalues", [0.7, 1.4]]]
 
 
 def fixture_data(labels: str, seed: int, n: int = N_SAMPLES):
@@ -144,16 +185,22 @@ def score_kwargs(kwargs, labels):
     return {k: np.asarray(labels[W]) if v == W else v for k, v in kwargs.items()}
 
 
-def refit_fixture(path, n_jobs=1):
+def case_kwargs(recorded: str) -> dict:
+    """A case's RandomForestClassifier kwargs from their JSON record (a class_weight dict's keys back as ints)."""
+    kwargs = json.loads(recorded)
+    if isinstance(kwargs.get("class_weight"), dict):
+        kwargs["class_weight"] = {int(k): v for k, v in kwargs["class_weight"].items()}
+    return kwargs
+
+
+def refit(path, n_jobs=1):
     """Refit a forest fixture with the port, no sklearn: the data made anew (their sha256 checked),
-    the global seed set where the case sets one. Returns the arrays in which the port's forest
-    differs from sklearn's (none when equal node for node), whether the next global draw equals
-    sklearn's (None where the case sets no global seed), and the fit's seconds."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from torch_em_tpu_torch.shallow2deep.forest import fit_forest, load_forest, node_differences
+    the global seed set where the case sets one. Returns the forest, whether the next global draw
+    equals sklearn's (None where the case sets no global seed), and the fit's seconds."""
+    from torch_em_tpu_torch.shallow2deep.forest import fit_forest
 
     with np.load(path) as f:
-        kwargs, labels, seed = json.loads(str(f["kwargs"])), str(f["labels"]), int(f["data_seed"])
+        kwargs, labels, seed = case_kwargs(str(f["kwargs"])), str(f["labels"]), int(f["data_seed"])
         sha, global_seed, next_draw = str(f["data_sha256"]), int(f["global_seed"]), int(f["next_draw"])
     x, y = fixture_data(labels, seed)
     if data_sha256(x, y) != sha:
@@ -161,16 +208,76 @@ def refit_fixture(path, n_jobs=1):
     if global_seed >= 0:
         np.random.seed(global_seed)
     t = time.perf_counter()
-    forest = fit_forest(x, y, n_jobs=n_jobs, **kwargs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # sklearn's warnings on few out-of-bag trees, small bootstraps
+        forest = fit_forest(x, y, n_jobs=n_jobs, **kwargs)
     seconds = time.perf_counter() - t
     same_draw = bool(np.random.randint(2 ** 31) == next_draw) if global_seed >= 0 else None
-    return node_differences(forest, load_forest(str(path))), same_draw, seconds
+    return forest, same_draw, seconds
+
+
+def oob_differences(forest, path) -> list:
+    """The out-of-bag attributes in which ``forest`` differs from those recorded in a fixture (bitwise)."""
+    with np.load(path) as f:
+        if "oob_decision_function" not in f.files:
+            return []
+        recorded = {"oob_score_": f["oob_score"], "oob_decision_function_": f["oob_decision_function"]}
+    return [k for k, v in recorded.items() if getattr(forest, k) is None or
+            not np.array_equal(np.asarray(getattr(forest, k)).view(np.int64), v.view(np.int64))]
+
+
+def refit_fixture(path, n_jobs=1):
+    """Refit a forest fixture with the port, no sklearn (``refit``). Returns the arrays and out-of-bag
+    attributes in which the port's forest differs from sklearn's (none when equal node for node),
+    whether the next global draw equals sklearn's (None where the case sets no global seed), and the
+    fit's seconds."""
+    from torch_em_tpu_torch.shallow2deep.forest import load_forest, node_differences
+
+    forest, same_draw, seconds = refit(path, n_jobs)
+    return node_differences(forest, load_forest(str(path))) + oob_differences(forest, path), same_draw, seconds
+
+
+def pickle_config():
+    return [(name, tuple(sigma) if isinstance(sigma, list) else sigma) for name, sigma in PICKLE_CONFIG]
+
+
+def port_pickle(out_path):
+    """Refit ``PICKLED_CASE`` with the port and write its sklearn pickle (``save_forest_pickle``, no sklearn)
+    with the Shallow2Deep metadata to ``out_path``. Returns the pickle's sha256."""
+    from torch_em_tpu_torch.shallow2deep.forest import save_forest_pickle
+
+    forest, _, _ = refit(OUT / f"{PICKLED_CASE}.npz")
+    forest.feature_ndim, forest.feature_config = 2, pickle_config()
+    save_forest_pickle(forest, out_path)
+    return hashlib.sha256(Path(out_path).read_bytes()).hexdigest()
+
+
+def read_pickled_fixtures(folder):
+    """Unpack the committed sklearn pickles of the fixtures into ``folder`` and read each with the port
+    (``load_forest``, no sklearn). Returns, for each case, what differs from its ``.npz`` (the node arrays,
+    the out-of-bag attributes, the Shallow2Deep metadata; none when equal) and the seconds of the read."""
+    from torch_em_tpu_torch.shallow2deep.forest import load_forest, node_differences
+
+    with zipfile.ZipFile(PICKLES) as archive:
+        archive.extractall(folder)
+        names = sorted(archive.namelist())
+    out = {}
+    for name in names:
+        case = name[:-len(".pkl")]
+        t = time.perf_counter()
+        forest = load_forest(os.path.join(folder, name))
+        seconds = time.perf_counter() - t
+        npz = OUT / f"{case}.npz"
+        differences = node_differences(forest, load_forest(str(npz))) + oob_differences(forest, npz)
+        if forest.feature_ndim != 2 or forest.feature_config != pickle_config():
+            differences.append("feature_config")
+        out[case] = (differences, seconds)
+    return out
 
 
 def score_errors(record=OUT / "classification_scores.json"):
     """For each recorded case, its name, arguments and the port's absolute error against sklearn's
     value: the score of ``classification/scores.py`` and 1 minus ``ClassificationMetric``'s value."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from torch_em_tpu_torch.classification import ClassificationMetric
     from torch_em_tpu_torch.classification.scores import SCORES
 
@@ -192,18 +299,20 @@ def score_errors(record=OUT / "classification_scores.json"):
 
 
 def main():
+    import pickle
+
     import numpy
     import sklearn
     import sklearn.metrics
     from sklearn.ensemble import RandomForestClassifier
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from torch_em_tpu_torch.shallow2deep.forest import forest_from_sklearn, save_forest
     from torch_s2d_forests import fit_forests
 
     warnings.filterwarnings("ignore")
     OUT.mkdir(parents=True, exist_ok=True)
+    pickles = {}
     for name, labels, seed, kwargs, global_seed in FOREST_CASES:
         x, y = fixture_data(labels, seed)
         if global_seed is not None:
@@ -214,12 +323,29 @@ def main():
         save_forest(forest_from_sklearn(rf), str(path))
         with np.load(path) as f:
             arrays = dict(f)
+        if kwargs.get("oob_score"):
+            arrays.update(oob_score=np.float64(rf.oob_score_), oob_decision_function=rf.oob_decision_function_)
         np.savez_compressed(path, **arrays, kwargs=np.str_(json.dumps(kwargs)), labels=np.str_(labels),
                             data_seed=seed, data_sha256=np.str_(data_sha256(x, y)),
                             global_seed=-1 if global_seed is None else global_seed, next_draw=next_draw,
                             sklearn_version=np.str_(sklearn.__version__), numpy_version=np.str_(numpy.__version__))
+        # the pickle as the JAX package writes it: the forest with its Shallow2Deep metadata, pickle.dump's protocol
+        rf.feature_ndim, rf.feature_config = 2, pickle_config()
+        if name in PICKLED_CASES:
+            pickles[f"{name}.pkl"] = pickle.dumps(rf)
         print(f"{name}: {len(rf.estimators_)} trees, {sum(e.tree_.node_count for e in rf.estimators_)} nodes, "
               f"{path.stat().st_size} bytes")
+    with zipfile.ZipFile(PICKLES, "w", zipfile.ZIP_DEFLATED, compresslevel=9) as archive:
+        for name in sorted(pickles):
+            archive.writestr(zipfile.ZipInfo(name, date_time=(2020, 1, 1, 0, 0, 0)), pickles[name],
+                             compress_type=zipfile.ZIP_DEFLATED, compresslevel=9)
+    print(f"{PICKLES.name}: {len(pickles)} pickles, {PICKLES.stat().st_size} bytes")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        digest = port_pickle(os.path.join(tmp, "rf.pkl"))
+    with open(PICKLE_RECORD, "w") as f:
+        json.dump({"case": PICKLED_CASE, "sha256": digest, "numpy_version": numpy.__version__}, f, indent=1)
+    print(f"{PICKLE_RECORD.name}: the port's pickle of {PICKLED_CASE}, sha256 {digest}")
 
     labels = score_labels()
     cases = []
@@ -245,7 +371,6 @@ def time_cpu(n=32768, d=28, n_estimators=100):
     """Best-of-three seconds of sklearn's fit and the port's on this CPU, with 1 and 4 threads."""
     from sklearn.ensemble import RandomForestClassifier
 
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from torch_em_tpu_torch.shallow2deep.forest import fit_forest, forest_from_sklearn, node_differences
 
     rs = np.random.RandomState(0)

@@ -1,7 +1,7 @@
 """Fit the Shallow2Deep forests that ``chip_smoke.py`` phase 16 trains its enhancer on, with the port alone.
 
     python3 scripts/torch_s2d_forests.py --check         # refit and compare with scripts/s2d_forests/
-    python3 scripts/torch_s2d_forests.py -o OUT --seed 0  # refit and write OUT/rf_XXXX.npz
+    python3 scripts/torch_s2d_forests.py -o OUT --seed 0  # refit and write OUT/rf_XXXX.npz and .pkl
 
 Needs no scikit-learn: the port's ``prepare_shallow2deep`` fits with
 ``shallow2deep.forest.fit_forest``, which gives sklearn's trees node for node.
@@ -76,8 +76,9 @@ def _digest_of_fits(prepare, digest):
 
 
 def fit_forests(out: str, seed: int = 0):
-    """Fit the forests with the port and write their ``.npz`` files to ``out``. Returns the paths,
-    the sha256 of the forests' features and labels, and the seconds of ``prepare_shallow2deep``."""
+    """Fit the forests with the port and write their ``.npz`` files and sklearn pickles (``.pkl``, written
+    without sklearn) to ``out``. Returns the ``.npz`` paths, the sha256 of the forests' features and
+    labels, and the seconds of ``prepare_shallow2deep``."""
     prepare = importlib.import_module("torch_em_tpu_torch.shallow2deep.prepare_shallow2deep")
     raw, labels = s2d_images(seed)
     os.makedirs(out, exist_ok=True)
@@ -97,7 +98,8 @@ def fit_forests(out: str, seed: int = 0):
         paths = []
         for i in range(N_FORESTS):
             paths.append(os.path.join(out, f"rf_{i:04d}.npz"))
-            shutil.copyfile(os.path.join(tmp, "rfs", f"rf_{i:04d}.npz"), paths[-1])
+            for ext in (".npz", ".pkl"):
+                shutil.copyfile(os.path.join(tmp, "rfs", f"rf_{i:04d}{ext}"), os.path.join(out, f"rf_{i:04d}{ext}"))
     return paths, digest.hexdigest(), seconds
 
 

@@ -23,15 +23,17 @@ napari, sklearn and wandb; the classification package's metrics in numpy, the ac
 matplotlib and onnx blocked too, a committed ``.npz`` forest loads, a ``Shallow2DeepDataset``
 gives its items, and a trainer's checkpoint exports to a bioimage.io package (its rdf as JSON
 text) and imports back; ``prepare_shallow2deep`` (with tqdm, which the card has) and
-``prepare_shallow2deep_advanced`` fit forests natively and write them as ``.npz``, a classification
-trainer validates with the macro F1 score in numpy; reading a pickled forest and a classification score
-the port does not compute raise naming scikit-learn, ``prepare_shallow2deep`` without tqdm tqdm,
+``prepare_shallow2deep_advanced`` fit forests natively and write them as ``.npz`` and as sklearn's
+pickle, which loads back with the same trees, a classification trainer validates with the macro F1
+score in numpy; a classification score the port does not compute raises naming scikit-learn,
+``prepare_shallow2deep`` without tqdm tqdm,
 ``evaluate_enhancers`` pandas, ``check_loader`` matplotlib and the ONNX conversion onnx. Those
 packages, and the dataset zoo's download and conversion packages (requests, gdown, rarfile,
 kaggle, nd2, cloud-volume, s3fs and zarr, and the histopathology and medical readers' scanpy,
 huggingface_hub and tiffslide, blocked here too, with the zoo's every module imported, the 81
 light-microscopy, 24 histopathology and 60 medical readers among them), may be imported inside a
-function, never at module level. With pydicom, nibabel, imageio, pycocotools, geopandas, rasterio and
+function, never at module level; sklearn only inside ``forest.forest_to_sklearn`` and
+``ClassificationMetric``'s fallback. With pydicom, nibabel, imageio, pycocotools, geopandas, rasterio and
 shapely blocked (PIL and pandas let in) the port converts a small 3D-IRCADb (DICOM), UroCell (NIfTI),
 OrgLine (COCO), PUMA (GeoJSON) and HEST (GeoJSON and WKB) layout and writes a PNG and a TIFF; none of
 the seven is imported anywhere in the port. The native host library builds under
@@ -39,6 +41,7 @@ the seven is imported anywhere in the port. The native host library builds under
 ``TMPDIR``.
 """
 
+import ast
 import os
 import re
 import shutil
@@ -181,8 +184,8 @@ with tempfile.TemporaryDirectory() as tmp:
                                             config=modelzoo.get_shallow2deep_config("scripts/s2d_forests"))
     model, _ = modelzoo.import_bioimageio_model(tmp + "/pkg", device="cpu")
     assert open(tmp + "/pkg/rdf.yaml").read().startswith("{{")
-    # the forests are fitted natively and written as .npz alone; prepare_shallow2deep shows its progress with
-    # tqdm, which the card has
+    # the forests are fitted natively and written as .npz and as sklearn's pickle; prepare_shallow2deep shows
+    # its progress with tqdm, which the card has
     np.save(tmp + "/raw.npy", raw)
     np.save(tmp + "/labels.npy", (raw > 0.5).astype("uint8"))
     sys.modules.pop("tqdm")
@@ -192,9 +195,12 @@ with tempfile.TemporaryDirectory() as tmp:
     prepare_shallow2deep_advanced(tmp + "/raw.npy", None, tmp + "/labels.npy", None, (1, 24, 24), (1, 32, 32), 4, 1,
                                   tmp + "/advanced", 2, forests_per_stage=2, sample_fraction_per_stage=0.5,
                                   sampling_strategy="worst_tiles", n_estimators=3, random_state=0)
+    from torch_em_tpu_torch.shallow2deep import node_differences
     for folder, n in (("rfs", 2), ("advanced", 4)):
-        assert sorted(os.listdir(tmp + "/" + folder)) == ["rf_%04d.npz" % i for i in range(n)]
-        assert load_forest(tmp + "/" + folder + "/rf_0000.npz").n_estimators == 3
+        assert sorted(os.listdir(tmp + "/" + folder)) == sorted(["rf_%04d.npz" % i for i in range(n)] +
+                                                                ["rf_%04d.pkl" % i for i in range(n)])
+        npz, pkl = (load_forest(tmp + "/" + folder + "/rf_0000" + ext) for ext in (".npz", ".pkl"))
+        assert npz.n_estimators == 3 and node_differences(pkl, npz) == [] and pkl.feature_ndim == 2
     # a classification trainer validated with the macro F1 score
     from torch_em_tpu_torch import resnet3d_18
     from torch_em_tpu_torch.classification import default_classification_loader, default_classification_trainer
@@ -207,7 +213,6 @@ with tempfile.TemporaryDirectory() as tmp:
     assert 0.0 <= cls.current_metric <= 1.0
     for call, package in ((lambda: prepare_shallow2deep(None, None, None, None, (1, 8, 8), (1, 8, 8), 1, 1, tmp, 2),
                            "tqdm"),
-                          (lambda: load_forest(tmp + "/rf.pkl"), "scikit-learn"),
                           (lambda: evaluate_enhancers(raw, raw, {{}}, tmp, None), "pandas"),
                           (lambda: debug.check_loader(loader, 1), "matplotlib"),
                           (lambda: modelzoo.convert_to_onnx(tmp + "/pkg"), "onnx")):
@@ -291,6 +296,42 @@ def test_source_names_no_jax(path):
     assert not re.search(r"^\s*(from|import)\s+(pydicom|nibabel|imageio|pycocotools|geopandas|rasterio|shapely)\b"
                          r"|import_module\(.(pydicom|nibabel|imageio|pycocotools|geopandas|rasterio|shapely)",
                          text, flags=re.MULTILINE)
+
+
+# the only places where the port may import sklearn: building sklearn's forest object, and the classification
+# metrics that scores.SCORES does not compute
+SKLEARN_ALLOWED = {("torch_em_tpu_torch/shallow2deep/forest.py", "forest_to_sklearn"),
+                   ("torch_em_tpu_torch/classification/classification.py", "ClassificationMetric.__init__")}
+
+
+def _sklearn_imports(path):
+    """(file, the qualified name of the enclosing function) of each sklearn import in a source file."""
+    found = []
+
+    def visit(node, scope):
+        for child in ast.iter_child_nodes(node):
+            name = scope
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                name = f"{scope}.{child.name}" if scope else child.name
+            modules = []
+            if isinstance(child, ast.Import):
+                modules = [alias.name for alias in child.names]
+            elif isinstance(child, ast.ImportFrom):
+                modules = [child.module or ""]
+            elif isinstance(child, ast.Call) and getattr(child.func, "attr", getattr(child.func, "id", "")) in (
+                    "import_module", "__import__") and child.args and isinstance(child.args[0], ast.Constant):
+                modules = [str(child.args[0].value)]
+            if any(m == "sklearn" or m.startswith("sklearn.") for m in modules):
+                found.append((str(path.relative_to(REPO)), scope))
+            visit(child, name)
+
+    visit(ast.parse(path.read_text()), "")
+    return found
+
+
+def test_sklearn_imported_only_where_allowed():
+    found = [hit for path in _port_sources() for hit in _sklearn_imports(path)]
+    assert set(found) == SKLEARN_ALLOWED, found
 
 
 _BUILD_NATIVE = """

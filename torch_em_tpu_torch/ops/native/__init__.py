@@ -73,12 +73,14 @@ def load_forest_library() -> ctypes.CDLL:
     """Build ``forest.cpp`` (once per content hash) and load it with its signatures."""
     lib = ctypes.CDLL(str(compile_library("tem_forest", _find_gxx, HDBSCAN_FLAGS, [FOREST_SOURCE])))
     f32, f64, i32, i64 = (ctypes.POINTER(t) for t in (ctypes.c_float, ctypes.c_double, ctypes.c_int32, ctypes.c_int64))
-    lib.tem_forest_fit.argtypes = [f32, i32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, i32,
-                                   ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_int]
+    i8, u8, u32 = (ctypes.POINTER(t) for t in (ctypes.c_int8, ctypes.c_uint8, ctypes.c_uint32))
+    lib.tem_forest_fit.argtypes = [f32, i32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, f64,
+                                   ctypes.c_int64, f64, u32, ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64, ctypes.c_int64, ctypes.c_double, ctypes.c_int64, ctypes.c_double,
+                                   i8, ctypes.c_int]
     lib.tem_forest_fit.restype = ctypes.c_void_p
     lib.tem_forest_sizes.argtypes = [ctypes.c_void_p, i64]
-    lib.tem_forest_copy.argtypes = [ctypes.c_void_p, ctypes.c_int64, i64, f64, i64, i64, f64, f64, i64, f64]
+    lib.tem_forest_copy.argtypes = [ctypes.c_void_p, ctypes.c_int64, i64, f64, i64, i64, f64, f64, i64, f64, u8]
     lib.tem_forest_free.argtypes = [ctypes.c_void_p]
     for fn in (lib.tem_forest_sizes, lib.tem_forest_copy, lib.tem_forest_free):
         fn.restype = None

@@ -13,17 +13,17 @@ the JAX package does, and the forests are fitted by ``forest.fit_forest``,
 which gives scikit-learn's ``RandomForestClassifier`` trees node for node
 without sklearn: with one thread and the same seed, the forests equal the JAX
 package's. Each forest is written as ``rf_XXXX.npz`` (``forest.save_forest``)
-and, where sklearn can be imported, also pickled as the ``RandomForestClassifier``
-of the same trees (``forest.forest_to_sklearn``) as ``rf_XXXX.pkl`` with its
-``feature_ndim`` and ``feature_config``, so the folders of the two packages and
-of torch-em are interchangeable. ``prepare_shallow2deep`` shows its progress
-with tqdm, imported when it is called (an ``ImportError`` names it where it is
-missing). ``export_forests`` writes an ``.npz`` file beside each pickle of a
-folder fitted elsewhere.
+and as ``rf_XXXX.pkl``, the pickle of sklearn's ``RandomForestClassifier`` of
+the same trees with its ``feature_ndim`` and ``feature_config``
+(``forest.save_forest_pickle``, which needs no sklearn), so the folders of the
+two packages and of torch-em are interchangeable on either machine.
+``prepare_shallow2deep`` shows its progress with tqdm, imported when it is
+called (an ``ImportError`` names it where it is missing). ``export_forests``
+writes the other file of each forest of a folder fitted elsewhere: an ``.npz``
+beside a pickle, a pickle beside an ``.npz``.
 """
 
 import os
-import pickle
 from concurrent import futures
 from functools import partial
 from typing import Callable, Dict, Optional, Tuple, Union
@@ -33,7 +33,7 @@ import numpy as np
 from ..data import ConcatDataset, ImageCollectionDataset, SegmentationDataset
 from ..segmentation import check_paths, is_segmentation_dataset, samples_to_datasets
 from . import filters as filter_impl
-from .forest import fit_forest, forest_paths, forest_to_sklearn, load_forest, save_forest
+from .forest import fit_forest, load_forest, save_forest, save_forest_pickle
 
 __all__ = [
     "prepare_shallow2deep", "prepare_shallow2deep_advanced", "worst_points", "uncertain_points",
@@ -249,15 +249,10 @@ def _fit_forest(features, labels, ndim, feature_config, rf_kwargs):
 
 
 def _write_forest(forest, output_folder, rf_id):
-    """``rf_XXXX.npz``, and the sklearn pickle ``rf_XXXX.pkl`` of the same trees where sklearn is installed."""
+    """``rf_XXXX.npz`` and the sklearn pickle ``rf_XXXX.pkl`` of the same trees."""
     path = os.path.join(output_folder, f"rf_{rf_id:04d}")
     save_forest(forest, path + ".npz")
-    try:
-        import sklearn  # noqa: F401
-    except ImportError:
-        return
-    with open(path + ".pkl", "wb") as f:
-        pickle.dump(forest_to_sklearn(forest), f)
+    save_forest_pickle(forest, path + ".pkl")
 
 
 def prepare_shallow2deep(
@@ -270,7 +265,7 @@ def prepare_shallow2deep(
 ) -> None:
     """Fit ``n_forests`` random forests (``fit_forest`` with ``rf_kwargs``), each on the filter-bank
     features of one random patch, with ``n_threads`` threads, and write them as
-    ``output_folder/rf_XXXX.npz`` (and ``.pkl`` where sklearn is installed)."""
+    ``output_folder/rf_XXXX.npz`` and ``.pkl``."""
     tqdm = _tqdm()
     os.makedirs(output_folder, exist_ok=True)
     ds, filters_and_sigmas = _prepare_shallow2deep(
@@ -413,7 +408,7 @@ def prepare_shallow2deep_advanced(
     """Fit the forests stage by stage: the first stage on balanced patches, each later one on the
     samples that ``sampling_strategy`` picks by the previous stage's forests. Each forest keeps its
     ``train_features`` and ``train_labels``, which the strategies read, and is written as
-    ``output_folder/rf_XXXX.npz`` (and ``.pkl`` with them where sklearn is installed)."""
+    ``output_folder/rf_XXXX.npz`` and ``.pkl`` (the pickle with them)."""
     os.makedirs(output_folder, exist_ok=True)
     ds, filters_and_sigmas = _prepare_shallow2deep(
         raw_paths, raw_key, label_paths, label_key, patch_shape_min, patch_shape_max,
@@ -443,10 +438,16 @@ def prepare_shallow2deep_advanced(
 
 
 def export_forests(folder: str) -> list:
-    """Write ``rf_XXXX.npz`` (``forest.save_forest``) beside each ``rf_XXXX.pkl`` of ``folder``;
-    returns the ``.npz`` paths. Needs sklearn to read the pickles."""
+    """Write the file a forest of ``folder`` lacks: ``rf_XXXX.npz`` (``forest.save_forest``) beside each
+    ``rf_XXXX.pkl`` that has none, the sklearn pickle (``forest.save_forest_pickle``) beside each
+    ``.npz`` that has none. Returns the written paths, sorted. Needs no sklearn."""
+    names = set(os.listdir(folder))
     out = []
-    for path in forest_paths(folder, extensions=(".pkl",)):
-        out.append(os.path.splitext(path)[0] + ".npz")
-        save_forest(load_forest(path), out[-1])
-    return out
+    for name in sorted(names):
+        stem, ext = os.path.splitext(name)
+        other = {".pkl": ".npz", ".npz": ".pkl"}.get(ext)
+        if other is None or stem + other in names:
+            continue
+        out.append(os.path.join(folder, stem + other))
+        (save_forest if other == ".npz" else save_forest_pickle)(load_forest(os.path.join(folder, name)), out[-1])
+    return sorted(out)

@@ -7,8 +7,8 @@ package draws it, and the sample is (the forest's probabilities for
 ``rf_channels`` on the filter-bank features of the raw patch, the labels): the
 enhancer learns to turn a forest's prediction into the ground truth.
 
-``rf_paths`` may name pickled sklearn forests (``.pkl``, read through
-sklearn) or the port's ``.npz`` forests (``forest.py``, numpy only); either
+``rf_paths`` may name pickled sklearn forests (``.pkl``) or the port's
+``.npz`` forests; ``forest.load_forest`` reads both with numpy alone; either
 way the port computes the probabilities with ``Forest.predict_proba``, which
 equals sklearn's. A dataset keeps each forest it has loaded, which changes no
 draw. The forests, the filter config and the channels are constructor

@@ -5,7 +5,7 @@ The port's own copy of ``torch_em_tpu/shallow2deep/shallow2deep_eval.py``
 ``visualize_pretrained_rfs`` predicts an image with a subset of the
 ensemble; ``evaluate_enhancers`` scores enhancers on the predictions of
 each forest against ground truth. A folder's forests are its ``.npz`` files
-where it has any, else its ``.pkl`` files (read through sklearn). pandas is
+where it has any, else its ``.pkl`` files (read without sklearn). pandas is
 imported inside ``evaluate_enhancers``; the enhancers run on ``device``.
 """
 
